@@ -1,0 +1,307 @@
+#!/usr/bin/env python3
+"""Drives the PyTorch/CUDA port on one card, end to end.
+
+    python3 chip_smoke.py        # from the repo root, on a machine with a card
+
+Phases, in order; any failure ends the run with a non-zero exit and no
+result line:
+
+0. card: the card's name and power limit (nvidia-smi) and torch's name;
+1. build: the block-attention kernel (nvcc, sm_90a) and the interposer
+   (g++), side by side, from the sources in this checkout;
+2. kernel: `attention_block` against its plain version at the capture's
+   shape (8, 16, 512, 128) fp32 with TF32 off: zero bias, causal bias, a
+   fully masked row, two K/V blocks merged by `combine_blocks` against
+   exact attention, and bf16 inputs. Tolerance 1e-4 absolute on the
+   normalised output (the sums run in another order). Then the kernel's,
+   the plain version's and scaled_dot_product_attention's times;
+3. main path, with the launch counts set to 0 before it and read after:
+   the trainer at the default config, batch 8 (card logits against the
+   same weights on the CPU, then 3 SGD steps whose loss must fall), the
+   attention probe `attention_bench.measure()`, `mfu_measure`, and the
+   card's busy share of the unthrottled quota step;
+4. enforcement, each run a tenant subprocess with the interposer
+   preloaded: the 64 MiB cap (capped view, 256 MiB refused with
+   torch.cuda.OutOfMemoryError), the quota sweep at 100/50/25 (each share
+   within 15 points of its quota), one kernel launch seen by the
+   interposer's counter, and the interposer's cost to an unthrottled
+   tenant (two pairs without and with it).
+
+The last three lines are the nvidia-smi line, the kernels JSON and the
+result JSON.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+import traceback
+
+TOL_NORMALISED = 1e-4
+SHARE_BAND = 15.0
+PROBE_SHAPE = (8, 16, 512, 128)
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM (NVIDIA data sheet)
+FP32_FLOPS = 67e12               # H100 SXM, fp32 outside the tensor cores
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def cuda_ms(torch, fn, n: int = 20, warmup: int = 3) -> float:
+    """Mean ms per call by CUDA events around n back-to-back calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def kernel_phase(torch) -> dict:
+    from vtpu_manager_torch.util.torchplatform import exact_fp32
+    from vtpu_manager_torch.workloads import block_attention as ba
+    from vtpu_manager_torch.workloads import ring_attention as ra
+
+    exact_fp32()
+    b, h, s, d = PROBE_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn(PROBE_SHAPE, generator=gen, device="cuda")
+               for _ in range(3))
+    zero = torch.zeros((s, s), device="cuda")
+    causal = ra._block_bias(0, 0, s, True, device="cuda")
+    masked_row = zero.clone()
+    masked_row[7] = float("-inf")
+
+    errs = {}
+
+    def check(name, q_, k_, v_, bias):
+        o, m, l = ba.attention_block(q_, k_, v_, bias)
+        ro, rm, rl = ra.block_partials(q_.float(), k_.float(), v_.float(),
+                                       bias)
+        out = ba.combine_blocks([(o, m, l)])
+        ref = ba.combine_blocks([(ro, rm, rl)])
+        err = (out - ref).abs().max().item()
+        same_m = torch.equal(torch.isneginf(m), torch.isneginf(rm)) and \
+            torch.allclose(m.nan_to_num(neginf=0.0),
+                           rm.nan_to_num(neginf=0.0), atol=1e-4, rtol=0)
+        same_l = torch.allclose(l, rl, rtol=1e-4, atol=1e-6)
+        errs[name] = err
+        log(f"kernel case {name}: max_abs_err={err:.3e} m_ok={same_m} "
+            f"l_ok={same_l}")
+        if not (err <= TOL_NORMALISED and same_m and same_l):
+            raise AssertionError(f"kernel case {name} disagrees: err={err}")
+        return o, m, l
+
+    check("zero_bias", q, k, v, zero)
+    check("causal_bias", q, k, v, causal)
+    o, m, l = check("masked_row", q, k, v, masked_row)
+    row_ok = (torch.isneginf(m[:, :, 7]).all() and (l[:, :, 7] == 0).all()
+              and (o[:, :, 7] == 0).all())
+    if not row_ok:
+        raise AssertionError("fully masked row is not m=-inf, l=0, o=0")
+    check("bf16_inputs", q.bfloat16(), k.bfloat16(), v.bfloat16(), zero)
+
+    k2, v2 = (torch.randn((b, h, 2 * s, d), generator=gen, device="cuda")
+              for _ in range(2))
+    parts = [ba.attention_block(q, k2[:, :, i * s:(i + 1) * s].contiguous(),
+                                v2[:, :, i * s:(i + 1) * s].contiguous(), zero)
+             for i in range(2)]
+    err = (ba.combine_blocks(parts)
+           - ra.reference_attention(q, k2, v2, causal=False)).abs().max().item()
+    errs["two_blocks"] = err
+    log(f"kernel case two_blocks: max_abs_err={err:.3e}")
+    if err > TOL_NORMALISED:
+        raise AssertionError(f"two merged blocks disagree: err={err}")
+
+    ms = cuda_ms(torch, lambda: ba.attention_block(q, k, v, zero))
+    plain_ms = cuda_ms(torch, lambda: ra.block_partials(q, k, v, zero))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = cuda_ms(torch, lambda: sdpa(q, k, v, attn_mask=zero))
+    elem = q.element_size()
+    bytes_moved = (4 * q.numel() * elem + zero.numel() * 4
+                   + 2 * b * h * s * 4)          # q, k, v, o; bias; m, l
+    flops = 4.0 * b * h * s * s * d
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS * 1e3
+    log(f"kernel times: ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"library_ms={library_ms:.4f} bytes={bytes_moved} flops={flops:.4g}")
+    return {"name": "attn_block", "route": "cuda",
+            "source": "vtpu_manager_torch/csrc/attn_block.cu",
+            "replaces": "vtpu_manager/workloads/pallas_attention.py:28",
+            "launches": 0, "max_abs_err": max(errs.values()), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes > t_ops else "operations",
+            "library_ms": library_ms}
+
+
+def main_path(torch) -> dict:
+    from vtpu_manager_torch.bench_steps import mfu_measure, step_device_share
+    from vtpu_manager_torch.workloads import attention_bench
+    from vtpu_manager_torch.workloads import trainer
+
+    cfg = trainer.model_config()
+    model = trainer.init_params(cfg, seed=0, device="cuda")
+    cpu_model = trainer.init_params(cfg, seed=0, device="cpu")
+    batch = trainer.make_batch(cfg, batch_size=8, seed=1, device="cuda")
+    cpu_batch = {n: t.cpu() for n, t in batch.items()}
+    with torch.no_grad():
+        logits = trainer.forward(model, batch["tokens"])
+        cpu_logits = trainer.forward(cpu_model, cpu_batch["tokens"])
+        loss_err = abs(float(trainer.loss_fn(model, batch))
+                       - float(trainer.loss_fn(cpu_model, cpu_batch)))
+    logit_err = (logits.float().cpu() - cpu_logits.float()).abs().max().item()
+    log(f"trainer: logits {tuple(logits.shape)} {logits.dtype}, card vs cpu "
+        f"max_abs_err={logit_err:.3e} loss_err={loss_err:.3e}")
+    # bf16 keeps 8 bits: 4 ulps at |logit| < 8 is 0.125; the loss as
+    # tests/test_workloads.py:70 holds it
+    if not torch.isfinite(logits).all() or logit_err > 0.125 or \
+            loss_err > 5e-2:
+        raise AssertionError(f"trainer disagrees with the CPU: logits "
+                             f"{logit_err}, loss {loss_err}")
+    losses = []
+    for _ in range(3):
+        model, loss = trainer.sgd_train_step(model, batch)
+        losses.append(float(loss))
+    log(f"trainer: sgd losses {losses}")
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"loss not finite and falling: {losses}")
+
+    probe = attention_bench.measure()
+    log(f"attention probe: {json.dumps(probe)}")
+    mfu = mfu_measure(n=8192, inner=100, reads=3)
+    log(f"mfu (unthrottled, no interposer): {json.dumps(mfu)}")
+    step = step_device_share(dim=8192, warmup=10, steps=30)
+    log(f"quota step (unthrottled, no interposer): {json.dumps(step)}")
+    return {"trainer_losses": losses, "trainer_logit_err": logit_err,
+            "trainer_loss_err": loss_err,
+            "probe": probe, "mfu": mfu, "quota_step": step}
+
+
+def enforcement(shim: str) -> dict:
+    from vtpu_manager_torch import bench_quota as bq
+
+    hbm = bq.run_hbm_check(shim)
+    log(f"cap check: {json.dumps(hbm)}")
+    if hbm.get("error") != 0:
+        raise AssertionError(f"64 MiB cap not enforced exactly: {hbm}")
+
+    def run(quota, preload=True):
+        out = bq.run_worker(shim if preload else None, quota)
+        if out is None:                 # stop at the first broken tenant
+            raise AssertionError(f"tenant at quota {quota} failed")
+        return out
+
+    times, shares, records = bq.paired_quota_sweep(run)
+    mae = bq.tracking_mae(shares)
+    for quota in bq.QUOTAS:
+        log(f"quota={quota}% ms/step={times.get(quota)} "
+            f"share={shares.get(quota)}")
+    log(f"quota tracking MAE={mae}")
+    # the interposer's cost to an unthrottled tenant: off/on pairs
+    pairs = [(run(100, preload=False), run(100)) for _ in range(2)]
+    off = min(p[0]["ms_per_step"] for p in pairs)
+    on = min(p[1]["ms_per_step"] for p in pairs)
+    overhead_pct = 100.0 * (on / off - 1.0)
+    log(f"interposer overhead at quota 100: off={off} on={on} ms/step "
+        f"({overhead_pct:+.2f}%)")
+    log(f"no-interposer records: {json.dumps([p[0] for p in pairs])}")
+    records += [p[1] for p in pairs]
+    for r in records:
+        log(f"tenant record: {json.dumps(r)}")
+    bad = [q for q in bq.QUOTAS
+           if q not in shares or abs(shares[q] - q) > SHARE_BAND]
+    if bad:
+        raise AssertionError(f"shares outside +-{SHARE_BAND}: {shares}")
+    if not all(r["vtpu_launches_total"] > 0 for r in records):
+        raise AssertionError("a tenant's launches bypassed the interposer")
+    if any(r["vtpu_fail_open_total"] for r in records):
+        raise AssertionError("the rate limiter failed open in a tenant")
+    kernel_runs = [r for r in records if "kernel_launches_delta" in r]
+    if not kernel_runs or not all(
+            r["kernel_shim_launches_delta"] >= 1
+            and r["kernel_launches_delta"] == 1 for r in kernel_runs):
+        raise AssertionError(f"the interposer did not see the kernel: "
+                             f"{kernel_runs}")
+    return {"hbm": hbm, "ms_per_step": times, "shares": shares,
+            "mae": mae, "overhead_pct": overhead_pct,
+            "kernel_under_interposer": kernel_runs[0]}
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card",
+              file=sys.stderr)
+        return 1
+    try:
+        from vtpu_manager_torch import build
+        from vtpu_manager_torch.workloads import block_attention as ba
+    except ImportError as e:
+        print(f"chip_smoke: run from the repo root ({e})", file=sys.stderr)
+        return 1
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    kind = torch.cuda.get_device_name(0)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind!r}"
+        f" count {torch.cuda.device_count()}")
+
+    failures = []
+    summary: dict = {"card": smi}
+    record = None
+
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        try:
+            out = fn(*args)
+        except Exception:          # every phase runs; any failure fails all
+            failures.append(name)
+            log(f"PHASE {name} FAILED\n{traceback.format_exc()}")
+            return None
+        log(f"PHASE {name} ok in {time.perf_counter() - t0:.1f}s")
+        return out
+
+    paths = phase("build", build.build_for_card)
+    if paths is None:
+        return 1
+    log(f"build: {paths['seconds']:.1f}s kernel={paths['attn_block']} "
+        f"shim={paths['shim']}")
+    with open(f"{paths['attn_block']}.log") as f:
+        ptxas = [ln.strip() for ln in f if "ptxas" in ln]
+    for ln in ptxas:
+        log(f"ptxas: {ln}")
+    record = phase("kernel", kernel_phase, torch)
+    ba.reset_launches()
+    summary["main"] = phase("main_path", main_path, torch)
+    if record is not None:
+        record["launches"] = ba.LAUNCHES["attn_block"]
+        if record["launches"] == 0:
+            failures.append("launches")
+            log("the main path never launched attn_block")
+    summary["enforcement"] = phase("enforcement", enforcement,
+                                   str(paths["shim"]))
+    log("SUMMARY " + json.dumps(summary, default=str))
+    if failures or record is None:
+        print(f"chip_smoke: failed phases: {failures}", file=sys.stderr)
+        return 1
+    print(smi)
+    print(json.dumps({"kernels": [record]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -28,3 +28,9 @@ if jax is not None:
     jax.config.update("jax_platforms", "cpu")
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs an NVIDIA card (skips without one; the CUDA "
+        "kernels have no CPU mode)")

@@ -1,0 +1,127 @@
+"""The tenant step loops the quota and MFU measurements time.
+
+Ports `bench.py:342 quota_step_measure` and `bench.py:406 mfu_measure`:
+the same loops, each step or block ending in one scalar readback, which
+waits for the card. The step-telemetry hook (`bench.py:362-381`) comes with
+the telemetry slice. MFU divides by the card's own peak, looked up by the
+name the card reports; an unknown card gets no MFU rather than another
+card's peak.
+"""
+
+from __future__ import annotations
+
+import sys
+import time
+
+import torch
+
+from vtpu_manager_torch.util.torchplatform import device_name, resolve_device
+
+# Dense bf16 tensor-core peaks, FLOP/s (NVIDIA data sheets; SXM parts at
+# their 700 W limit). Keyed by a substring of torch.cuda.get_device_name().
+BF16_PEAK_FLOPS = {
+    "H100 80GB HBM3": 989e12,      # H100 SXM
+    "H100 SXM": 989e12,
+    "H200": 989e12,
+    "H100 PCIe": 756e12,
+}
+
+
+def bf16_peak_flops(name: str) -> float | None:
+    for key, peak in BF16_PEAK_FLOPS.items():
+        if key in name:
+            return peak
+    return None
+
+
+def _quota_step(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    y = torch.tanh(x @ x) * 1e-3
+    y = y / (1.0 + y.abs().max())
+    return y, y[0, 0].float()
+
+
+def _quota_input(dim: int, dev: torch.device) -> torch.Tensor:
+    gen = torch.Generator(device=dev).manual_seed(0)
+    return torch.randn((dim, dim), generator=gen, device=dev,
+                       dtype=torch.bfloat16)
+
+
+def quota_step_measure(dim: int, warmup: int, steps: int,
+                       device: str | torch.device | None = None) -> float:
+    """The quota worker's sync loop: a compact bf16 matmul-dominated step
+    with a scalar "loss" readback per step. Returns ms/step over the timed
+    section. Quota tracking is a duty-cycle property, not a model one."""
+    dev = resolve_device(device)
+    x = _quota_input(dim, dev)
+    for _ in range(warmup):
+        x, loss = _quota_step(x)
+        _ = float(loss)
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        x, loss = _quota_step(x)
+        _ = float(loss)
+    return 1000 * (time.perf_counter() - t0) / steps
+
+
+def step_device_share(dim: int, warmup: int, steps: int,
+                      device: str | torch.device | None = None) -> dict:
+    """How much of the unthrottled quota step the card spends busy: CUDA
+    events before and after each step's launches give its device span
+    (an upper bound on busy time), the host clock its wall. The limiter
+    meters device time, so a quota q should give the share t100/tq of
+    about q / busy_share."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise ValueError("device spans are measured on the card")
+    x = _quota_input(dim, dev)
+    for _ in range(warmup):
+        x, loss = _quota_step(x)
+        _ = float(loss)
+    spans = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        x, loss = _quota_step(x)
+        end.record()
+        _ = float(loss)
+        spans.append((start, end))
+    wall_ms = 1000 * (time.perf_counter() - t0)
+    busy_ms = sum(s.elapsed_time(e) for s, e in spans)
+    return {"ms_per_step": wall_ms / steps,
+            "device_ms_per_step": busy_ms / steps,
+            "busy_share": busy_ms / wall_ms}
+
+
+def mfu_measure(n: int, inner: int, reads: int,
+                device: str | torch.device | None = None) -> dict:
+    """`inner` bf16 n x n matmuls per block, one scalar readback per block,
+    analytic FLOPs (2 n^3 per matmul) over the host clock."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((n, n), generator=gen, device=dev, dtype=torch.bfloat16)
+
+    def block(x):
+        for _ in range(inner):
+            y = x @ x
+            # cheap elementwise renorm keeps the carry bounded
+            x = (y / (1.0 + y.abs().max())).to(x.dtype)
+        return x, x[0, 0].float()
+
+    x, loss = block(x)
+    _ = float(loss)
+    t0 = time.perf_counter()
+    for _ in range(reads):
+        x, loss = block(x)
+        _ = float(loss)
+    dt = time.perf_counter() - t0
+    flops = 2.0 * (n ** 3) * inner * reads
+    name = device_name(dev)
+    peak = bf16_peak_flops(name)
+    if peak is None:
+        print(f"mfu: no bf16 peak known for {name!r}; mfu_pct is null",
+              file=sys.stderr)
+    return {"tflops": flops / dt / 1e12,
+            "mfu_pct": None if peak is None else 100.0 * flops / dt / peak,
+            "wall_s": dt, "device": name}

@@ -1,0 +1,100 @@
+"""The tenant's runtime client: what it is held to, and how to hold it.
+
+Ports `vtpu_manager/runtime/client.py` (`EffectiveLimits:43`,
+`_env_limits:67`, `effective_limits:95` from the environment,
+`install:113`). The JAX client could swap the PJRT plugin path inside the
+running process before JAX loaded it. A CUDA driver interposer is loaded by
+the dynamic linker, which reads LD_PRELOAD only at exec, so `install`
+returns the environment a tenant subprocess needs instead, and sets it on
+this process only when asked (for the children it will start). Reading the
+node's config file comes with the config-ABI slice.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+
+from vtpu_manager_torch.util import consts
+
+
+@dataclass
+class DeviceLimits:
+    """One device's enforcement parameters, named as the JAX package's
+    config.vtpu_config.DeviceConfig names them."""
+    uuid: str
+    total_memory: int          # bytes; 0 = uncapped
+    real_memory: int
+    hard_core: int = 100       # percent
+    soft_core: int = 100
+    core_limit: int = consts.CORE_LIMIT_NONE
+    memory_limit: bool = True
+    host_index: int = 0
+
+
+@dataclass
+class EffectiveLimits:
+    devices: list[DeviceLimits]
+    compat_mode: int
+    source: str              # "env" | "none"
+
+
+def _env_limits() -> EffectiveLimits | None:
+    if not (os.environ.get(consts.ENV_MEM_LIMIT)
+            or os.environ.get(f"{consts.ENV_MEM_LIMIT}_0")
+            or os.environ.get(consts.ENV_CORE_LIMIT)
+            or os.environ.get(f"{consts.ENV_CORE_LIMIT}_0")):
+        return None
+    visible = os.environ.get(consts.ENV_VISIBLE_DEVICES, "0")
+    indices = [int(v) for v in visible.split(",") if v.strip() != ""]
+
+    def env_int(base: str, i: int, default: int) -> int:
+        raw = os.environ.get(f"{base}_{i}", os.environ.get(base))
+        return int(raw) if raw else default
+
+    devices = []
+    for i, host_index in enumerate(indices):
+        mem = env_int(consts.ENV_MEM_LIMIT, i, 0)
+        core = env_int(consts.ENV_CORE_LIMIT, i, 0)
+        soft = env_int(consts.ENV_CORE_SOFT_LIMIT, i, core)
+        limit = (consts.CORE_LIMIT_NONE if core <= 0 else
+                 consts.CORE_LIMIT_SOFT if soft > core else
+                 consts.CORE_LIMIT_HARD)
+        devices.append(DeviceLimits(
+            uuid=f"env-{host_index}", total_memory=mem, real_memory=mem,
+            hard_core=core, soft_core=soft, core_limit=limit,
+            memory_limit=mem > 0, host_index=host_index))
+    compat = int(os.environ.get(consts.ENV_COMPAT_MODE, consts.COMPAT_HOST))
+    return EffectiveLimits(devices=devices, compat_mode=compat, source="env")
+
+
+def effective_limits() -> EffectiveLimits:
+    """What the interposer will enforce for this process."""
+    if os.environ.get(consts.ENV_DISABLE_CONTROL):
+        return EffectiveLimits([], 0, "none")
+    env = _env_limits()
+    return env if env is not None else EffectiveLimits([], 0, "none")
+
+
+def install(shim_path: str | None = None,
+            real_cuda_path: str | None = None,
+            apply: bool = False) -> dict[str, str] | None:
+    """The environment that preloads the interposer into a tenant process:
+    LD_PRELOAD with the interposer first, and the real driver's path when
+    one is known. None when the interposer is missing. With `apply`, also
+    set it on os.environ, which reaches only processes started afterwards,
+    every one of them, compilers included: prefer passing the returned
+    mapping to the tenant's own subprocess."""
+    shim = shim_path or os.environ.get(consts.ENV_SHIM_PATH) or os.path.join(
+        consts.DRIVER_DIR, consts.CONTROL_LIBRARY_NAME)
+    if not os.path.exists(shim):
+        return None
+    preload = [shim] + [p for p in os.environ.get(
+        consts.ENV_LD_PRELOAD, "").split(":") if p and p != shim]
+    env = {consts.ENV_LD_PRELOAD: ":".join(preload)}
+    real = real_cuda_path or os.environ.get(consts.ENV_REAL_CUDA_LIBRARY_PATH)
+    if real:
+        env[consts.ENV_REAL_CUDA_LIBRARY_PATH] = real
+    if apply:
+        os.environ.update(env)
+    return env
