@@ -7,14 +7,19 @@ Phases, in order; any failure ends the run with a non-zero exit and no
 result line:
 
 0. card: the card's name and power limit (nvidia-smi) and torch's name;
-1. build: the block-attention kernel (nvcc, sm_90a) and the interposer
-   (g++), side by side, from the sources in this checkout;
-2. kernel: `attention_block` against its plain version at the capture's
-   shape (8, 16, 512, 128) fp32 with TF32 off: zero bias, causal bias, a
-   fully masked row, two K/V blocks merged by `combine_blocks` against
-   exact attention, and bf16 inputs. Tolerance 1e-4 absolute on the
-   normalised output (the sums run in another order). Then the kernel's,
-   the plain version's and scaled_dot_product_attention's times;
+1. build: the block-attention kernel and the mma.sync probe (nvcc,
+   sm_90a) and the interposer (g++), side by side, from the sources in
+   this checkout;
+2. kernel: `attention_block` against its plain version with TF32 off:
+   at the capture's shape (8, 16, 512, 128) fp32 a zero bias, a causal
+   bias, a fully masked row, q scaled by 8 (large, peaked scores), two K/V
+   blocks merged by `combine_blocks` against exact attention, and bf16
+   inputs; then ragged Sq x Sk = 100 x 70 at d = 72. Tolerance 1e-4
+   absolute on the normalised output and on m (the sums run in another
+   order). Then the kernel's, the plain version's and
+   scaled_dot_product_attention's times, the name of the CUDA kernel
+   that scaled_dot_product_attention ran (torch.profiler), and the rate of
+   mma.sync TF32 alone on this card (csrc/mma_peak.cu);
 3. main path, with the launch counts set to 0 before it and read after:
    the trainer at the default config, batch 8 (card logits against the
    same weights on the CPU, then 3 SGD steps whose loss must fall), the
@@ -33,6 +38,7 @@ result JSON.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import subprocess
@@ -44,7 +50,8 @@ TOL_NORMALISED = 1e-4
 SHARE_BAND = 15.0
 PROBE_SHAPE = (8, 16, 512, 128)
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM (NVIDIA data sheet)
-FP32_FLOPS = 67e12               # H100 SXM, fp32 outside the tensor cores
+TF32_FLOPS = 494.7e12            # H100 SXM, dense TF32 on the tensor cores
+TF32_SPLIT_TERMS = 3             # the kernel's products, each as 3 TF32 mma
 
 
 def log(msg: str) -> None:
@@ -66,7 +73,39 @@ def cuda_ms(torch, fn, n: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / n
 
 
-def kernel_phase(torch) -> dict:
+def kernel_names(torch, fn) -> list[str]:
+    """The CUDA kernels one call of fn launched, by torch.profiler's
+    device events."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.key for e in prof.key_averages()
+                   if e.device_type.name == "CUDA"})
+
+
+def mma_peak_tflops(torch, path) -> float:
+    """TFLOP/s of csrc/mma_peak.cu: mma.sync TF32 alone, two blocks of 8
+    warps per SM."""
+    fn = ctypes.CDLL(str(path)).mma_peak
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    blocks = 2 * torch.cuda.get_device_properties(0).multi_processor_count
+    iters = 2000
+    out = torch.empty(blocks * 256, device="cuda")
+
+    def run():
+        err = fn(out.data_ptr(), blocks, iters,
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"mma_peak launch failed: cudaError_t {err}")
+
+    ms = cuda_ms(torch, run, n=5, warmup=1)
+    return blocks * 8 * 16 * iters * 2048 / (ms * 1e-3) / 1e12
+
+
+def kernel_phase(torch, mma_peak_path) -> dict:
     from vtpu_manager_torch.util.torchplatform import exact_fp32
     from vtpu_manager_torch.workloads import block_attention as ba
     from vtpu_manager_torch.workloads import ring_attention as ra
@@ -108,7 +147,16 @@ def kernel_phase(torch) -> dict:
               and (o[:, :, 7] == 0).all())
     if not row_ok:
         raise AssertionError("fully masked row is not m=-inf, l=0, o=0")
+    # scores 8x larger: one TF32 pass would miss by 1e-2 here. (q and k
+    # both x8 put even the fp32 plain version 1.5e-4 off exact attention.)
+    check("q_scaled_x8", 8 * q, k, v, zero)
     check("bf16_inputs", q.bfloat16(), k.bfloat16(), v.bfloat16(), zero)
+    rq, rk, rv = (torch.randn((b, h, n, 72), generator=gen, device="cuda")
+                  for n in (100, 70, 70))
+    rows = torch.arange(100, device="cuda")[:, None]
+    cols = torch.arange(70, device="cuda")[None, :]
+    check("ragged_100x70_d72", rq, rk, rv,
+          torch.where(rows >= cols, 0.0, float("-inf")))
 
     k2, v2 = (torch.randn((b, h, 2 * s, d), generator=gen, device="cuda")
               for _ in range(2))
@@ -122,18 +170,29 @@ def kernel_phase(torch) -> dict:
     if err > TOL_NORMALISED:
         raise AssertionError(f"two merged blocks disagree: err={err}")
 
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     ms = cuda_ms(torch, lambda: ba.attention_block(q, k, v, zero))
     plain_ms = cuda_ms(torch, lambda: ra.block_partials(q, k, v, zero))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     library_ms = cuda_ms(torch, lambda: sdpa(q, k, v, attn_mask=zero))
+    log("scaled_dot_product_attention ran: "
+        f"{kernel_names(torch, lambda: sdpa(q, k, v, attn_mask=zero))}")
     elem = q.element_size()
     bytes_moved = (4 * q.numel() * elem + zero.numel() * 4
                    + 2 * b * h * s * 4)          # q, k, v, o; bias; m, l
     flops = 4.0 * b * h * s * s * d
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
+    t_ops = flops / TF32_FLOPS * 1e3
     log(f"kernel times: ms={ms:.4f} plain_ms={plain_ms:.4f} "
         f"library_ms={library_ms:.4f} bytes={bytes_moved} flops={flops:.4g}")
+    mma_tflops = mma_peak_tflops(torch, mma_peak_path)
+    t_mma = TF32_SPLIT_TERMS * flops / (mma_tflops * 1e12) * 1e3
+    log(f"kernel bound: card floor {max(t_bytes, t_ops):.4f} ms "
+        f"(bytes {t_bytes:.4f}, TF32 operations {t_ops:.4f}); split-TF32 "
+        f"design floor {TF32_SPLIT_TERMS * t_ops:.4f} ms; kernel/library "
+        f"{ms / library_ms:.3f}")
+    log(f"mma.sync tf32 alone: {mma_tflops:.1f} TFLOP/s; the three "
+        f"products at that rate {t_mma:.4f} ms, the kernel at "
+        f"{t_mma / ms:.3f} of it")
     return {"name": "attn_block", "route": "cuda",
             "source": "vtpu_manager_torch/csrc/attn_block.cu",
             "replaces": "vtpu_manager/workloads/pallas_attention.py:28",
@@ -278,10 +337,10 @@ def main() -> int:
     log(f"build: {paths['seconds']:.1f}s kernel={paths['attn_block']} "
         f"shim={paths['shim']}")
     with open(f"{paths['attn_block']}.log") as f:
-        ptxas = [ln.strip() for ln in f if "ptxas" in ln]
+        ptxas = [ln.strip() for ln in f if "ptxas" in ln or "spill" in ln]
     for ln in ptxas:
         log(f"ptxas: {ln}")
-    record = phase("kernel", kernel_phase, torch)
+    record = phase("kernel", kernel_phase, torch, paths["mma_peak"])
     ba.reset_launches()
     summary["main"] = phase("main_path", main_path, torch)
     if record is not None:

@@ -6,8 +6,11 @@ port's dependencies are installed:
 
     python -m pytest tests/test_torch_gpu.py -m gpu
 
-Tolerance 1e-4 absolute on the normalised output: the kernel sums in
-another order than the plain version's matrix products, with TF32 off.
+Tolerance 1e-4 absolute on the normalised output and on m: the kernel
+sums in another order than the plain version's matrix products, with TF32
+off, and takes its products as split TF32 (three tensor-core products
+each, about fp32 accuracy; tests/test_torch_tf32_split.py has the
+argument).
 """
 
 import pytest
@@ -35,18 +38,13 @@ def _inputs(gen, b, h, sq, sk, d, dtype=torch.float32):
     return q, k, v
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("b,h,sq,sk,d,dtype", [
-    (2, 4, 100, 70, 64, torch.float32),     # ragged tiles both ways
-    (1, 2, 33, 129, 128, torch.float32),
-    (2, 2, 64, 64, 8, torch.bfloat16),
-    (1, 1, 5, 3, 1, torch.float32),
-])
-def test_kernel_matches_plain(card, b, h, sq, sk, d, dtype):
-    q, k, v = _inputs(card, b, h, sq, sk, d, dtype)
+def _causal(sq, sk):
     rows = torch.arange(sq, device="cuda")[:, None]
     cols = torch.arange(sk, device="cuda")[None, :]
-    bias = torch.where(rows >= cols, 0.0, float("-inf"))
+    return torch.where(rows >= cols, 0.0, float("-inf"))
+
+
+def _assert_matches_plain(q, k, v, bias):
     before = ba.LAUNCHES["attn_block"]
     o, m, l = ba.attention_block(q, k, v, bias)
     ro, rm, rl = ra.block_partials(q.float(), k.float(), v.float(), bias)
@@ -56,6 +54,63 @@ def test_kernel_matches_plain(card, b, h, sq, sk, d, dtype):
     ref = ba.combine_blocks([(ro, rm, rl)])
     assert (out - ref).abs().max().item() <= TOL
     assert torch.equal(torch.isneginf(m), torch.isneginf(rm))
+    assert torch.allclose(m.nan_to_num(neginf=0.0), rm.nan_to_num(neginf=0.0),
+                          atol=TOL, rtol=0)
+    assert torch.allclose(l, rl, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,sq,sk,d,dtype", [
+    (2, 4, 100, 70, 64, torch.float32),     # ragged tiles both ways
+    (1, 2, 33, 129, 128, torch.float32),
+    (2, 2, 64, 64, 8, torch.bfloat16),
+    (1, 1, 5, 3, 1, torch.float32),
+    (2, 4, 100, 70, 72, torch.bfloat16),
+    (1, 2, 40, 130, 33, torch.bfloat16),    # odd d: plain bf16 copies
+])
+def test_kernel_matches_plain(card, b, h, sq, sk, d, dtype):
+    q, k, v = _inputs(card, b, h, sq, sk, d, dtype)
+    _assert_matches_plain(q, k, v, _causal(sq, sk))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [1, 8, 72, 128])
+@pytest.mark.parametrize("q_scale", [1.0, 8.0])
+def test_kernel_head_dims_and_large_scores(card, d, q_scale):
+    # ragged 100 x 70; q x 8 gives large, peaked scores, where one TF32
+    # pass would miss the tolerance a hundred times over
+    q, k, v = _inputs(card, 2, 4, 100, 70, d)
+    _assert_matches_plain(q * q_scale, k, v, _causal(100, 70))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_takes_rows_off_16_byte_alignment(card, dtype):
+    # one element into a buffer: the kernel copies narrower, not elsewhere
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=dtype, device="cuda")
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+    q, k, v = map(shifted, _inputs(card, 1, 2, 70, 130, 64, dtype))
+    assert q.data_ptr() % 16 != 0
+    _assert_matches_plain(q, k, v, _causal(70, 130))
+
+
+@pytest.mark.gpu
+def test_one_call_is_one_kernel_launch(card):
+    from torch.profiler import ProfilerActivity, profile
+    q, k, v = _inputs(card, 2, 4, 100, 70, 64)
+    bias = _causal(100, 70)
+    ba.attention_block(q, k, v, bias)               # built and loaded
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ba.attention_block(q, k, v, bias)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type.name == "CUDA"]
+    assert [(e.count, "AttnBlockKernel" in e.key) for e in kernels] == \
+        [(1, True)], [e.key for e in kernels]
 
 
 @pytest.mark.gpu

@@ -1,10 +1,12 @@
 """Builds the port's native code from the sources in the checkout.
 
-Four artifacts, each compiled at first use into `build-torch/` at the
+Five artifacts, each compiled at first use into `build-torch/` at the
 repo root, which .gitignore lists:
 
 - the block-attention kernel, `csrc/attn_block.cu`, with nvcc for sm_90a
   into a shared library with a plain C interface (loaded with ctypes);
+- `csrc/mma_peak.cu`, the card's mma.sync TF32 rate, which chip_smoke.py
+  reads the kernel against;
 - the interposer, `csrc/shim/*.cc`, with g++;
 - the fake driver and the harness that test the interposer without a card.
 
@@ -77,12 +79,16 @@ def nvcc_path() -> str:
     return found
 
 
-def build_attn_kernel() -> Path:
-    """csrc/attn_block.cu -> libattn_block-<digest>.so (sm_90a)."""
+def build_cuda(stem: str) -> Path:
+    """csrc/<stem>.cu -> lib<stem>-<digest>.so (sm_90a)."""
     return _compile(
-        "libattn_block", ".so", [CSRC / "attn_block.cu"], [],
+        f"lib{stem}", ".so", [CSRC / f"{stem}.cu"], [],
         [nvcc_path(), *NVCC_ARCH, "-std=c++17", "-O3", "-shared",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v"])
+
+
+def build_attn_kernel() -> Path:
+    return build_cuda("attn_block")
 
 
 def build_shim() -> Path:
@@ -113,11 +119,12 @@ def build_shim_test() -> Path:
 
 
 def build_for_card() -> dict:
-    """The kernel and the interposer, built side by side. Returns their
-    paths and the wall seconds the two builds took together."""
+    """The kernel, the mma probe and the interposer, built side by side.
+    Returns their paths and the wall seconds the builds took together."""
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        kernel = pool.submit(build_attn_kernel)
-        shim = pool.submit(build_shim)
-        paths = {"attn_block": kernel.result(), "shim": shim.result()}
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        futures = {"attn_block": pool.submit(build_attn_kernel),
+                   "mma_peak": pool.submit(build_cuda, "mma_peak"),
+                   "shim": pool.submit(build_shim)}
+        paths = {name: f.result() for name, f in futures.items()}
     return {**paths, "seconds": time.perf_counter() - t0}
