@@ -30,7 +30,15 @@ result line:
    torch.cuda.OutOfMemoryError), the quota sweep at 100/50/25 (each share
    within 15 points of its quota), one kernel launch seen by the
    interposer's counter, and the interposer's cost to an unthrottled
-   tenant (two pairs without and with it).
+   tenant (two pairs without and with it);
+5. co_tenancy (`vtpu_manager_torch/bench_cotenancy.py`): several tenants
+   on the card at once, each reading its limits from its own vtpu.config,
+   under the node watcher fed by NVML: discovery, the config file's cap,
+   siblings / co-tenant / physical pressure / reap across processes,
+   50 + 25, 50 + 50 and 60 / 25 / 10 together, the feed, balance mode,
+   and 5 s runs at q50 and q25 (charged against device time, each beside
+   a control with the isolated-sample discount off); no tenant may be
+   judged blind. One `COTENANCY {json}` line per check.
 
 The last three lines are the nvidia-smi line, the kernels JSON and the
 result JSON.
@@ -295,6 +303,56 @@ def enforcement(shim: str) -> dict:
             "kernel_under_interposer": kernel_runs[0]}
 
 
+def co_tenancy(torch, shim: str) -> dict:
+    import tempfile
+
+    from vtpu_manager_torch import bench_cotenancy as bc
+
+    results = {}
+
+    def check(name, fn):
+        t0 = time.perf_counter()
+        try:
+            rec = fn()
+        except Exception:          # every check runs; any failure fails all
+            rec = {"ok": False, "error": traceback.format_exc()}
+        log("COTENANCY " + json.dumps(
+            {"check": name, "seconds": time.perf_counter() - t0, **rec},
+            default=str))
+        results[name] = {"ok": rec["ok"]}
+        return rec
+
+    rec, chip = bc.check_discovery(torch)
+    check("discovery", lambda: rec)
+    if chip is None:
+        raise AssertionError("NVML does not see torch's card")
+    with tempfile.TemporaryDirectory(prefix="vtpu-node-") as root:
+        phase = bc.Phase(shim, root, chip)
+        try:
+            check("config_file", phase.check_config_file)
+            check("memory", phase.check_memory)
+            feed = {}
+
+            def compute_50_25():
+                compute, seen = phase.check_50_25_with_feed()
+                feed.update(seen)
+                return compute
+
+            check("compute_50_25", compute_50_25)
+            check("compute_50_50", phase.check_50_50)
+            check("compute_60_25_10", phase.check_60_25_10)
+            check("feed", lambda: feed or {"ok": False,
+                                           "error": "no 50 + 25 run"})
+            check("balance", phase.check_balance)
+            check("long_runs", phase.check_long_runs)
+        finally:
+            phase.close()
+    failed = [name for name, r in results.items() if not r["ok"]]
+    if failed:
+        raise AssertionError(f"co-tenancy checks failed: {failed}")
+    return results
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -350,6 +408,8 @@ def main() -> int:
             log("the main path never launched attn_block")
     summary["enforcement"] = phase("enforcement", enforcement,
                                    str(paths["shim"]))
+    summary["co_tenancy"] = phase("co_tenancy", co_tenancy, torch,
+                                  str(paths["shim"]))
     log("SUMMARY " + json.dumps(summary, default=str))
     if failures or record is None:
         print(f"chip_smoke: failed phases: {failures}", file=sys.stderr)

@@ -132,3 +132,50 @@ def test_step_device_share_is_a_share(card):
     out = step_device_share(dim=512, warmup=2, steps=5)
     assert 0 < out["device_ms_per_step"] <= out["ms_per_step"] * 1.05
     assert 0 < out["busy_share"] <= 1.05
+
+
+@pytest.mark.gpu
+def test_nvml_backend_finds_torchs_card(card):
+    from vtpu_manager_torch.tpu import discovery
+    nvml = discovery.Nvml.load()
+    assert nvml is not None, "a machine with a card has NVML"
+    found = discovery.NvmlBackend(nvml).discover()
+    props = torch.cuda.get_device_properties(0)
+    chip = next(c for c in found.chips if c.uuid == f"GPU-{props.uuid}")
+    assert nvml.name(nvml.handle(chip.index)) == torch.cuda.get_device_name(0)
+    assert abs(chip.memory - props.total_memory) <= 2**20
+    assert chip.core_count in (0, props.multi_processor_count)
+    assert 0 <= nvml.utilization(nvml.handle(chip.index)) <= 100
+
+
+@pytest.mark.gpu
+def test_two_processes_of_one_tenant_share_a_cap(card, tmp_path):
+    """Two processes of one tenant under a 1 GiB cap from the config
+    file: the first holds 768 MiB, the second is refused 512 MiB and
+    granted 128 MiB."""
+    from pathlib import Path
+
+    from vtpu_manager_torch import bench_quota as bq
+    from vtpu_manager_torch import build
+    world = bq.World(str(tmp_path / "node"))
+    shim = str(build.build_shim())
+    env = world.env(shim, "pod-sib", cap=2**30)
+    release = str(tmp_path / "release")
+    first = bq.Tenant("first", bq.hold_args("0.75", world.go_file("first"),
+                                            release), env, str(tmp_path))
+    second = bq.Tenant("second", bq.hold_args(
+        "0.5,0.125", world.go_file("second"), release), env, str(tmp_path))
+    try:
+        first.line("READY")
+        second.line("READY")
+        Path(world.go_file("first")).touch()
+        assert first.line("HOLD ")["verdicts"] == ["granted"]
+        Path(world.go_file("second")).touch()
+        out = second.line("HOLD ")
+        assert out["verdicts"] == ["refused", "granted"]
+        assert out["vtpu_oom_rejected_total"] >= 1
+        assert out["source"] == "config-file"
+        Path(release).touch()
+    finally:
+        first.stop()
+        second.stop()

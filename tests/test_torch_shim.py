@@ -5,12 +5,14 @@ interposer in LD_PRELOAD, the fake libcuda.so.1 as the real driver, and
 every entry point reached the way the CUDA runtime reaches it.
 """
 
-import os
 import subprocess
+import tempfile
+from pathlib import Path
 
 import pytest
 
 from vtpu_manager_torch import bench_quota, build
+from vtpu_manager_torch.util import consts
 
 CAP = 1 << 20
 SHARE_BAND = 15.0
@@ -24,13 +26,8 @@ def artifacts():
 
 
 def _run(artifacts, mode, **env_extra):
-    env = {k: v for k, v in os.environ.items()
-           if not k.startswith(("VTPU_", "DISABLE_VTPU"))}
-    env.update({"LD_PRELOAD": artifacts["shim"],
-                "SHIM_PATH": artifacts["shim"],
-                "VTPU_REAL_CUDA_LIBRARY_PATH": artifacts["fake"]})
-    env.update({k: str(v) for k, v in env_extra.items()})
-    return subprocess.run([artifacts["harness"], mode], env=env,
+    return subprocess.run([artifacts["harness"], mode],
+                          env=bench_quota.fake_harness_env(**env_extra),
                           capture_output=True, text=True, timeout=60,
                           check=False)
 
@@ -120,3 +117,31 @@ def test_concurrent_tenant_threads(artifacts):
     assert got["max_used"] <= CAP                  # the cap held throughout
     assert got["end_used"] == 0 and got["end_free"] == CAP   # ledger drained
     assert got["launches"] == got["forwarded"] == got["expected"]
+
+
+NODE_KEYS = (consts.ENV_LOCK_DIR, consts.ENV_CONFIG_PATH, consts.ENV_VMEM_PATH,
+             consts.ENV_TC_UTIL_PATH)
+
+
+def test_runs_stay_on_a_private_node(artifacts):
+    # the harness and the sweep's tenants get the four node paths in a
+    # directory of this process's own under $TMPDIR
+    tmp = Path(tempfile.gettempdir()).resolve()
+    envs = (bench_quota.fake_harness_env(),
+            bench_quota.tenant_env(artifacts["shim"], 50, CAP))
+    for env in envs:
+        paths = [Path(env[key]).resolve() for key in NODE_KEYS]
+        root = paths[0].parent
+        assert root.parent == tmp and root.name.startswith("vtpu-node-")
+        assert all(p.parent == root for p in paths)
+    # a capped run takes the device lock there, and maps no ledger or feed
+    res = _run(artifacts, "--caps", VTPU_MEM_LIMIT_0=CAP, VTPU_LOGGER_LEVEL=2)
+    assert res.returncode == 0, res.stderr
+    locks = [Path(line.split(" lock: ")[1]) for line in res.stderr.splitlines()
+             if " lock: " in line]
+    assert locks and all(p.parent == Path(envs[0][consts.ENV_LOCK_DIR])
+                         and p.exists() for p in locks)
+    for fixed in (consts.LOCK_DIR, consts.VMEM_DIR, "/etc/vtpu-manager"):
+        assert fixed not in res.stderr
+    assert "ledger mapped" not in res.stderr
+    assert "feed mapped" not in res.stderr

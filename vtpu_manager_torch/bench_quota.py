@@ -1,45 +1,90 @@
-"""Enforcement checks: the quota sweep and the exact memory cap.
+"""Enforcement checks: the quota sweep, the exact memory cap, and several
+tenants on one card.
 
-Ports `bench.py:293 paired_quota_sweep`, `bench.py:536 run_hbm_check` and
-`bench.py:579 run_fake_sweep`. Each measurement on the card runs in a
+Ports `bench.py:293 paired_quota_sweep`, `bench.py:536 run_hbm_check`,
+`bench.py:579 run_fake_sweep` and the co-tenancy harness of
+`tests/test_multitenant.py:36-90`. Each measurement on the card runs in a
 fresh tenant subprocess with the interposer preloaded (the preload reaches
-that subprocess only) and its limits in the environment:
+that subprocess only):
 
 - quota sweep: the step loop of `bench_steps.quota_step_measure` at quotas
-  100/50/25. A quota's share is t(100)/t(q) from a back-to-back pair, and
-  the tracking error is |share - q|, averaged over the throttled quotas;
+  100/50/25, limits in the environment. A quota's share is t(100)/t(q)
+  from a back-to-back pair, and the tracking error is |share - q|,
+  averaged over the throttled quotas;
 - memory cap: under a 64 MiB cap the card must report a 64 MiB total and
   a 256 MiB tensor must fail with torch.cuda.OutOfMemoryError;
-- fake sweep: the same quotas against the fake driver, with no card.
+- fake sweep: the same quotas against the fake driver, with no card;
+- co-tenancy (`World`, `run_tenants`): tenants that each read their limits
+  from their own `vtpu.config` (`tenant_config`, fields as the device
+  plugin writes them, `deviceplugin/vnum.py:370-399`) and share one memory
+  ledger, one utilization feed and one lock directory.
 
-Run `python -m vtpu_manager_torch.bench_quota --worker ...` only as the
-tenant subprocess these functions start.
+The tenants of the sweep and the harness runs get a node of their own too:
+a private directory under $TMPDIR for the lock directory, ledger, feed and
+config paths, so they never touch the node's fixed paths
+(/tmp/.vtpu_lock, /tmp/.vmem_node, /etc/vtpu-manager) or meet another
+process's runs there.
+
+Run `python -m vtpu_manager_torch.bench_quota --worker ...` (or
+`--hold-worker`) only as the tenant subprocess these functions start.
 """
 
 from __future__ import annotations
 
 import argparse
+import atexit
 import ctypes
 import json
 import os
+import queue
+import shutil
+import statistics
 import subprocess
 import sys
+import tempfile
+import threading
+import time
+from pathlib import Path
 
 from vtpu_manager_torch import build
-from vtpu_manager_torch.runtime.client import install
+from vtpu_manager_torch.config import vtpu_config as vc
+from vtpu_manager_torch.config.tc_watcher import TcUtilFile
+from vtpu_manager_torch.config.vmem import VmemLedger
+from vtpu_manager_torch.runtime.client import effective_limits, install
+from vtpu_manager_torch.util import consts
 
 QUOTAS = (100, 50, 25)
 CAP_BYTES = 64 * 2**20
 OVER_CAP_SHAPE = (64, 1024, 1024)     # 256 MiB of float32
 
 
+_private_root: str | None = None
+
+
+def private_node_env() -> dict:
+    """The node paths of a node of this process's own: the lock directory
+    in a private directory under $TMPDIR (removed at exit), and a config
+    file, ledger and feed there that do not exist, so the limits come from
+    the environment and no co-tenant is seen."""
+    global _private_root
+    if _private_root is None or not os.path.isdir(_private_root):
+        _private_root = tempfile.mkdtemp(prefix="vtpu-node-")
+        atexit.register(shutil.rmtree, _private_root, True)
+    root = Path(_private_root)
+    return {consts.ENV_LOCK_DIR: str(root / "locks"),
+            consts.ENV_CONFIG_PATH: str(root / "vtpu.config"),
+            consts.ENV_VMEM_PATH: str(root / "vmem_node.config"),
+            consts.ENV_TC_UTIL_PATH: str(root / "tc_util.config")}
+
+
 def tenant_env(shim: str | None, quota: int = 100,
                mem_limit: int = 0) -> dict:
     """This process's environment plus the interposer (none when `shim` is
-    None: the overhead baseline) and the limits."""
+    None: the overhead baseline), a private node and the limits."""
     env = dict(os.environ)
     if shim is not None:
         env.update(install(shim_path=shim) or {})
+    env.update(private_node_env())
     env["VTPU_CORE_LIMIT_0"] = str(quota if quota < 100 else 0)
     env["VTPU_MEM_LIMIT_0"] = str(mem_limit)
     env["PYTHONPATH"] = os.pathsep.join(
@@ -129,57 +174,291 @@ def run_hbm_check(shim: str, timeout: int = 300) -> dict:
     return {**out, "cap": CAP_BYTES, "error": 0 if ok else 100}
 
 
+def fake_harness_env(**extra) -> dict:
+    """The environment of the interposer's harness against the fake
+    driver: this process's environment without any VTPU_* variable, on a
+    private node (no config file, ledger or feed unless `extra` names
+    them)."""
+    shim = str(build.build_shim())
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("VTPU_", "DISABLE_VTPU", "FAKE_", "SHIM_"))}
+    env.update({"LD_PRELOAD": shim, "SHIM_PATH": shim,
+                "VTPU_REAL_CUDA_LIBRARY_PATH": str(build.build_fake_driver()),
+                **private_node_env()})
+    env.update({k: str(v) for k, v in extra.items()})
+    return env
+
+
+def parse_harness(stdout: str) -> dict:
+    """wall_ms, VERDICT lines by label and the COUNTERS line's values."""
+    out: dict = {"verdicts": {}}
+    for line in stdout.splitlines():
+        parts = line.split()
+        if line.startswith("wall="):
+            out["wall_ms"] = float(line.split("=")[1].split("ms")[0])
+        elif parts and parts[0] == "VERDICT":
+            out["verdicts"][parts[1]] = int(parts[2])
+        elif parts and parts[0] == "COUNTERS":
+            out.update({k: int(v) for k, v in
+                        (f.split("=") for f in parts[1:])})
+    return out
+
+
+def run_fake_harness(mode: str, timeout: float = 120, **extra) -> dict:
+    """One harness run (`--throttle-only`, `--alloc`, ...) against the
+    fake driver; its parsed output, with the exit code as `rc`."""
+    res = subprocess.run([str(build.build_shim_test()), mode],
+                         env=fake_harness_env(**extra), capture_output=True,
+                         text=True, timeout=timeout, check=False)
+    return {"rc": res.returncode, "stderr": res.stderr,
+            **parse_harness(res.stdout)}
+
+
 def run_fake_sweep(iters: int = 100, exec_us: int = 2000,
                    quotas=QUOTAS) -> dict[int, float] | None:
     """ms per launch+synchronize step at each quota, against the fake
     driver: the interposer's pacing with no card and no host noise."""
-    shim = str(build.build_shim())
-    fake = str(build.build_fake_driver())
-    harness = str(build.build_shim_test())
     out: dict[int, float] = {}
     for quota in quotas:
-        env = dict(os.environ)
-        env.update({
-            "LD_PRELOAD": shim, "SHIM_PATH": shim,
-            "VTPU_REAL_CUDA_LIBRARY_PATH": fake,
-            "VTPU_CORE_LIMIT_0": str(quota if quota < 100 else 0),
-            "FAKE_EXEC_US": str(exec_us), "SHIM_TEST_ITERS": str(iters),
-        })
-        res = subprocess.run([harness, "--throttle-only"], env=env,
-                             capture_output=True, text=True, timeout=120,
-                             check=False)
-        for line in res.stdout.splitlines():
-            if line.startswith("wall="):
-                out[quota] = float(line.split("=")[1].split("ms")[0]) / iters
+        res = run_fake_harness(
+            "--throttle-only", VTPU_CORE_LIMIT_0=quota if quota < 100 else 0,
+            FAKE_EXEC_US=exec_us, SHIM_TEST_ITERS=iters)
+        if "wall_ms" in res:
+            out[quota] = res["wall_ms"] / iters
     return out if len(out) == len(quotas) else None
 
 
+COUNTERS = ("vtpu_launches_total", "vtpu_sampled_launches_total",
+            "vtpu_throttle_wait_ns_total", "vtpu_charged_ns_total",
+            "vtpu_gap_bypass_total", "vtpu_fail_open_total",
+            "vtpu_proc_address_hooked_total", "vtpu_probes_total",
+            "vtpu_obs_overhead_ns", "vtpu_watcher_external_total",
+            "vtpu_watcher_fallback_total", "vtpu_blind_ticks_total",
+            "vtpu_oom_rejected_total")
+SIGNED = ("vtpu_charged_ns_total", "vtpu_obs_overhead_ns")
+
+
+def tenant_config(path: str, pod_uid: str, *, cap: int = 0,
+                  real_memory: int = 0, hard_core: int = 0,
+                  soft_core: int | None = None, container: str = "main",
+                  uuid: str = "", host_index: int = 0) -> vc.VtpuConfig:
+    """Writes a tenant's `vtpu.config` with the port's writer, one device,
+    its fields as the device plugin sets them (`vnum.py:370-399`): a
+    compute limit is hard unless `soft_core` (balance mode) is above it."""
+    soft = hard_core if soft_core is None else soft_core
+    policy = (vc.CORE_LIMIT_NONE if hard_core <= 0 else
+              vc.CORE_LIMIT_SOFT if soft > hard_core else vc.CORE_LIMIT_HARD)
+    cfg = vc.VtpuConfig(
+        pod_uid=pod_uid, pod_name=pod_uid, pod_namespace="default",
+        container_name=container, compat_mode=consts.COMPAT_HOST,
+        devices=[vc.DeviceConfig(
+            uuid=uuid, total_memory=cap, real_memory=real_memory,
+            hard_core=hard_core, soft_core=soft, core_limit=policy,
+            memory_limit=cap > 0, host_index=host_index)])
+    vc.write_config(path, cfg)
+    return cfg
+
+
+class World:
+    """One node's shared state in a directory: the memory ledger, the
+    utilization feed, the per-device locks, and one config file per
+    tenant container."""
+
+    def __init__(self, root: str):
+        self.root = Path(root)
+        self.root.mkdir(parents=True, exist_ok=True)
+        self.vmem_path = str(self.root / "vmem_node.config")
+        self.tc_path = str(self.root / "tc_util.config")
+        self.lock_dir = str(self.root / "locks")
+        VmemLedger(self.vmem_path, create=True).close()
+        TcUtilFile(self.tc_path, create=True).close()
+
+    def env(self, shim: str, pod_uid: str, container: str = "main",
+            **config) -> dict:
+        """A tenant container's environment: the interposer, its own
+        config file (written here), the node's shared files, and no
+        VTPU_*_LIMIT variable."""
+        path = str(self.root / f"{pod_uid}_{container}" / "vtpu.config")
+        tenant_config(path, pod_uid, container=container, **config)
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith(("VTPU_", "DISABLE_VTPU"))}
+        env.update(install(shim_path=shim) or {})
+        env.update({
+            consts.ENV_CONFIG_PATH: path, consts.ENV_POD_UID: pod_uid,
+            consts.ENV_CONTAINER_NAME: container,
+            consts.ENV_VMEM_PATH: self.vmem_path,
+            consts.ENV_TC_UTIL_PATH: self.tc_path,
+            consts.ENV_LOCK_DIR: self.lock_dir,
+            "PYTHONPATH": os.pathsep.join(
+                p for p in (str(build.REPO), os.environ.get("PYTHONPATH"))
+                if p)})
+        return env
+
+    def go_file(self, name: str) -> str:
+        return str(self.root / f"{name}.go")
+
+
+class Tenant:
+    """A tenant subprocess whose stdout lines are read as they come; its
+    stderr goes to a file beside the world's state."""
+
+    def __init__(self, tag: str, args: list[str], env: dict, log_dir: str):
+        self.tag = tag
+        self.err_path = os.path.join(log_dir, f"{tag}.stderr")
+        self._err = open(self.err_path, "w")
+        self.proc = subprocess.Popen([sys.executable, *args], env=env,
+                                     cwd=str(build.REPO),
+                                     stdout=subprocess.PIPE,
+                                     stderr=self._err, text=True, bufsize=1)
+        self._lines: queue.Queue = queue.Queue()
+        threading.Thread(target=self._pump, daemon=True).start()
+
+    def _pump(self) -> None:
+        for line in self.proc.stdout:
+            self._lines.put(line.rstrip("\n"))
+        self._lines.put(None)
+
+    def line(self, prefix: str, timeout: float = 300.0) -> dict | None:
+        """The JSON after the next line starting with `prefix` (an empty
+        dict for a bare marker line)."""
+        deadline = time.monotonic() + timeout
+        while True:
+            try:
+                line = self._lines.get(timeout=max(
+                    0.0, deadline - time.monotonic()))
+            except queue.Empty:
+                raise TimeoutError(f"{self.tag}: no {prefix} line")
+            if line is None:
+                self.proc.wait()
+                raise RuntimeError(f"{self.tag} exited "
+                                   f"(rc={self.proc.returncode}):\n"
+                                   f"{self.stderr_tail()}")
+            if line.startswith(prefix):
+                rest = line[len(prefix):].strip()
+                return json.loads(rest) if rest else {}
+
+    def horizon_log(self, n: int = 20) -> list[str]:
+        """The interposer's lines on horizons it found suspect and on
+        going blind (logged at VTPU_LOGGER_LEVEL 2 and 1)."""
+        self._err.flush()
+        return [line for line in Path(self.err_path).read_text().splitlines()
+                if "horizon suspect" in line or "judged blind" in line][:n]
+
+    def stderr_tail(self, n: int = 1500) -> str:
+        self._err.flush()
+        return Path(self.err_path).read_text()[-n:]
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait()
+        self._err.close()
+
+
+def worker_args(steps: int, *, go_file: str | None = None,
+                warmup_s: float = 0.0, device_times: int = 0,
+                dim: int = 8192) -> list[str]:
+    args = ["-m", "vtpu_manager_torch.bench_quota", "--worker", "--dim",
+            str(dim), "--warmup", "10", "--steps", str(steps),
+            "--device-times", str(device_times), "--warmup-s", str(warmup_s)]
+    return args + (["--go-file", go_file] if go_file else [])
+
+
+def hold_args(alloc_gib: str, go_file: str, hold_file: str,
+              retry_s: float = 0.0) -> list[str]:
+    return ["-m", "vtpu_manager_torch.bench_quota", "--hold-worker",
+            "--alloc-gib", alloc_gib, "--go-file", go_file, "--hold-file",
+            hold_file, "--retry-s", str(retry_s)]
+
+
+def run_tenants(world: World, specs: list[tuple[str, list[str], dict]],
+                timeout: float = 300.0) -> dict[str, dict]:
+    """Starts every (tag, args, env) tenant at once; each warms up, says
+    READY, and waits for the one go file, so the timed loops begin
+    together. Returns each tenant's WORKER record by tag."""
+    go = world.go_file("together-" + "-".join(t for t, _, _ in specs))
+    tenants = [Tenant(tag, [*args, "--go-file", go], env, str(world.root))
+               for tag, args, env in specs]
+    try:
+        for t in tenants:
+            t.line("READY", timeout)
+        Path(go).touch()
+        out = {t.tag: t.line("WORKER ", timeout) for t in tenants}
+        # a tenant that exits clears its ledger entries; a killed one
+        # leaves them to count against the card until they go stale
+        for t in tenants:
+            t.proc.wait(timeout=60)
+            out[t.tag]["horizon_log"] = t.horizon_log()
+        return out
+    finally:
+        for t in tenants:
+            t.stop()
+
+
 def _shim_counters() -> dict:
-    """The preloaded interposer's exported counters; none without it."""
+    """The preloaded interposer's exported counters (those its build
+    has); none without it."""
     path = os.environ.get("LD_PRELOAD", "").split(":")[0]
     if not path:
         return {}
     lib = ctypes.CDLL(path)
     out = {}
-    for name in ("vtpu_launches_total", "vtpu_sampled_launches_total",
-                 "vtpu_throttle_wait_ns_total", "vtpu_charged_ns_total",
-                 "vtpu_gap_bypass_total", "vtpu_fail_open_total",
-                 "vtpu_proc_address_hooked_total"):
-        fn = getattr(lib, name)
-        fn.restype = (ctypes.c_int64 if name == "vtpu_charged_ns_total"
-                      else ctypes.c_uint64)
+    for name in COUNTERS:
+        fn = getattr(lib, name, None)
+        if fn is None:
+            continue
+        fn.restype = ctypes.c_int64 if name in SIGNED else ctypes.c_uint64
         out[name] = int(fn())
+    up = getattr(lib, "vtpu_up_limit", None)
+    if up is not None:
+        up.restype = ctypes.c_int
+        up.argtypes = [ctypes.c_int]
+        out["vtpu_up_limit"] = int(up(0))
     return out
+
+
+def _wait_file(path: str | None, timeout_s: float = 300.0) -> None:
+    deadline = time.monotonic() + timeout_s
+    while path and not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{path} never appeared")
+        time.sleep(0.005)
 
 
 def _worker(args) -> None:
     import torch
 
-    from vtpu_manager_torch.bench_steps import quota_step_measure
+    from vtpu_manager_torch.bench_steps import (quota_step_measure,
+                                                step_device_times)
+    at_start = {}
+
+    def before_timed():
+        until = time.monotonic() + args.warmup_s   # balance mode's climb
+        while time.monotonic() < until:
+            quota_step_measure(dim=args.dim, warmup=0, steps=5)
+        print("READY", flush=True)
+        _wait_file(args.go_file)
+        at_start.update(_shim_counters(), t=time.monotonic())
+
     ms = quota_step_measure(dim=args.dim, warmup=args.warmup,
-                            steps=args.steps)
+                            steps=args.steps, before_timed=before_timed)
+    t_end = time.monotonic()
     out = {"ms_per_step": ms, "steps": args.warmup + args.steps,
+           "timed_steps": args.steps, "t_start": at_start["t"],
+           "t_end": t_end, "source": effective_limits().source,
            **_shim_counters()}
+    if "vtpu_charged_ns_total" in at_start:
+        out["charged_ns_per_step"] = (
+            out["vtpu_charged_ns_total"]
+            - at_start["vtpu_charged_ns_total"]) / args.steps
+    if args.device_times:
+        before = _shim_counters().get("vtpu_throttle_wait_ns_total", 0)
+        times = step_device_times(args.dim, args.device_times, pause_s=0.3)
+        out.update(times)
+        out["isolated_span_ms"] = statistics.median(times["isolated_ms"])
+        out["device_ms_per_step"] = times["loop_kernel_ms"]
+        out["device_times_wait_ns"] = (_shim_counters().get(
+            "vtpu_throttle_wait_ns_total", 0) - before)
     if args.kernel:
         from vtpu_manager_torch.workloads import block_attention as ba
         gen = torch.Generator(device="cuda").manual_seed(0)
@@ -198,6 +477,39 @@ def _worker(args) -> None:
     print("WORKER " + json.dumps(out), flush=True)
 
 
+def _hold_worker(args) -> None:
+    """Allocates each size (GiB) in turn, retrying a refused one for up to
+    --retry-s, keeps what it got and holds it until --hold-file exists."""
+    import torch
+    x = torch.ones((64, 64), device="cuda")
+    _ = float(x.sum())                  # context and allocator are up
+    print("READY", flush=True)
+    _wait_file(args.go_file)
+    held, verdicts, granted_at = [], [], []
+    for gib in [float(v) for v in args.alloc_gib.split(",") if v]:
+        deadline = time.monotonic() + args.retry_s
+        while True:
+            try:
+                held.append(torch.empty(int(gib * 2**30), dtype=torch.uint8,
+                                        device="cuda"))
+                torch.cuda.synchronize()
+                verdicts.append("granted")
+                granted_at.append(time.monotonic())
+                break
+            except torch.cuda.OutOfMemoryError:
+                if time.monotonic() >= deadline:
+                    verdicts.append("refused")
+                    granted_at.append(None)
+                    break
+                time.sleep(0.05)
+    free, total = torch.cuda.mem_get_info()
+    print("HOLD " + json.dumps({
+        "verdicts": verdicts, "granted_at": granted_at, "free": free,
+        "total": total, "source": effective_limits().source,
+        **_shim_counters()}), flush=True)
+    _wait_file(args.hold_file)
+
+
 def _hbm_worker() -> None:
     import torch
     x = torch.ones((64, 64), device="cuda")
@@ -213,7 +525,9 @@ def _hbm_worker() -> None:
     except RuntimeError as e:           # refused, but with the wrong class
         verdict = f"unexpected: {type(e).__name__}: {str(e)[:160]}"
     print("HBM " + json.dumps({"verdict": verdict, "free": free,
-                               "total": total}), flush=True)
+                               "total": total,
+                               "source": effective_limits().source}),
+          flush=True)
 
 
 def main(argv=None) -> None:
@@ -224,9 +538,20 @@ def main(argv=None) -> None:
     ap.add_argument("--warmup", type=int, default=10)
     ap.add_argument("--steps", type=int, default=30)
     ap.add_argument("--kernel", action="store_true")
+    ap.add_argument("--warmup-s", type=float, default=0.0)
+    ap.add_argument("--go-file")
+    ap.add_argument("--device-times", type=int, default=0,
+                    help="after the loop, the step's device time "
+                    "(bench_steps.step_device_times, this many loop steps)")
+    ap.add_argument("--hold-worker", action="store_true")
+    ap.add_argument("--alloc-gib", default="")
+    ap.add_argument("--retry-s", type=float, default=0.0)
+    ap.add_argument("--hold-file")
     args = ap.parse_args(argv)
     if args.worker:
         _worker(args)
+    elif args.hold_worker:
+        _hold_worker(args)
     elif args.hbm_worker:
         _hbm_worker()
     else:

@@ -47,15 +47,19 @@ def _quota_input(dim: int, dev: torch.device) -> torch.Tensor:
 
 
 def quota_step_measure(dim: int, warmup: int, steps: int,
-                       device: str | torch.device | None = None) -> float:
+                       device: str | torch.device | None = None,
+                       before_timed=None) -> float:
     """The quota worker's sync loop: a compact bf16 matmul-dominated step
     with a scalar "loss" readback per step. Returns ms/step over the timed
-    section. Quota tracking is a duty-cycle property, not a model one."""
+    section, which `before_timed()` (when given) is called just before.
+    Quota tracking is a duty-cycle property, not a model one."""
     dev = resolve_device(device)
     x = _quota_input(dim, dev)
     for _ in range(warmup):
         x, loss = _quota_step(x)
         _ = float(loss)
+    if before_timed is not None:
+        before_timed()
     t0 = time.perf_counter()
     for _ in range(steps):
         x, loss = _quota_step(x)
@@ -92,6 +96,67 @@ def step_device_share(dim: int, warmup: int, steps: int,
     return {"ms_per_step": wall_ms / steps,
             "device_ms_per_step": busy_ms / steps,
             "busy_share": busy_ms / wall_ms}
+
+
+def kernel_ms(fn) -> float:
+    """Device time of the kernels `fn()` launches, in ms, summed from
+    torch.profiler's device events (copies and memsets left out: the
+    interposer meters kernel launches)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    total_us = 0.0
+    for e in prof.key_averages():
+        if e.device_type.name != "CUDA" or e.key.startswith(("Memcpy",
+                                                              "Memset")):
+            continue
+        total_us += getattr(e, "self_device_time_total", None) or \
+            getattr(e, "self_cuda_time_total", 0.0)
+    return total_us / 1000
+
+
+def step_device_times(dim: int, steps: int, pause_s: float,
+                      device: str | torch.device | None = None) -> dict:
+    """Two views of one quota step's device time on the card:
+
+    - isolated: single steps, each after `pause_s` of idle, with CUDA
+      events before and after the step's launches (as
+      `step_device_share` takes them) and the profiler's kernel time of
+      the same steps. Under the interposer the pause refills the bucket,
+      so each step runs unthrottled inside a throttled tenant;
+    - loop: `steps` steps back to back as the tenant's loop runs them
+      (throttled, under the interposer), the profiler's kernel time per
+      step."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise ValueError("device spans are measured on the card")
+    x = _quota_input(dim, dev)
+    x, loss = _quota_step(x)
+    _ = float(loss)
+    spans = []
+
+    def isolated():
+        nonlocal x
+        for _ in range(5):
+            time.sleep(pause_s)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            x, loss = _quota_step(x)
+            end.record()
+            _ = float(loss)
+            spans.append(start.elapsed_time(end))
+
+    def loop():
+        nonlocal x
+        for _ in range(steps):
+            x, loss = _quota_step(x)
+            _ = float(loss)
+
+    isolated_kernel = kernel_ms(isolated) / len(spans)
+    return {"isolated_ms": spans, "isolated_kernel_ms": isolated_kernel,
+            "loop_kernel_ms": kernel_ms(loop) / steps}
 
 
 def mfu_measure(n: int, inner: int, reads: int,

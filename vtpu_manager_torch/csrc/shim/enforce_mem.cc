@@ -1,16 +1,41 @@
-// enforce_mem.cc — the device-memory cap and the capped memory view.
+// enforce_mem.cc — the device-memory cap, the node's memory ledger and the
+// capped memory view.
 //
-// Ports library/src/enforce.cc ReserveMemory:792, UnreserveMemory:850 and
-// WrappedMemoryStats:1249. The ledger is this process's own: every
-// allocation the driver hands out is recorded by pointer (or by handle for
-// cuMemCreate) with its size, and an allocation that would take the
-// device's total past VTPU_MEM_LIMIT_<i> fails with CUDA_ERROR_OUT_OF_MEMORY
-// before the driver sees it. Sibling processes sharing the cap (the
-// reference's ScanLedgerBytes:501) are not counted yet.
+// Ports library/src/enforce.cc DeviceLockFd:275, the ledger
+// (ComputeOwnerToken:343, MapVmemLedger:391, ScanLedgerBytes:501,
+// FindOrClaimOwnEntryLocked:551, RecordOwnBytes:573), ReserveMemory:792,
+// UnreserveMemory:850 and WrappedMemoryStats:1249.
+//
+// Every allocation the driver hands out is recorded by pointer (or by
+// handle for cuMemCreate) with its size. An allocation is admitted under
+// two checks, made together with the charge under the node-wide per-device
+// flock (VTPU_LOCK_DIR/vtpu_<host>.lock), so two processes allocating at
+// once cannot both pass:
+//   the cap:      own bytes + this tenant's other processes' bytes (same
+//                 owner token in the ledger) + the request <= the cap;
+//   the physical: every tenant's bytes on the device + the request <=
+//                 real_memory.
+// A refusal is CUDA_ERROR_OUT_OF_MEMORY before the driver sees the call
+// (vtpu_oom_rejected_total). The ledger entry (VTPU_VMEM_PATH) is written
+// while the lock is held and again on every free; PyTorch's caching
+// allocator frees its cache and retries on a refusal, so the ledger holds
+// live segments only.
 //
 // The view must match the cap: cuMemGetInfo_v2 reports total = cap and
-// free = cap - own, or PyTorch's caching allocator would size itself
-// against the whole card.
+// free = cap - own - siblings, or PyTorch's caching allocator would size
+// itself against the whole card.
+
+#include <errno.h>
+#include <fcntl.h>
+#include <pthread.h>
+#include <signal.h>
+#include <stdio.h>
+#include <stdlib.h>
+#include <string.h>
+#include <sys/file.h>
+#include <sys/mman.h>
+#include <sys/stat.h>
+#include <unistd.h>
 
 #include <algorithm>
 #include <mutex>
@@ -19,6 +44,8 @@
 #include "shim.h"
 
 namespace vtpu_cuda {
+
+using namespace vtpu_abi;
 
 namespace {
 
@@ -31,10 +58,245 @@ std::mutex g_mu;
 int64_t g_used[kMaxDevices] = {};
 std::unordered_map<CUdeviceptr, Allocation> g_by_ptr;
 std::unordered_map<CUmemGenericAllocationHandle, Allocation> g_by_handle;
+std::atomic<uint64_t> g_oom_rejected{0};
 
-int64_t Limit(int slot) {
-  const Config& c = Cfg();
-  return c.disabled ? 0 : c.mem_limit[slot];
+int64_t Used(int slot) {
+  std::lock_guard<std::mutex> lock(g_mu);
+  return g_used[slot];
+}
+
+// --- the node ledger ------------------------------------------------------
+
+VmemFile* g_vmem = nullptr;
+int g_vmem_lock_fd = -1;
+std::atomic<uint64_t> g_token{0};
+std::atomic<int> g_entry_idx[kMaxDevices];
+std::atomic<bool> g_exiting{false};
+std::mutex g_lock_fds_mu;
+std::unordered_map<int, int> g_lock_fds;  // host index -> device lock fd
+std::mutex* g_local_mu[kMaxDevices];       // host index % kMaxDevices
+
+uint64_t ComputeOwnerToken() {
+  const char* pod_uid = getenv("VTPU_POD_UID");
+  const char* cont = getenv("VTPU_CONTAINER_NAME");
+  char buf[256];
+  if (pod_uid && *pod_uid) {
+    snprintf(buf, sizeof(buf), "%s/%s", pod_uid, cont ? cont : "");
+    return Fnv1a64(buf);
+  }
+  // a bare process: its pid and start time (field 22 of /proc/self/stat,
+  // counted after the command name, which may hold spaces)
+  unsigned long long starttime = 0;
+  if (FILE* f = fopen("/proc/self/stat", "r")) {
+    char line[1024];
+    if (fgets(line, sizeof(line), f)) {
+      char* p = strrchr(line, ')');
+      int field = 2;
+      char* save = nullptr;
+      for (char* tok = p ? strtok_r(p + 1, " ", &save) : nullptr; tok;
+           tok = strtok_r(nullptr, " ", &save)) {
+        if (++field == 22) {
+          starttime = strtoull(tok, nullptr, 10);
+          break;
+        }
+      }
+    }
+    fclose(f);
+  }
+  snprintf(buf, sizeof(buf), "proc-%d-%llu", (int)getpid(), starttime);
+  return Fnv1a64(buf);
+}
+
+uint64_t StaleReapNs() {
+  static uint64_t ns = VmemStaleReapNsFromEnv(getenv("VTPU_VMEM_STALE_S"));
+  return ns;
+}
+
+bool PidAlive(int pid) { return kill(pid, 0) == 0 || errno != ESRCH; }
+
+// A forked child is another process: its own token (for a bare process),
+// its own ledger entries, fresh lock descriptions (flock is per open file
+// description, so inherited ones would not exclude the parent) and none of
+// the parent's allocations.
+void ResetInChild() {
+  g_token.store(0);
+  for (auto& idx : g_entry_idx) idx.store(-1);
+  for (auto& kv : g_lock_fds) close(kv.second);
+  g_lock_fds.clear();
+  if (g_vmem) {
+    const char* path = getenv("VTPU_VMEM_PATH");
+    char lock_path[512];
+    snprintf(lock_path, sizeof(lock_path), "%s.lock",
+             path ? path : "/tmp/.vmem_node/vmem_node.config");
+    if (g_vmem_lock_fd >= 0) close(g_vmem_lock_fd);
+    g_vmem_lock_fd = open(lock_path, O_CREAT | O_RDWR | O_CLOEXEC, 0666);
+  }
+  for (auto& u : g_used) u = 0;
+  g_by_ptr.clear();
+  g_by_handle.clear();
+}
+
+// The Python ledger's FileLock protocol: flock on <ledger>.lock.
+class LedgerLock {
+ public:
+  LedgerLock() {
+    if (g_vmem_lock_fd >= 0 && flock(g_vmem_lock_fd, LOCK_EX) == 0)
+      held_ = true;
+  }
+  ~LedgerLock() {
+    if (held_) flock(g_vmem_lock_fd, LOCK_UN);
+  }
+
+ private:
+  bool held_ = false;
+};
+
+// Frees this process's entries at exit, so a departed tenant leaves no
+// resident behind in the watcher's feed (reference loader.c:2527-2543).
+// A process killed outright leaves them until they go stale.
+void ClearOwnEntries() {
+  g_exiting.store(true);
+  if (!g_vmem) return;
+  int me = (int)getpid();
+  LedgerLock lock;
+  for (int i = 0; i < kVmemMaxEntries; i++) {
+    VmemEntry& e = g_vmem->entries[i];
+    if (e.pid != me) continue;
+    __atomic_store_n(&e.pid, 0, __ATOMIC_RELEASE);
+    e.bytes = 0;
+    e.owner_token = 0;
+    e.activity = 0;
+    e.last_update_ns = 0;
+  }
+}
+
+void MapLedgerOnce() {
+  static std::once_flag once;
+  std::call_once(once, [] {
+    for (auto& idx : g_entry_idx) idx.store(-1);
+    for (auto& mu : g_local_mu) mu = new std::mutex();
+    pthread_atfork(nullptr, nullptr, ResetInChild);
+    atexit(ClearOwnEntries);
+    const char* path = getenv("VTPU_VMEM_PATH");
+    if (!path || !*path) path = "/tmp/.vmem_node/vmem_node.config";
+    int fd = open(path, O_RDWR | O_CLOEXEC);
+    if (fd < 0) return;
+    struct stat st;
+    if (fstat(fd, &st) != 0 || (size_t)st.st_size != sizeof(VmemFile)) {
+      close(fd);
+      Log(kLogWarn, "vmem ledger %s has the wrong size; no co-tenant view",
+          path);
+      return;
+    }
+    void* mem = mmap(nullptr, sizeof(VmemFile), PROT_READ | PROT_WRITE,
+                     MAP_SHARED, fd, 0);
+    close(fd);
+    if (mem == MAP_FAILED) return;
+    auto* f = static_cast<VmemFile*>(mem);
+    if (f->magic != kVmemMagic || f->version != kVmemVersion) {
+      Log(kLogWarn, "vmem ledger %s rejected (magic=%08x version=%u); no "
+          "co-tenant view", path, f->magic, f->version);
+      munmap(mem, sizeof(VmemFile));
+      return;
+    }
+    char lock_path[512];
+    snprintf(lock_path, sizeof(lock_path), "%s.lock", path);
+    g_vmem_lock_fd = open(lock_path, O_CREAT | O_RDWR | O_CLOEXEC, 0666);
+    g_vmem = f;
+    Log(kLogInfo, "vmem ledger mapped: %s (token=%016llx)", path,
+        (unsigned long long)OwnerToken());
+  });
+}
+
+int DeviceLockFd(int host_index) {
+  std::lock_guard<std::mutex> lock(g_lock_fds_mu);
+  auto it = g_lock_fds.find(host_index);
+  if (it != g_lock_fds.end()) return it->second;
+  const char* dir = getenv("VTPU_LOCK_DIR");
+  if (!dir || !*dir) dir = "/tmp/.vtpu_lock";
+  mkdir(dir, 0777);
+  char path[512];
+  snprintf(path, sizeof(path), "%s/vtpu_%d.lock", dir, host_index);
+  int fd = open(path, O_CREAT | O_RDWR | O_CLOEXEC, 0666);
+  Log(kLogInfo, "device %d lock: %s", host_index, path);
+  g_lock_fds[host_index] = fd;
+  return fd;
+}
+
+// The node-wide critical section for one device's memory accounting: a
+// local mutex (flock does not exclude threads sharing a description) and
+// the device's flock, with the reference's backoff and a 10 s timeout
+// after which the check runs unlocked rather than hanging (lock.c:207).
+class DeviceLock {
+ public:
+  explicit DeviceLock(int host_index)
+      : local_(*g_local_mu[host_index % kMaxDevices]),
+        fd_(DeviceLockFd(host_index)) {
+    local_.lock();
+    if (fd_ < 0) return;
+    uint64_t deadline = NowNs() + 10'000'000'000ull;
+    useconds_t backoff = 1000;
+    while (flock(fd_, LOCK_EX | LOCK_NB) != 0) {
+      if ((errno != EWOULDBLOCK && errno != EINTR) || NowNs() > deadline) {
+        Log(kLogError, "device %d lock not taken; checking unlocked",
+            host_index);
+        return;
+      }
+      usleep(backoff);
+      backoff = std::min<useconds_t>(backoff * 2, 10000);
+    }
+    held_ = true;
+  }
+  ~DeviceLock() {
+    if (held_) flock(fd_, LOCK_UN);
+    local_.unlock();
+  }
+
+ private:
+  std::mutex& local_;
+  int fd_;
+  bool held_ = false;
+};
+
+// This process's entry for `host`, claiming a free slot when `claim`. The
+// caller holds the ledger lock; the pid is stored last, which publishes
+// the claimed slot to lock-free readers.
+int FindOrClaimLocked(int host, bool claim) {
+  int me = (int)getpid();
+  uint64_t token = OwnerToken();
+  int free_slot = -1;
+  for (int i = 0; i < kVmemMaxEntries; i++) {
+    VmemEntry& e = g_vmem->entries[i];
+    if (e.pid == me && e.host_index == host && e.owner_token == token)
+      return i;
+    if (e.pid == 0 && free_slot < 0) free_slot = i;
+  }
+  if (!claim || free_slot < 0) return -1;
+  VmemEntry& e = g_vmem->entries[free_slot];
+  e.host_index = host;
+  e.bytes = 0;
+  e.last_update_ns = NowNs();
+  e.owner_token = token;
+  e.activity = 0;
+  e.spilled = 0;
+  __atomic_store_n(&e.pid, me, __ATOMIC_RELEASE);
+  return free_slot;
+}
+
+// Publishes this process's bytes on the slot's device (a zero entry with
+// no activity history is freed).
+void RecordOwnBytes(int slot, int64_t used) {
+  const DeviceLimits* d = Dev(slot);
+  MapLedgerOnce();
+  if (!g_vmem || !d || g_exiting.load()) return;
+  uint64_t mine = used > 0 ? (uint64_t)used : 0;
+  LedgerLock lock;
+  int idx = FindOrClaimLocked(d->host_index, mine > 0);
+  if (idx < 0) return;
+  VmemEntry& e = g_vmem->entries[idx];
+  e.bytes = mine;
+  e.last_update_ns = NowNs();
+  g_entry_idx[slot].store(idx, std::memory_order_relaxed);
 }
 
 void Record(CUdeviceptr ptr, int slot, int64_t bytes) {
@@ -57,23 +319,101 @@ void Forget(CUdeviceptr ptr) {
 
 }  // namespace
 
-// Admits `bytes` on `slot` when the total stays within the cap; at the cap
-// exactly is admitted, one byte over is not.
+uint64_t OwnerToken() {
+  uint64_t t = g_token.load(std::memory_order_relaxed);
+  if (t == 0) {
+    t = ComputeOwnerToken();
+    g_token.store(t, std::memory_order_relaxed);
+  }
+  return t;
+}
+
+LedgerBytes ScanLedgerBytes(int slot) {
+  LedgerBytes out;
+  const DeviceLimits* d = Dev(slot);
+  MapLedgerOnce();
+  if (!g_vmem || !d) return out;
+  int me = (int)getpid();
+  uint64_t token = OwnerToken();
+  uint64_t now = NowNs();
+  for (int i = 0; i < kVmemMaxEntries; i++) {
+    const VmemEntry& e = g_vmem->entries[i];
+    int pid = __atomic_load_n(&e.pid, __ATOMIC_ACQUIRE);
+    if (pid == 0 || e.host_index != d->host_index) continue;
+    bool self_tenant = e.owner_token == token;
+    if (self_tenant && pid == me) continue;  // g_used covers this process
+    // a foreign namespace's pid cannot be probed: count the entry unless
+    // it is both dead here and stale
+    if (!PidAlive(pid) && now - e.last_update_ns > StaleReapNs()) continue;
+    (self_tenant ? out.siblings : out.others) += (int64_t)e.bytes;
+  }
+  return out;
+}
+
+VmemEntry* OwnLedgerEntry(int slot) {
+  const DeviceLimits* d = Dev(slot);
+  MapLedgerOnce();
+  if (!g_vmem || !d || g_exiting.load()) return nullptr;
+  int idx = g_entry_idx[slot].load(std::memory_order_relaxed);
+  if (idx >= 0) {
+    VmemEntry& e = g_vmem->entries[idx];
+    if (e.pid == (int)getpid() && e.host_index == d->host_index &&
+        e.owner_token == OwnerToken())
+      return &e;
+  }
+  LedgerLock lock;
+  idx = FindOrClaimLocked(d->host_index, /*claim=*/true);
+  g_entry_idx[slot].store(idx, std::memory_order_relaxed);
+  return idx >= 0 ? &g_vmem->entries[idx] : nullptr;
+}
+
+// Admits `bytes` on `slot` when the tenant stays within its cap and the
+// device within its physical memory; at the cap exactly is admitted, one
+// byte over is not. The check, the charge and the ledger entry happen
+// under the device lock.
 CUresult ReserveMemory(int slot, int64_t bytes) {
-  std::lock_guard<std::mutex> lock(g_mu);
-  int64_t limit = Limit(slot);
-  if (limit > 0 && g_used[slot] + bytes > limit) {
-    Log(kLogInfo, "device %d: %lld bytes refused (%lld of %lld in use)", slot,
-        (long long)bytes, (long long)g_used[slot], (long long)limit);
+  const DeviceLimits* d = Dev(slot);
+  if (!d) {
+    std::lock_guard<std::mutex> lock(g_mu);
+    g_used[slot] += bytes;
+    return CUDA_SUCCESS;
+  }
+  MapLedgerOnce();
+  DeviceLock device_lock(d->host_index);
+  int64_t own = Used(slot);
+  LedgerBytes lb = ScanLedgerBytes(slot);
+  if (d->mem_limit > 0 && own + lb.siblings + bytes > d->mem_limit) {
+    g_oom_rejected.fetch_add(1, std::memory_order_relaxed);
+    Log(kLogInfo, "device %d: %lld bytes refused by the cap (own %lld, "
+        "siblings %lld, cap %lld)", slot, (long long)bytes, (long long)own,
+        (long long)lb.siblings, (long long)d->mem_limit);
     return CUDA_ERROR_OUT_OF_MEMORY;
   }
-  g_used[slot] += bytes;
+  if (d->real_memory > 0 &&
+      own + lb.siblings + lb.others + bytes > d->real_memory) {
+    g_oom_rejected.fetch_add(1, std::memory_order_relaxed);
+    Log(kLogInfo, "device %d: %lld bytes refused by physical memory "
+        "(tenant %lld, co-tenants %lld, physical %lld)", slot,
+        (long long)bytes, (long long)(own + lb.siblings),
+        (long long)lb.others, (long long)d->real_memory);
+    return CUDA_ERROR_OUT_OF_MEMORY;
+  }
+  int64_t now_used;
+  {
+    std::lock_guard<std::mutex> lock(g_mu);
+    now_used = g_used[slot] += bytes;
+  }
+  RecordOwnBytes(slot, now_used);
   return CUDA_SUCCESS;
 }
 
 void UnreserveMemory(int slot, int64_t bytes) {
-  std::lock_guard<std::mutex> lock(g_mu);
-  g_used[slot] = std::max<int64_t>(0, g_used[slot] - bytes);
+  int64_t now_used;
+  {
+    std::lock_guard<std::mutex> lock(g_mu);
+    now_used = g_used[slot] = std::max<int64_t>(0, g_used[slot] - bytes);
+  }
+  if (Dev(slot)) RecordOwnBytes(slot, now_used);
 }
 
 }  // namespace vtpu_cuda
@@ -186,17 +526,13 @@ VTPU_EXPORT CUresult cuMemGetInfo_v2(size_t* free_bytes, size_t* total_bytes) {
   if (!real) return CUDA_ERROR_NOT_INITIALIZED;
   CUresult rc = real(free_bytes, total_bytes);
   int slot = CurrentSlot();
-  int64_t limit = Limit(slot);
-  if (rc != CUDA_SUCCESS || limit <= 0) return rc;
-  int64_t used;
-  {
-    std::lock_guard<std::mutex> lock(g_mu);
-    used = g_used[slot];
-  }
-  if (total_bytes) *total_bytes = (size_t)limit;
+  const DeviceLimits* d = Dev(slot);
+  if (rc != CUDA_SUCCESS || !d || d->mem_limit <= 0) return rc;
+  int64_t used = Used(slot) + ScanLedgerBytes(slot).siblings;
+  if (total_bytes) *total_bytes = (size_t)d->mem_limit;
   if (free_bytes)
     *free_bytes = std::min<size_t>(
-        *free_bytes, (size_t)std::max<int64_t>(0, limit - used));
+        *free_bytes, (size_t)std::max<int64_t>(0, d->mem_limit - used));
   return rc;
 }
 
@@ -204,8 +540,12 @@ VTPU_EXPORT CUresult cuDeviceTotalMem_v2(size_t* bytes, CUdevice dev) {
   auto real = VTPU_REAL(cuDeviceTotalMem_v2);
   if (!real) return CUDA_ERROR_NOT_INITIALIZED;
   CUresult rc = real(bytes, dev);
-  if (rc != CUDA_SUCCESS || !bytes || dev < 0 || dev >= kMaxDevices) return rc;
-  int64_t limit = Limit(dev);
-  if (limit > 0) *bytes = std::min<size_t>(*bytes, (size_t)limit);
+  const DeviceLimits* d = Dev(dev);
+  if (rc != CUDA_SUCCESS || !bytes || !d || d->mem_limit <= 0) return rc;
+  *bytes = std::min<size_t>(*bytes, (size_t)d->mem_limit);
   return rc;
+}
+
+VTPU_EXPORT uint64_t vtpu_oom_rejected_total() {
+  return g_oom_rejected.load(std::memory_order_relaxed);
 }

@@ -1,9 +1,10 @@
 // loader.cc — real-driver loading, config, and symbol routing.
 //
-// Ports library/src/loader.cc (OpenRealPlugin:64, SynthesizeFromEnv:125,
-// LoadConfig:182) from a PJRT plugin interposer to a CUDA driver-API one.
-// The config comes from the environment only; the node's config file is
-// read once the port has its copy of that layout.
+// Ports library/src/loader.cc (OpenRealPlugin:64, LoadConfigFile:92,
+// SynthesizeFromEnv:125, LoadConfig:182, MapTcUtil:211) from a PJRT plugin
+// interposer to a CUDA driver-API one. The limits come from the container's
+// vtpu.config (VTPU_CONFIG_PATH) when it validates, else from the VTPU_*
+// environment, in the reference's order.
 // A PJRT plugin is reached through one GetPjrtApi table; the CUDA driver is
 // reached three ways, and all three are routed to the hooks:
 //   1. exported names: the hooks carry the driver's names, and LD_PRELOAD
@@ -20,11 +21,15 @@
 // first call that needs it.
 
 #include <dlfcn.h>
+#include <fcntl.h>
 #include <stdarg.h>
 #include <stdio.h>
 #include <stdlib.h>
 #include <string.h>
+#include <sys/mman.h>
+#include <sys/stat.h>
 #include <time.h>
+#include <unistd.h>
 
 #include <mutex>
 
@@ -70,6 +75,12 @@ void* RealHandle() {
   return handle;
 }
 
+using namespace vtpu_abi;
+
+constexpr const char* kDefaultConfigPath = "/etc/vtpu-manager/config/vtpu.config";
+constexpr const char* kDefaultFeedPath =
+    "/etc/vtpu-manager/watcher/tc_util.config";
+
 int64_t EnvInt(const char* base, int i, int64_t fallback) {
   char name[96];
   snprintf(name, sizeof(name), "%s_%d", base, i);
@@ -79,20 +90,101 @@ int64_t EnvInt(const char* base, int i, int64_t fallback) {
   return strtoll(raw, nullptr, 10);
 }
 
-// Per-device limits from the VTPU_* environment, the same variables the
-// JAX package's shim reads when no config file is mounted.
-Config SynthesizeFromEnv() {
+// The file's device at local position i as the slot's limits.
+DeviceLimits FromFile(const VtpuDevice& d) {
+  DeviceLimits out;
+  out.present = true;
+  out.mem_limit = d.memory_limit ? (int64_t)d.total_memory : 0;
+  out.real_memory = (int64_t)d.real_memory;
+  out.hard_core = d.hard_core;
+  out.soft_core = d.soft_core;
+  out.core_limit = d.core_limit;
+  out.host_index = d.host_index;
+  return out;
+}
+
+// Size, magic, version, checksum, then the device count, as the
+// reference validates the file (loader.cc:92-114).
+bool LoadConfigFile(const char* path, Config* out) {
+  int fd = open(path, O_RDONLY | O_CLOEXEC);
+  if (fd < 0) return false;
+  struct stat st;
+  if (fstat(fd, &st) != 0 || (size_t)st.st_size != sizeof(VtpuConfig)) {
+    close(fd);
+    fprintf(stderr, "[vtpu-cuda WARN] config %s has the wrong size\n", path);
+    return false;
+  }
+  void* mem = mmap(nullptr, sizeof(VtpuConfig), PROT_READ, MAP_PRIVATE, fd, 0);
+  close(fd);
+  if (mem == MAP_FAILED) return false;
+  const auto* cfg = static_cast<const VtpuConfig*>(mem);
+  bool ok = cfg->magic == kConfigMagic && cfg->version == kConfigVersion &&
+            cfg->pad_ == 0 &&
+            cfg->checksum == Fnv1a(static_cast<const uint8_t*>(mem),
+                                   offsetof(VtpuConfig, checksum)) &&
+            cfg->device_count >= 0 && cfg->device_count <= kMaxDeviceCount;
+  if (ok) {
+    out->device_count = cfg->device_count < kMaxDevices ? cfg->device_count
+                                                        : kMaxDevices;
+    for (int i = 0; i < out->device_count; i++)
+      out->dev[i] = FromFile(cfg->devices[i]);
+    out->from_file = true;
+  } else {
+    fprintf(stderr, "[vtpu-cuda ERROR] config %s failed validation\n", path);
+  }
+  munmap(mem, sizeof(VtpuConfig));
+  return ok;
+}
+
+// Per-device limits from the VTPU_* environment (loader.cc:125-180): the
+// same variables the JAX package's shim reads when no file is mounted.
+bool SynthesizeFromEnv(Config* out) {
+  bool any = getenv("VTPU_MEM_LIMIT") || getenv("VTPU_MEM_LIMIT_0") ||
+             getenv("VTPU_CORE_LIMIT") || getenv("VTPU_CORE_LIMIT_0");
+  if (!any) return false;
+  int hosts[kMaxDevices] = {};
+  int count = 0;
+  const char* visible = getenv("MANAGER_VISIBLE_DEVICES");
+  if (visible && *visible) {
+    char tmp[256];
+    snprintf(tmp, sizeof(tmp), "%s", visible);
+    char* save = nullptr;
+    for (char* tok = strtok_r(tmp, ",", &save); tok && count < kMaxDevices;
+         tok = strtok_r(nullptr, ",", &save))
+      hosts[count++] = atoi(tok);
+  } else {
+    count = 1;
+  }
+  for (int i = 0; i < count; i++) {
+    DeviceLimits& d = out->dev[i];
+    int64_t mem = EnvInt("VTPU_MEM_LIMIT", i, 0);
+    int64_t core = EnvInt("VTPU_CORE_LIMIT", i, 0);
+    int64_t soft = EnvInt("VTPU_CORE_SOFT_LIMIT", i, core);
+    d.present = true;
+    d.mem_limit = mem > 0 ? mem : 0;
+    d.real_memory = EnvInt("VTPU_MEM_REAL", i, 0);
+    if (d.real_memory < 0) d.real_memory = 0;
+    d.hard_core = (int)core;
+    d.soft_core = (int)soft;
+    d.core_limit = core <= 0      ? kCoreLimitNone
+                   : soft > core  ? kCoreLimitSoft
+                                  : kCoreLimitHard;
+    d.host_index = hosts[i];
+  }
+  out->device_count = count;
+  return true;
+}
+
+Config LoadConfig() {
   Config c;
   const char* level = getenv("VTPU_LOGGER_LEVEL");
   if (level && *level) c.log_level = atoi(level);
   const char* disable = getenv("DISABLE_VTPU_CONTROL");
   c.disabled = disable && *disable;
-  for (int i = 0; i < kMaxDevices; i++) {
-    int64_t mem = EnvInt("VTPU_MEM_LIMIT", i, 0);
-    int64_t core = EnvInt("VTPU_CORE_LIMIT", i, 0);
-    c.mem_limit[i] = mem > 0 ? mem : 0;
-    c.core_limit[i] = (core > 0 && core < 100) ? (int)core : 0;
-  }
+  if (c.disabled) return c;
+  const char* path = getenv("VTPU_CONFIG_PATH");
+  if (!path || !*path) path = kDefaultConfigPath;
+  if (!LoadConfigFile(path, &c)) SynthesizeFromEnv(&c);
   return c;
 }
 
@@ -155,8 +247,57 @@ void* RouteProcAddress(const char* symbol, void* real) {
 }  // namespace
 
 const Config& Cfg() {
-  static Config cfg = SynthesizeFromEnv();
+  static Config cfg = [] {
+    Config c = LoadConfig();
+    for (int i = 0; i < c.device_count; i++) {
+      const DeviceLimits& d = c.dev[i];
+      if (c.log_level >= kLogInfo)
+        fprintf(stderr,
+                "[vtpu-cuda INFO] device[%d] from %s: host=%d cap=%lld "
+                "real=%lld core=%d..%d policy=%d\n",
+                i, c.from_file ? "config file" : "environment", d.host_index,
+                (long long)d.mem_limit, (long long)d.real_memory, d.hard_core,
+                d.soft_core, d.core_limit);
+    }
+    return c;
+  }();
   return cfg;
+}
+
+const DeviceLimits* Dev(int slot) {
+  const Config& c = Cfg();
+  if (c.disabled || slot < 0 || slot >= c.device_count) return nullptr;
+  return c.dev[slot].present ? &c.dev[slot] : nullptr;
+}
+
+// The node watcher's feed (loader.cc:211-241), read-only: v1 (records
+// only) or v2 (records and the calibration block).
+const TcUtilFile* TcFeed() {
+  static const TcUtilFile* feed = []() -> const TcUtilFile* {
+    const char* path = getenv("VTPU_TC_UTIL_PATH");
+    if (!path || !*path) path = kDefaultFeedPath;
+    int fd = open(path, O_RDONLY | O_CLOEXEC);
+    if (fd < 0) return nullptr;
+    struct stat st;
+    constexpr size_t kV1 = sizeof(TcUtilFile);
+    constexpr size_t kV2 = sizeof(TcUtilFile) + sizeof(TcCalibration);
+    if (fstat(fd, &st) != 0 ||
+        ((size_t)st.st_size != kV1 && (size_t)st.st_size != kV2)) {
+      close(fd);
+      return nullptr;
+    }
+    void* mem = mmap(nullptr, (size_t)st.st_size, PROT_READ, MAP_SHARED, fd, 0);
+    close(fd);
+    if (mem == MAP_FAILED) return nullptr;
+    const auto* f = static_cast<const TcUtilFile*>(mem);
+    if (f->magic != kTcUtilMagic) {
+      munmap(mem, (size_t)st.st_size);
+      return nullptr;
+    }
+    Log(kLogInfo, "watcher feed mapped: %s (v%u)", path, f->version);
+    return f;
+  }();
+  return feed;
 }
 
 void Log(int level, const char* fmt, ...) {

@@ -10,6 +10,12 @@
 //   --caps           cap verdicts under, at and over VTPU_MEM_LIMIT_0, the
 //                    credit a free returns, and the capped memory view
 //   --throttle-only  SHIM_TEST_ITERS launch+synchronize steps; prints wall=
+//                    and the interposer's counters (COUNTERS name=value ...)
+//   --alloc          allocates each size of SHIM_TEST_ALLOCS (comma-separated
+//                    bytes) and keeps what it got, prints a VERDICT per size
+//                    and HELD, then holds it until SHIM_TEST_HOLD_FILE exists
+//                    (a second process of the same tenant, a co-tenant, or
+//                    a SIGKILL meets it there)
 //   --stress         threads allocating, freeing and launching at once: the
 //                    cap holds at every moment, the ledger drains to zero
 //                    and every launch is counted
@@ -22,6 +28,9 @@
 #include <stdlib.h>
 #include <string.h>
 #include <time.h>
+
+#include <sys/stat.h>
+#include <unistd.h>
 
 #include <atomic>
 #include <thread>
@@ -202,6 +211,55 @@ int Caps() {
   return 0;
 }
 
+// The interposer's counters, read the way a tenant reads them.
+void PrintCounters() {
+  static const char* kNames[] = {
+      "vtpu_launches_total",        "vtpu_sampled_launches_total",
+      "vtpu_probes_total",          "vtpu_charged_ns_total",
+      "vtpu_obs_overhead_ns",       "vtpu_throttle_wait_ns_total",
+      "vtpu_watcher_external_total", "vtpu_watcher_fallback_total",
+      "vtpu_blind_ticks_total",     "vtpu_oom_rejected_total"};
+  printf("COUNTERS");
+  for (const char* name : kNames) {
+    auto fn = reinterpret_cast<int64_t (*)()>(dlsym(RTLD_DEFAULT, name));
+    printf(" %s=%lld", name, fn ? (long long)fn() : -1ll);
+  }
+  auto up = reinterpret_cast<int (*)(int)>(dlsym(RTLD_DEFAULT,
+                                                 "vtpu_up_limit"));
+  printf(" vtpu_up_limit=%d\n", up ? up(0) : -1);
+}
+
+int Alloc() {
+  auto alloc = reinterpret_cast<AllocFn>(Proc("cuMemAlloc"));
+  auto release_ptr = reinterpret_cast<FreeFn>(Proc("cuMemFree"));
+  if (!alloc || !release_ptr) {
+    fprintf(stderr, "driver entry points missing\n");
+    return 2;
+  }
+  const char* raw = getenv("SHIM_TEST_ALLOCS");
+  std::vector<CUdeviceptr> held;
+  int i = 0;
+  for (const char* p = raw ? raw : ""; *p; i++) {
+    char* end = nullptr;
+    size_t bytes = strtoull(p, &end, 10);
+    CUdeviceptr ptr = 0;
+    CUresult rc = alloc(&ptr, bytes);
+    printf("VERDICT alloc%d %d\n", i, rc);
+    if (rc == CUDA_SUCCESS) held.push_back(ptr);
+    p = (*end == ',') ? end + 1 : end;
+  }
+  PrintCounters();
+  printf("HELD\n");
+  fflush(stdout);
+  const char* hold = getenv("SHIM_TEST_HOLD_FILE");
+  struct stat st;
+  for (int waited = 0; hold && stat(hold, &st) != 0 && waited < 60000;
+       waited += 10)
+    usleep(10000);
+  for (CUdeviceptr ptr : held) release_ptr(ptr);
+  return 0;
+}
+
 int ThrottleOnly() {
   const char* raw = getenv("SHIM_TEST_ITERS");
   int iters = raw ? atoi(raw) : 100;
@@ -225,6 +283,7 @@ int ThrottleOnly() {
                                                     "vtpu_launches_total"));
   printf("wall=%.3fms iters=%d shim_launches=%llu\n", wall, iters,
          launches ? (unsigned long long)launches() : 0ull);
+  PrintCounters();
   return 0;
 }
 
@@ -321,7 +380,9 @@ int main(int argc, char** argv) {
   if (strcmp(mode, "--caps") == 0) return Caps();
   if (strcmp(mode, "--throttle-only") == 0) return ThrottleOnly();
   if (strcmp(mode, "--stress") == 0) return Stress();
-  fprintf(stderr, "usage: %s --routes|--caps|--throttle-only|--stress\n",
+  if (strcmp(mode, "--alloc") == 0) return Alloc();
+  fprintf(stderr, "usage: %s --routes|--caps|--throttle-only|--alloc|"
+          "--stress\n",
           argv[0]);
   return 2;
 }

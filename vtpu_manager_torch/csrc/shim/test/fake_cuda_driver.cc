@@ -7,10 +7,28 @@
 // device is free. Memory is bookkeeping only, against FAKE_TOTAL_MEM bytes.
 // Link with -Wl,-Bsymbolic so its own addresses stay its own when the
 // interposer, preloaded ahead of it, exports the same names.
+//
+// Knobs (the counterparts of library/test/fake_pjrt_plugin.cc:91-168, 403):
+//   FAKE_SUBMIT_LATENCY_US  work issued to an idle device starts this much
+//                           after the call; an event recorded on an idle
+//                           stream is stamped at once (a card's way from
+//                           the launch call to the kernel's start)
+//   FAKE_SHARED_STATE=path  one device for every process naming the path:
+//                           an flock on <path>.lock guards a shared timeline
+//                           (kernels of all processes run one at a time, in
+//                           launch order) and the file counts busy ns (u64
+//                           at offset 0) for a test playing the watcher
+//   FAKE_LYING_EVENTS=1     events complete when recorded: the process
+//                           cannot see its own device time
 
+#include <fcntl.h>
+#include <stdio.h>
 #include <stdlib.h>
 #include <string.h>
+#include <sys/file.h>
+#include <sys/mman.h>
 #include <time.h>
+#include <unistd.h>
 
 #include <algorithm>
 #include <map>
@@ -28,7 +46,7 @@ struct FakeEvent {
 };
 
 std::mutex g_mu;
-uint64_t g_free_at_ns = 0;  // when the device's queue drains
+uint64_t g_free_at_ns = 0;  // when this process's queue drains
 uint64_t g_launches = 0;
 uint64_t g_used = 0;
 uint64_t g_next_ptr = 0x10000000;
@@ -49,6 +67,34 @@ uint64_t EnvU64(const char* name, uint64_t fallback) {
 
 uint64_t ExecNs() { return EnvU64("FAKE_EXEC_US", 1000) * 1000; }
 uint64_t TotalMem() { return EnvU64("FAKE_TOTAL_MEM", 16ull << 30); }
+uint64_t LatencyNs() { return EnvU64("FAKE_SUBMIT_LATENCY_US", 0) * 1000; }
+bool LyingEvents() { return EnvU64("FAKE_LYING_EVENTS", 0) != 0; }
+
+struct SharedChip {
+  uint64_t busy_ns;
+  uint64_t free_at_ns;
+};
+SharedChip* g_shared = nullptr;
+int g_shared_lock_fd = -1;
+
+void InitSharedChip() {
+  const char* path = getenv("FAKE_SHARED_STATE");
+  if (!path || !*path) return;
+  int fd = open(path, O_CREAT | O_RDWR, 0666);
+  if (fd < 0) return;
+  if (ftruncate(fd, sizeof(SharedChip)) != 0) {
+    close(fd);
+    return;
+  }
+  void* mem = mmap(nullptr, sizeof(SharedChip), PROT_READ | PROT_WRITE,
+                   MAP_SHARED, fd, 0);
+  close(fd);
+  if (mem == MAP_FAILED) return;
+  char lock_path[512];
+  snprintf(lock_path, sizeof(lock_path), "%s.lock", path);
+  g_shared_lock_fd = open(lock_path, O_CREAT | O_RDWR, 0666);
+  g_shared = static_cast<SharedChip*>(mem);
+}
 
 // Sleeps to just short of `t`, then spins: a host wake-up late by a
 // scheduler tick would read as device time the interposer never metered.
@@ -65,12 +111,31 @@ void SleepUntil(uint64_t t) {
   }
 }
 
-CUresult Launch() {
+// Queues `exec_ns` of work: on an idle device it starts after the
+// submission latency, else when the device frees up.
+CUresult Submit(uint64_t exec_ns) {
+  static std::once_flag once;
+  std::call_once(once, InitSharedChip);
   std::lock_guard<std::mutex> lock(g_mu);
-  uint64_t start = std::max(NowNs(), g_free_at_ns);
-  g_free_at_ns = start + ExecNs();
-  g_launches++;
+  if (g_shared) flock(g_shared_lock_fd, LOCK_EX);
+  uint64_t now = NowNs();
+  uint64_t device_free = g_shared ? g_shared->free_at_ns : g_free_at_ns;
+  uint64_t start = device_free > now ? device_free : now + LatencyNs();
+  g_free_at_ns = start + exec_ns;
+  if (g_shared) {
+    g_shared->free_at_ns = g_free_at_ns;
+    g_shared->busy_ns += exec_ns;
+    flock(g_shared_lock_fd, LOCK_UN);
+  }
   return CUDA_SUCCESS;
+}
+
+CUresult Launch() {
+  {
+    std::lock_guard<std::mutex> lock(g_mu);
+    g_launches++;
+  }
+  return Submit(ExecNs());
 }
 
 CUresult Alloc(CUdeviceptr* dptr, size_t bytes) {
@@ -137,6 +202,21 @@ FAKE_EXPORT CUresult cuStreamSynchronize(CUstream) {
 
 FAKE_EXPORT CUresult cuCtxSynchronize() { return cuStreamSynchronize(nullptr); }
 
+FAKE_EXPORT CUresult cuStreamQuery(CUstream) {
+  std::lock_guard<std::mutex> lock(g_mu);
+  return NowNs() >= g_free_at_ns ? CUDA_SUCCESS : CUDA_ERROR_NOT_READY;
+}
+
+FAKE_EXPORT CUresult cuMemAllocHost_v2(void** pp, size_t bytes) {
+  *pp = calloc(1, bytes ? bytes : 1);
+  return *pp ? CUDA_SUCCESS : CUDA_ERROR_OUT_OF_MEMORY;
+}
+
+FAKE_EXPORT CUresult cuMemsetD32Async(CUdeviceptr, unsigned, size_t,
+                                      CUstream) {
+  return Submit(0);
+}
+
 FAKE_EXPORT CUresult cuStreamIsCapturing(CUstream, CUstreamCaptureStatus* s) {
   *s = CU_STREAM_CAPTURE_STATUS_NONE;
   return CUDA_SUCCESS;
@@ -155,7 +235,7 @@ FAKE_EXPORT CUresult cuEventDestroy_v2(CUevent ev) {
 FAKE_EXPORT CUresult cuEventRecord(CUevent ev, CUstream) {
   std::lock_guard<std::mutex> lock(g_mu);
   auto* e = reinterpret_cast<FakeEvent*>(ev);
-  e->at_ns = std::max(NowNs(), g_free_at_ns);
+  e->at_ns = LyingEvents() ? NowNs() : std::max(NowNs(), g_free_at_ns);
   e->recorded = true;
   return CUDA_SUCCESS;
 }
@@ -253,6 +333,9 @@ FAKE_EXPORT void* fake_real_address(const char* name) {
       {"cuStreamSynchronize", (void*)&cuStreamSynchronize},
       {"cuCtxSynchronize", (void*)&cuCtxSynchronize},
       {"cuStreamIsCapturing", (void*)&cuStreamIsCapturing},
+      {"cuStreamQuery", (void*)&cuStreamQuery},
+      {"cuMemsetD32Async", (void*)&cuMemsetD32Async},
+      {"cuMemAllocHost_v2", (void*)&cuMemAllocHost_v2},
       {"cuEventCreate", (void*)&cuEventCreate},
       {"cuEventDestroy_v2", (void*)&cuEventDestroy_v2},
       {"cuEventRecord", (void*)&cuEventRecord},

@@ -1,13 +1,15 @@
 """The tenant's runtime client: what it is held to, and how to hold it.
 
 Ports `vtpu_manager/runtime/client.py` (`EffectiveLimits:43`,
-`_env_limits:67`, `effective_limits:95` from the environment,
-`install:113`). The JAX client could swap the PJRT plugin path inside the
-running process before JAX loaded it. A CUDA driver interposer is loaded by
-the dynamic linker, which reads LD_PRELOAD only at exec, so `install`
-returns the environment a tenant subprocess needs instead, and sets it on
-this process only when asked (for the children it will start). Reading the
-node's config file comes with the config-ABI slice.
+`_env_limits:67`, `effective_limits:95`, `install:113`). The limits come
+from the container's `vtpu.config` first and the environment second, the
+order the interposer reads them in (`csrc/shim/loader.cc`).
+
+The JAX client could swap the PJRT plugin path inside the running process
+before JAX loaded it. A CUDA driver interposer is loaded by the dynamic
+linker, which reads LD_PRELOAD only at exec, so `install` returns the
+environment a tenant subprocess needs instead, and sets it on this process
+only when asked (for the children it will start).
 """
 
 from __future__ import annotations
@@ -15,28 +17,15 @@ from __future__ import annotations
 import os
 from dataclasses import dataclass
 
+from vtpu_manager_torch.config import vtpu_config as vc
 from vtpu_manager_torch.util import consts
 
 
 @dataclass
-class DeviceLimits:
-    """One device's enforcement parameters, named as the JAX package's
-    config.vtpu_config.DeviceConfig names them."""
-    uuid: str
-    total_memory: int          # bytes; 0 = uncapped
-    real_memory: int
-    hard_core: int = 100       # percent
-    soft_core: int = 100
-    core_limit: int = consts.CORE_LIMIT_NONE
-    memory_limit: bool = True
-    host_index: int = 0
-
-
-@dataclass
 class EffectiveLimits:
-    devices: list[DeviceLimits]
+    devices: list[vc.DeviceConfig]
     compat_mode: int
-    source: str              # "env" | "none"
+    source: str              # "config-file" | "env" | "none"
 
 
 def _env_limits() -> EffectiveLimits | None:
@@ -60,7 +49,7 @@ def _env_limits() -> EffectiveLimits | None:
         limit = (consts.CORE_LIMIT_NONE if core <= 0 else
                  consts.CORE_LIMIT_SOFT if soft > core else
                  consts.CORE_LIMIT_HARD)
-        devices.append(DeviceLimits(
+        devices.append(vc.DeviceConfig(
             uuid=f"env-{host_index}", total_memory=mem, real_memory=mem,
             hard_core=core, soft_core=soft, core_limit=limit,
             memory_limit=mem > 0, host_index=host_index))
@@ -68,10 +57,21 @@ def _env_limits() -> EffectiveLimits | None:
     return EffectiveLimits(devices=devices, compat_mode=compat, source="env")
 
 
-def effective_limits() -> EffectiveLimits:
-    """What the interposer will enforce for this process."""
+def effective_limits(config_path: str | None = None) -> EffectiveLimits:
+    """What the interposer will enforce for this process: the config file
+    (`VTPU_CONFIG_PATH`, else the node's default path) when it reads and
+    validates, else the environment."""
     if os.environ.get(consts.ENV_DISABLE_CONTROL):
         return EffectiveLimits([], 0, "none")
+    path = config_path or os.environ.get(consts.ENV_CONFIG_PATH,
+                                         consts.CONTAINER_CONFIG)
+    try:
+        cfg = vc.read_config(path)
+        return EffectiveLimits(devices=cfg.devices,
+                               compat_mode=cfg.compat_mode,
+                               source="config-file")
+    except (OSError, ValueError):
+        pass
     env = _env_limits()
     return env if env is not None else EffectiveLimits([], 0, "none")
 

@@ -32,3 +32,25 @@ ENV_LD_PRELOAD = "LD_PRELOAD"
 ENV_REAL_CUDA_LIBRARY_PATH = "VTPU_REAL_CUDA_LIBRARY_PATH"
 ENV_SHIM_PATH = "VTPU_SHIM_PATH"
 CONTROL_LIBRARY_NAME = "libvtpu-cuda-control.so"
+
+# Node-shared state (the JAX package's util/consts.py:515-548, 572-573):
+# each container's config file, the node watcher's utilization feed, the
+# cross-process memory ledger and the per-device allocation locks.
+ENV_CONFIG_PATH = "VTPU_CONFIG_PATH"
+CONTAINER_CONFIG = f"{MANAGER_BASE_DIR}/config/vtpu.config"
+WATCHER_DIR = f"{MANAGER_BASE_DIR}/watcher"
+TC_UTIL_CONFIG = f"{WATCHER_DIR}/tc_util.config"
+ENV_TC_UTIL_PATH = "VTPU_TC_UTIL_PATH"
+LOCK_DIR = "/tmp/.vtpu_lock"
+ENV_LOCK_DIR = "VTPU_LOCK_DIR"
+VMEM_DIR = "/tmp/.vmem_node"
+VMEM_NODE_CONFIG = f"{VMEM_DIR}/vmem_node.config"
+ENV_VMEM_PATH = "VTPU_VMEM_PATH"
+ENV_VMEM_STALE_S = "VTPU_VMEM_STALE_S"
+ENV_POD_UID = "VTPU_POD_UID"
+ENV_CONTAINER_NAME = "VTPU_CONTAINER_NAME"
+
+MAX_DEVICE_COUNT = 64
+NODE_WATCHER_INTERVAL_MS = 80  # node-level utilization watcher
+EXTERNAL_WATCHER_FRESH_S = 5   # feed staleness before the shim falls back
+LOCK_TIMEOUT_S = 10
