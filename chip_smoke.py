@@ -38,7 +38,18 @@ result line:
    50 + 25, 50 + 50 and 60 / 25 / 10 together, the feed, balance mode,
    and 5 s runs at q50 and q25 (charged against device time, each beside
    a control with the isolated-sample discount off); no tenant may be
-   judged blind. One `COTENANCY {json}` line per check.
+   judged blind. One `COTENANCY {json}` line per check;
+6. allocate (`vtpu_manager_torch/bench_allocate.py`): the port's device
+   plugin hands slices of the card to tenants. Its device manager over
+   NVML registers the node (split 4); pods the scheduler committed (50 %
+   and 16 GiB, 25 % and 8 GiB with the step ring, two unmetered) are
+   allocated through `VnumPlugin.allocate` and `pre_start_container`
+   (which writes a deleted config file again); tenants started from
+   nothing but the responses (this phase stands in for the container
+   runtime's mounts) run the quota step, hold their caps, launch the
+   attention kernel under the interposer, and write one step record per
+   step into the rings the plugin mounted. One `ALLOCATE {json}` line per
+   check.
 
 The last three lines are the nvidia-smi line, the kernels JSON and the
 result JSON.
@@ -353,6 +364,43 @@ def co_tenancy(torch, shim: str) -> dict:
     return results
 
 
+def allocate(torch, shim: str) -> dict:
+    import tempfile
+
+    from vtpu_manager_torch import bench_allocate as ba
+
+    results = {}
+    with tempfile.TemporaryDirectory(prefix="vtpu-node-") as root:
+        phase = ba.Phase(torch, shim, root)
+        try:
+            for name, fn in (("registry", phase.check_registry),
+                             ("allocate", phase.check_allocate),
+                             ("tenants", phase.check_tenants),
+                             ("step_ring", phase.check_step_ring)):
+                t0 = time.perf_counter()
+                try:
+                    rec = fn()
+                except Exception:  # every check runs; any failure fails all
+                    rec = {"ok": False, "error": traceback.format_exc()}
+                log("ALLOCATE " + json.dumps(
+                    {"check": name, "seconds": time.perf_counter() - t0,
+                     **rec}, default=str))
+                results[name] = rec
+        finally:
+            phase.close()
+    failed = [name for name, r in results.items() if not r["ok"]]
+    if failed:
+        raise AssertionError(f"allocate checks failed: {failed}")
+    tenants, rings = results["tenants"], results["step_ring"]
+    return {"shares": {p: tenants[p]["share"] for p in ("pod-a", "pod-b")},
+            "ms_per_step": {p: tenants[p]["ms_per_step"] for p in ba.PODS},
+            "ring_hook_ms": tenants["ring_hook_ms"],
+            "ring_median_rel": {p: rings[p]["median_rel"]
+                                for p in ("pod-a", "pod-b", "pod-d")},
+            "throttle_wait_ns": {p: rings[p]["throttle_wait_ns"]
+                                 for p in ("pod-a", "pod-b", "pod-d")}}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -410,6 +458,8 @@ def main() -> int:
                                    str(paths["shim"]))
     summary["co_tenancy"] = phase("co_tenancy", co_tenancy, torch,
                                   str(paths["shim"]))
+    summary["allocate"] = phase("allocate", allocate, torch,
+                                str(paths["shim"]))
     log("SUMMARY " + json.dumps(summary, default=str))
     if failures or record is None:
         print(f"chip_smoke: failed phases: {failures}", file=sys.stderr)

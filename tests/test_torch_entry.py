@@ -1,0 +1,236 @@
+"""The port's device-plugin entry point, and the card path without grpc.
+
+`python -m vtpu_manager_torch.cmd.device_plugin` on fake H100s and a fake
+API client, with every node path private, registers with a fake kubelet
+and answers Allocate over its socket; it refuses what is not ported. The
+modules the card runs load, and allocate, with grpc, protobuf and yaml
+blocked (the card machine has none of them). And `bench_allocate`'s
+stand-in for the container runtime resolves a response's mounts.
+"""
+
+import os
+import signal
+import subprocess
+import sys
+import time
+
+import pytest
+
+from vtpu_manager_torch import bench_allocate
+from vtpu_manager_torch.client.fake import FakeKubeClient
+from vtpu_manager_torch.config.node_config import NodeConfig
+from vtpu_manager_torch.deviceplugin.api import messages as api
+from vtpu_manager_torch.deviceplugin.vnum import (VnumPlugin, device_id,
+                                                  install_interposer)
+from vtpu_manager_torch.manager.device_manager import DeviceManager
+from vtpu_manager_torch.tpu.discovery import FakeBackend
+from vtpu_manager_torch.util import consts
+
+from test_torch_deviceplugin import fake_kubelet
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ENTRY = [sys.executable, "-m", "vtpu_manager_torch.cmd.device_plugin"]
+
+
+def _env():
+    env = {k: v for k, v in os.environ.items() if not k.startswith("VTPU_")}
+    env["PYTHONPATH"] = REPO
+    return env
+
+
+def private_flags(root):
+    return ["--node-name", "node-1", "--plugin-dir", str(root / "plugins"),
+            "--base-dir", str(root / "mgr"),
+            "--vmem-path", str(root / "vmem" / "vmem_node.config"),
+            "--lock-dir", str(root / "locks"),
+            "--watcher-dir", str(root / "watcher"),
+            "--driver-dir", str(root / "driver")]
+
+
+def test_entry_registers_and_answers_allocate(tmp_path):
+    import grpc
+
+    from vtpu_manager_torch.deviceplugin.api import deviceplugin_pb2 as pb
+    plugins = tmp_path / "plugins"
+    plugins.mkdir()
+    registrations = []
+    kubelet = fake_kubelet(str(plugins / "kubelet.sock"), registrations)
+    proc = subprocess.Popen(
+        ENTRY + private_flags(tmp_path) + [
+            "--fake-chips", "2", "--fake-client", "--feature-gates",
+            "StepTelemetry=true,TCWatcher=true,VMemoryNode=true"],
+        cwd=REPO, env=_env(), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    try:
+        deadline = time.monotonic() + 60
+        while not registrations and time.monotonic() < deadline:
+            assert proc.poll() is None, proc.stdout.read()
+            time.sleep(0.05)
+        assert registrations[0][:3] == (consts.vtpu_number_resource(),
+                                        "vtpu-number.sock", "v1beta1")
+        with grpc.insecure_channel(
+                f"unix://{plugins / 'vtpu-number.sock'}") as chan:
+            law = chan.unary_stream(
+                "/v1beta1.DevicePlugin/ListAndWatch",
+                request_serializer=pb.Empty.SerializeToString,
+                response_deserializer=pb.ListAndWatchResponse.FromString)
+            assert len(next(iter(law(pb.Empty(), timeout=10))).devices) == 20
+            resp = chan.unary_unary(
+                "/v1beta1.DevicePlugin/Allocate",
+                request_serializer=pb.AllocateRequest.SerializeToString,
+                response_deserializer=pb.AllocateResponse.FromString)(
+                    pb.AllocateRequest(container_requests=[
+                        pb.ContainerAllocateRequest(
+                            devicesIDs=["fake-1::3"])]), timeout=10)
+        envs = resp.container_responses[0].envs
+        assert envs[consts.ENV_NVIDIA_VISIBLE_DEVICES] == "fake-1"
+        assert envs[consts.ENV_VISIBLE_DEVICES] == "1"
+        # the gates' files: the ledger, and the watcher's feed
+        assert (tmp_path / "vmem" / "vmem_node.config").exists()
+        deadline = time.monotonic() + 10
+        while not (tmp_path / "watcher" / "tc_util.config").exists():
+            assert time.monotonic() < deadline
+            time.sleep(0.05)
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=30) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        kubelet.stop(grace=0)
+
+
+@pytest.mark.parametrize("args,message", [
+    (["--fake-client", "--feature-gates", "CompileCache=true"],
+     "unknown feature gate"),
+    (["--fake-client", "--feature-gates", "StepTelemetry=maybe"],
+     "invalid feature gate value"),
+    ([], "in-cluster API client is not ported yet"),
+    (["--fake-client", "--metrics-port", "9000"],
+     "--metrics-port: the resilience metrics endpoint is not ported yet"),
+    (["--fake-client", "--spill-budget-gib", "8"],
+     "memory over-commit is not ported yet"),
+    (["--fake-client", "--id-store", "ids.json"],
+     "--id-store: the device-id store (a GPU needs none) is not ported yet"),
+])
+def test_entry_refuses_what_is_not_ported(tmp_path, args, message):
+    res = subprocess.run(ENTRY + private_flags(tmp_path) + ["--fake-chips",
+                                                            "1"] + args,
+                         cwd=REPO, env=_env(), capture_output=True,
+                         text=True, timeout=60)
+    assert res.returncode != 0
+    assert message in res.stdout + res.stderr
+    assert not (tmp_path / "plugins").exists()
+
+
+BLOCKED_CODE = """
+import sys
+BLOCKED = ("grpc", "google.protobuf", "yaml")
+for name in BLOCKED:
+    sys.modules[name] = None
+import importlib
+for name in ("chip_smoke", "vtpu_manager_torch.bench_allocate",
+             "vtpu_manager_torch.deviceplugin.vnum",
+             "vtpu_manager_torch.deviceplugin.api",
+             "vtpu_manager_torch.deviceplugin.api.messages",
+             "vtpu_manager_torch.deviceplugin.base",
+             "vtpu_manager_torch.telemetry.stepring",
+             "vtpu_manager_torch.cmd.device_plugin",
+             "vtpu_manager_torch.manager.device_manager",
+             "vtpu_manager_torch.config.node_config"):
+    importlib.import_module(name)
+from vtpu_manager_torch.client.fake import FakeKubeClient
+from vtpu_manager_torch.config.node_config import NodeConfig
+from vtpu_manager_torch.deviceplugin.api import messages as api
+from vtpu_manager_torch.deviceplugin.vnum import VnumPlugin
+from vtpu_manager_torch.device.claims import DeviceClaim, PodDeviceClaims
+from vtpu_manager_torch.manager.device_manager import DeviceManager
+from vtpu_manager_torch.tpu.discovery import FakeBackend
+from vtpu_manager_torch.util import consts
+c = FakeKubeClient()
+c.add_node({"metadata": {"name": "n1"}})
+m = DeviceManager("n1", c, NodeConfig(device_split_count=2),
+                  backends=[FakeBackend(1)])
+m.init_devices()
+m.register_node()
+claims = PodDeviceClaims()
+claims.add("main", DeviceClaim("fake-0", 0, 50, 1 << 30))
+c.add_pod({"metadata": {"name": "p", "namespace": "default", "uid": "u",
+           "annotations": {consts.pre_allocated_annotation():
+                           claims.encode()}},
+           "spec": {"nodeName": "n1"}})
+root = sys.argv[1]
+p = VnumPlugin(m, c, "n1", base_dir=root + "/mgr", lock_dir=root + "/l",
+               vmem_dir=root + "/v", watcher_dir=root + "/w",
+               shim_host_dir=root + "/d")
+p.step_telemetry_enabled = True
+r = p.allocate(api.AllocateRequest([api.ContainerAllocateRequest(
+    ["fake-0::1"])])).container_responses[0]
+p.pre_start_container(api.PreStartContainerRequest(["fake-0::1"]))
+assert r.envs["VTPU_CORE_LIMIT_0"] == "50", r.envs
+bad = sorted(n for n in sys.modules
+             if any(n == b or n.startswith(b + ".") for b in BLOCKED)
+             and sys.modules[n] is not None)
+print("LOADED", bad)
+"""
+
+
+def test_card_path_runs_without_grpc_protobuf_or_yaml(tmp_path):
+    res = subprocess.run([sys.executable, "-c", BLOCKED_CODE, str(tmp_path)],
+                         cwd=REPO, env=_env(), capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "LOADED []" in res.stdout
+
+
+def _allocated(tmp_path, telemetry=True):
+    client = FakeKubeClient()
+    client.add_node({"metadata": {"name": bench_allocate.NODE}})
+    mgr = DeviceManager(bench_allocate.NODE, client,
+                        NodeConfig(device_split_count=4),
+                        backends=[FakeBackend(1)])
+    mgr.init_devices()
+    driver = tmp_path / "driver"
+    shim = tmp_path / "built.so"
+    shim.write_bytes(b"\x7fELF")
+    install_interposer(str(shim), str(driver))
+    p = VnumPlugin(mgr, client, bench_allocate.NODE,
+                   base_dir=str(tmp_path / "mgr"), shim_host_dir=str(driver),
+                   lock_dir=str(tmp_path / "locks"),
+                   vmem_dir=str(tmp_path / "vmem"),
+                   watcher_dir=str(tmp_path / "watcher"))
+    p.step_telemetry_enabled = telemetry
+    chip = mgr.chips[0]
+    client.add_pod(bench_allocate.committed_pod("pod-x", chip, 25, 1 << 30))
+    return p.allocate(api.AllocateRequest([api.ContainerAllocateRequest(
+        [device_id(chip.uuid, 0)])])).container_responses[0], chip
+
+
+def test_container_env_resolves_the_mounts(tmp_path, monkeypatch):
+    monkeypatch.setenv("VTPU_CORE_LIMIT_0", "99")     # the caller's own
+    monkeypatch.setenv("LD_PRELOAD", "/elsewhere.so")
+    resp, chip = _allocated(tmp_path)
+    env = bench_allocate.container_env(resp)
+    cont = tmp_path / "mgr" / "uid-pod-x_main"
+    assert env[consts.ENV_LD_PRELOAD] == str(
+        tmp_path / "driver" / consts.CONTROL_LIBRARY_NAME)
+    assert env["CUDA_VISIBLE_DEVICES"] == chip.uuid
+    assert env[consts.ENV_CONFIG_PATH] == str(cont / "config" /
+                                              "vtpu.config")
+    assert env[consts.ENV_STEP_RING_PATH] == str(
+        cont / consts.TELEMETRY_SUBDIR / consts.STEP_RING_NAME)
+    assert env[consts.ENV_LOCK_DIR] == str(tmp_path / "locks")
+    assert env[consts.ENV_VMEM_PATH] == str(tmp_path / "vmem" /
+                                            "vmem_node.config")
+    assert env[consts.ENV_TC_UTIL_PATH] == str(tmp_path / "watcher" /
+                                               "tc_util.config")
+    assert env["VTPU_CORE_LIMIT_0"] == "25"          # the response's
+    assert env[consts.ENV_REAL_CUDA_LIBRARY_PATH] == "libcuda.so.1"
+    assert bench_allocate.host_path(resp, "/not/mounted") == "/not/mounted"
+
+
+def test_container_env_without_the_ring(tmp_path):
+    resp, _ = _allocated(tmp_path, telemetry=False)
+    env = bench_allocate.container_env(resp)
+    assert consts.ENV_STEP_RING_PATH not in env
+    assert consts.ENV_STEP_TELEMETRY not in env

@@ -179,3 +179,90 @@ def test_two_processes_of_one_tenant_share_a_cap(card, tmp_path):
     finally:
         first.stop()
         second.stop()
+
+
+# --- the device plugin on the card ------------------------------------------
+
+
+def _nvml_node(tmp_path):
+    """The port's device manager over NVML, and a plugin on a private node."""
+    from vtpu_manager_torch.bench_allocate import NODE
+    from vtpu_manager_torch.client.fake import FakeKubeClient
+    from vtpu_manager_torch.config.node_config import NodeConfig
+    from vtpu_manager_torch.deviceplugin.vnum import VnumPlugin
+    from vtpu_manager_torch.manager.device_manager import DeviceManager
+    from vtpu_manager_torch.tpu.discovery import NvmlBackend
+    client = FakeKubeClient()
+    client.add_node({"metadata": {"name": NODE}})
+    mgr = DeviceManager(NODE, client, NodeConfig(device_split_count=4),
+                        backends=[NvmlBackend()])
+    mgr.init_devices()
+    plugin = VnumPlugin(mgr, client, NODE,
+                        base_dir=str(tmp_path / "mgr"),
+                        shim_host_dir=str(tmp_path / "driver"),
+                        lock_dir=str(tmp_path / "locks"),
+                        vmem_dir=str(tmp_path / "vmem"),
+                        watcher_dir=str(tmp_path / "watcher"))
+    uuid = f"GPU-{torch.cuda.get_device_properties(0).uuid}"
+    chip = next(c for c in mgr.chips if c.uuid == uuid)
+    return mgr, plugin, client, chip
+
+
+def _allocate(plugin, client, chip, name, cores, memory):
+    from vtpu_manager_torch import bench_allocate
+    from vtpu_manager_torch.deviceplugin.api import messages as api
+    from vtpu_manager_torch.deviceplugin.vnum import device_id
+    client.add_pod(bench_allocate.committed_pod(name, chip, cores, memory))
+    return plugin.allocate(api.AllocateRequest([api.ContainerAllocateRequest(
+        [device_id(chip.uuid, 0)])])).container_responses[0]
+
+
+@pytest.mark.gpu
+def test_nvml_device_manager_sees_torch_card(card, tmp_path):
+    import os
+    mgr, _, _, chip = _nvml_node(tmp_path)
+    props = torch.cuda.get_device_properties(0)
+    assert abs(chip.memory - props.total_memory) <= 2**20
+    assert chip.core_count == props.multi_processor_count
+    assert chip.split_count == 4
+    assert os.path.exists(mgr.device_node(chip.index))
+
+
+@pytest.mark.gpu
+def test_allocate_on_card_writes_usable_memory(card, tmp_path):
+    import os
+
+    from vtpu_manager_torch.config import vtpu_config as vc
+    from vtpu_manager_torch.util import consts
+    _, plugin, client, chip = _nvml_node(tmp_path)
+    resp = _allocate(plugin, client, chip, "pod-1", 25, 4 * 2**30)
+    assert client.get_pod("default", "pod-1")["metadata"]["annotations"][
+        consts.allocation_status_annotation()] == consts.ALLOC_STATUS_SUCCEED
+    host = next(m.host_path for m in resp.mounts
+                if m.container_path == f"{consts.MANAGER_BASE_DIR}/config")
+    dev = vc.read_config(os.path.join(host, "vtpu.config")).devices[0]
+    assert dev.real_memory == chip.memory
+    assert abs(dev.real_memory - torch.cuda.get_device_properties(
+        0).total_memory) <= 2**20
+    assert resp.envs[consts.ENV_NVIDIA_VISIBLE_DEVICES] == chip.uuid
+
+
+@pytest.mark.gpu
+def test_tenant_from_allocate_response_sees_its_cap(card, tmp_path):
+    import json
+    import subprocess
+    import sys
+
+    from vtpu_manager_torch import bench_allocate, build
+    from vtpu_manager_torch.deviceplugin.vnum import install_interposer
+    _, plugin, client, chip = _nvml_node(tmp_path)
+    install_interposer(str(build.build_shim()), plugin.shim_host_dir)
+    resp = _allocate(plugin, client, chip, "pod-1", 0, 3 * 2**30)
+    res = subprocess.run(
+        [sys.executable, "-m", "vtpu_manager_torch.bench_quota",
+         "--hbm-worker"], env=bench_allocate.container_env(resp),
+        cwd=str(build.REPO), capture_output=True, text=True, timeout=300)
+    lines = [ln for ln in res.stdout.splitlines() if ln.startswith("HBM ")]
+    assert lines, res.stderr[-2000:]
+    out = json.loads(lines[0][4:])
+    assert out["total"] == 3 * 2**30 and out["source"] == "config-file"

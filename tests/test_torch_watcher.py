@@ -222,6 +222,10 @@ class StubNvml:
         mem._obj.reserved = self._card(handle)["reserved"]
         return self._rc("nvmlDeviceGetMemoryInfo_v2")
 
+    def nvmlDeviceGetMinorNumber(self, handle, minor):
+        minor._obj.value = self._card(handle).get("minor", 0)
+        return self._rc("nvmlDeviceGetMinorNumber")
+
     def nvmlDeviceGetUtilizationRates(self, handle, util):
         util._obj.gpu = self._card(handle)["util"]
         return self._rc("nvmlDeviceGetUtilizationRates")
@@ -229,10 +233,10 @@ class StubNvml:
 
 H100 = {"uuid": "GPU-5f1e2d3c-aaaa-bbbb-cccc-000000000001",
         "name": "NVIDIA H100 80GB HBM3", "memory": 85520809984,
-        "reserved": 489684992, "util": 37}
+        "reserved": 489684992, "util": 37, "minor": 3}
 H100_PCIE = {"uuid": "GPU-5f1e2d3c-aaaa-bbbb-cccc-000000000002",
              "name": "NVIDIA H100 PCIe", "memory": 85520809984,
-             "reserved": 489684992, "util": 5}
+             "reserved": 489684992, "util": 5, "minor": 0}
 
 
 def test_nvml_backend_reads_every_card():
@@ -247,6 +251,8 @@ def test_nvml_backend_reads_every_card():
     assert [c.index for c in result.chips] == [0, 1]
     assert result.mesh == MeshSpec((1, 2, 1))
     assert result.chips[1].coords == (0, 1, 0)
+    # the device node's minor is NVML's, not the index
+    assert result.minors == {0: 3, 1: 0}
 
 
 def test_nvml_failure_raises_not_falls_back():

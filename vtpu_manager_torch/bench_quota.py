@@ -460,21 +460,28 @@ def _worker(args) -> None:
         out["device_times_wait_ns"] = (_shim_counters().get(
             "vtpu_throttle_wait_ns_total", 0) - before)
     if args.kernel:
-        from vtpu_manager_torch.workloads import block_attention as ba
-        gen = torch.Generator(device="cuda").manual_seed(0)
-        q, k, v = (torch.randn((8, 16, 512, 128), generator=gen,
-                               device="cuda") for _ in range(3))
-        bias = torch.zeros((512, 512), device="cuda")
-        torch.cuda.synchronize()
-        before = _shim_counters()["vtpu_launches_total"]
-        kernel_before = ba.LAUNCHES["attn_block"]
-        ba.attention_block(q, k, v, bias)
-        torch.cuda.synchronize()
-        out["kernel_shim_launches_delta"] = (
-            _shim_counters()["vtpu_launches_total"] - before)
-        out["kernel_launches_delta"] = (ba.LAUNCHES["attn_block"]
-                                        - kernel_before)
+        out.update(kernel_launch_once())
     print("WORKER " + json.dumps(out), flush=True)
+
+
+def kernel_launch_once() -> dict:
+    """Launches the block-attention kernel once on the card: how many
+    launches its wrapper and the interposer counted for it."""
+    import torch
+
+    from vtpu_manager_torch.workloads import block_attention as ba
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn((8, 16, 512, 128), generator=gen, device="cuda")
+               for _ in range(3))
+    bias = torch.zeros((512, 512), device="cuda")
+    torch.cuda.synchronize()
+    before = _shim_counters()["vtpu_launches_total"]
+    kernel_before = ba.LAUNCHES["attn_block"]
+    ba.attention_block(q, k, v, bias)
+    torch.cuda.synchronize()
+    return {"kernel_shim_launches_delta":
+            _shim_counters()["vtpu_launches_total"] - before,
+            "kernel_launches_delta": ba.LAUNCHES["attn_block"] - kernel_before}
 
 
 def _hold_worker(args) -> None:

@@ -2,8 +2,9 @@
 
 Ports `bench.py:342 quota_step_measure` and `bench.py:406 mfu_measure`:
 the same loops, each step or block ending in one scalar readback, which
-waits for the card. The step-telemetry hook (`bench.py:362-381`) comes with
-the telemetry slice. MFU divides by the card's own peak, looked up by the
+waits for the card. The quota loop writes one record per step into the
+step ring when the device plugin armed it (`bench.py:362-381`); with the
+gate off that costs one `is not None` per step. MFU divides by the card's own peak, looked up by the
 name the card reports; an unknown card gets no MFU rather than another
 card's peak.
 """
@@ -15,6 +16,7 @@ import time
 
 import torch
 
+from vtpu_manager_torch.runtime.client import step_telemetry
 from vtpu_manager_torch.util.torchplatform import device_name, resolve_device
 
 # Dense bf16 tensor-core peaks, FLOP/s (NVIDIA data sheets; SXM parts at
@@ -55,15 +57,23 @@ def quota_step_measure(dim: int, warmup: int, steps: int,
     Quota tracking is a duty-cycle property, not a model one."""
     dev = resolve_device(device)
     x = _quota_input(dim, dev)
-    for _ in range(warmup):
+    # one record per step, warm-up included, the first one `compiled`
+    tel = step_telemetry()
+    for i in range(warmup):
+        s0 = time.monotonic_ns() if tel is not None else 0
         x, loss = _quota_step(x)
         _ = float(loss)
+        if tel is not None:
+            tel.record(time.monotonic_ns() - s0, compiled=(i == 0))
     if before_timed is not None:
         before_timed()
     t0 = time.perf_counter()
     for _ in range(steps):
+        s0 = time.monotonic_ns() if tel is not None else 0
         x, loss = _quota_step(x)
         _ = float(loss)
+        if tel is not None:
+            tel.record(time.monotonic_ns() - s0)
     return 1000 * (time.perf_counter() - t0) / steps
 
 

@@ -1,14 +1,19 @@
-"""What discovery returns: one chip, and the node's mesh.
+"""What discovery returns (one chip, the node's mesh) and what a node
+publishes about them (the registry).
 
-The port's own copy of `ChipSpec` and `MeshSpec` from the JAX package's
-`device/types.py:34-105`, field for field, so a node registry built from
-either package encodes the same wire form. On a GPU node `core_count` is
-the card's SM count and the mesh is a 1 x N line.
+The port's own copy of `ChipSpec`, `MeshSpec` and `NodeDeviceRegistry`
+from the JAX package's `device/types.py:34-165`, field for field, so a
+node registry built by either package encodes the same wire form and the
+JAX scheduler reads the port's. On a GPU node `core_count` is the card's
+SM count and the mesh is a 1 x N line.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import json
+from dataclasses import dataclass, field
+
+_REG_PREFIX = "v1:"
 
 
 @dataclass(frozen=True)
@@ -74,3 +79,32 @@ class MeshSpec:
         while len(wrap) < 3:
             wrap += (False,)
         return MeshSpec(shape[:3], wrap[:3])
+
+
+@dataclass
+class NodeDeviceRegistry:
+    """What a node publishes about its devices (the register annotation)."""
+
+    chips: list[ChipSpec] = field(default_factory=list)
+    mesh: MeshSpec = field(default_factory=MeshSpec)
+    mesh_domain: str = ""      # multi-host domain id ("" = none)
+
+    def encode(self) -> str:
+        payload = {"chips": [c.to_wire() for c in self.chips],
+                   "mesh": self.mesh.to_wire()}
+        if self.mesh_domain:
+            payload["domain"] = self.mesh_domain
+        return _REG_PREFIX + json.dumps(payload, separators=(",", ":"))
+
+    @staticmethod
+    def decode(value: str) -> "NodeDeviceRegistry":
+        if not value.startswith(_REG_PREFIX):
+            raise ValueError(f"unknown registry encoding {value[:16]!r}")
+        payload = json.loads(value[len(_REG_PREFIX):])
+        return NodeDeviceRegistry(
+            chips=[ChipSpec.from_wire(c) for c in payload.get("chips", [])],
+            mesh=MeshSpec.from_wire(payload.get("mesh", {})),
+            mesh_domain=str(payload.get("domain", "")))
+
+    def chip_by_uuid(self) -> dict[str, ChipSpec]:
+        return {c.uuid: c for c in self.chips}

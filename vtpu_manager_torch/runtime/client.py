@@ -1,9 +1,11 @@
-"""The tenant's runtime client: what it is held to, and how to hold it.
+"""The tenant's runtime client: what it is held to, how to hold it, and
+its step telemetry.
 
 Ports `vtpu_manager/runtime/client.py` (`EffectiveLimits:43`,
-`_env_limits:67`, `effective_limits:95`, `install:113`). The limits come
-from the container's `vtpu.config` first and the environment second, the
-order the interposer reads them in (`csrc/shim/loader.cc`).
+`_env_limits:67`, `effective_limits:95`, `install:113`, and the step
+telemetry of `:206-379`). The limits come from the container's
+`vtpu.config` first and the environment second, the order the interposer
+reads them in (`csrc/shim/loader.cc`).
 
 The JAX client could swap the PJRT plugin path inside the running process
 before JAX loaded it. A CUDA driver interposer is loaded by the dynamic
@@ -14,6 +16,8 @@ only when asked (for the children it will start).
 
 from __future__ import annotations
 
+import ctypes
+import logging
 import os
 from dataclasses import dataclass
 
@@ -98,3 +102,97 @@ def install(shim_path: str | None = None,
     if apply:
         os.environ.update(env)
     return env
+
+
+def _interposer_counter(symbol: str):
+    """A ctypes accessor for one of the interposer's cumulative counters,
+    or None in a process without it. The dynamic linker preloads the
+    interposer (LD_PRELOAD or /etc/ld.so.preload) into the global scope,
+    so the lookup goes there: the live counter of this very process."""
+    try:
+        fn = getattr(ctypes.CDLL(None), symbol)
+    except (OSError, AttributeError):
+        return None
+    fn.restype = ctypes.c_uint64
+    fn.argtypes = []
+    fn()     # a broken export fails here, not at every step
+    return fn
+
+
+class _ShimWaitStepRing:
+    """A StepRingWriter that charges each record the interposer's token
+    wait since the previous record (`vtpu_throttle_wait_ns_total`): the
+    wait hides inside the step's launches, where the step loop cannot see
+    it. A caller's explicit throttle_wait_ns is kept."""
+
+    __slots__ = ("ring", "_wait_total_fn", "_last_wait_ns")
+
+    def __init__(self, ring, wait_total_fn):
+        self.ring = ring
+        self._wait_total_fn = wait_total_fn
+        self._last_wait_ns = int(wait_total_fn())
+
+    @property
+    def writes(self) -> int:
+        return self.ring.writes
+
+    def record(self, duration_ns: int, throttle_wait_ns: int | None = None,
+               hbm_highwater_bytes: int = 0, compiled: bool = False,
+               start_mono_ns: int | None = None) -> None:
+        if throttle_wait_ns is None:
+            total = int(self._wait_total_fn())
+            # a reloaded interposer starts again at 0: a negative delta
+            # re-baselines and never reaches the ring
+            throttle_wait_ns = max(0, total - self._last_wait_ns)
+            self._last_wait_ns = total
+        self.ring.record(duration_ns, throttle_wait_ns=throttle_wait_ns,
+                         hbm_highwater_bytes=hbm_highwater_bytes,
+                         compiled=compiled, start_mono_ns=start_mono_ns)
+
+    def close(self) -> None:
+        self.ring.close()
+
+
+_step_telemetry = None
+_step_telemetry_checked = False
+
+
+def step_telemetry():
+    """The tenant's step-ring writer, or None when the device plugin did
+    not arm StepTelemetry for this container. After the first call this is
+    one global load and a branch: no environment read, no import, no file.
+    A broken telemetry mount means no telemetry, never a broken step loop."""
+    global _step_telemetry, _step_telemetry_checked
+    if _step_telemetry_checked:
+        return _step_telemetry
+    _step_telemetry_checked = True
+    if os.environ.get(consts.ENV_STEP_TELEMETRY) != "true":
+        return None
+    from vtpu_manager_torch.telemetry import stepring
+    path = os.environ.get(consts.ENV_STEP_RING_PATH) or os.path.join(
+        consts.MANAGER_BASE_DIR, consts.TELEMETRY_SUBDIR,
+        consts.STEP_RING_NAME)
+    try:
+        _step_telemetry = stepring.StepRingWriter(
+            path, trace_id=os.environ.get(consts.ENV_TRACE_ID, ""))
+        wait_fn = _interposer_counter("vtpu_throttle_wait_ns_total")
+        if wait_fn is not None:
+            _step_telemetry = _ShimWaitStepRing(_step_telemetry, wait_fn)
+        import atexit
+        atexit.register(_step_telemetry.close)
+    except (OSError, ValueError) as e:
+        logging.getLogger(__name__).warning(
+            "step telemetry unavailable at %s (%s); running untelemetered",
+            path, e)
+        _step_telemetry = None
+    return _step_telemetry
+
+
+def _reset_step_telemetry() -> None:
+    """For tests: drop the cached writer, so the next step_telemetry()
+    reads the environment again."""
+    global _step_telemetry, _step_telemetry_checked
+    if _step_telemetry is not None:
+        _step_telemetry.close()
+    _step_telemetry = None
+    _step_telemetry_checked = False

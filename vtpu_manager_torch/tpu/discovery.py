@@ -3,7 +3,8 @@
 The port of the JAX package's `tpu/discovery.py:31-175`, kept at the same
 module path so the node agent's imports read alike. Three backends, each
 returning the same `DiscoveryResult` (`ChipSpec` per card, a 1 x N
-`MeshSpec`); `discover()` takes the first that finds cards:
+`MeshSpec`, and each card's device-node minor: `/dev/nvidia<minor>`);
+`discover()` takes the first that finds cards:
 
 1. NvmlBackend: NVML over ctypes (`libnvidia-ml.so.1`), the node agent's
    view: NVML's index order is PCI order, and the UUID (`GPU-...`) is
@@ -18,7 +19,7 @@ loaded raises, so a broken driver is never mistaken for an empty node.
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Protocol
 
 from vtpu_manager_torch.device.types import ChipSpec, MeshSpec
@@ -38,6 +39,7 @@ class DiscoveryResult:
     chips: list[ChipSpec]
     mesh: MeshSpec
     chip_type: str
+    minors: dict[int, int] = field(default_factory=dict)  # index -> minor
 
 
 class DiscoveryBackend(Protocol):
@@ -52,9 +54,11 @@ def chip_type_for(name: str) -> str:
     return "nvidia-" + name.lower().removeprefix("nvidia ").replace(" ", "-")
 
 
-def _result(chips: list[ChipSpec]) -> DiscoveryResult:
+def _result(chips: list[ChipSpec], minors: dict[int, int]
+            ) -> DiscoveryResult:
     return DiscoveryResult(chips=chips, mesh=MeshSpec((1, len(chips), 1)),
-                           chip_type=chips[0].chip_type if chips else "")
+                           chip_type=chips[0].chip_type if chips else "",
+                           minors=minors)
 
 
 class NvmlError(RuntimeError):
@@ -141,6 +145,12 @@ class Nvml:
         """The memory a CUDA context sees as the card's total."""
         return self.memory_total(handle) - self.memory_reserved(handle)
 
+    def minor(self, handle) -> int:
+        """The card's device node is /dev/nvidia<minor>."""
+        n = ctypes.c_uint(0)
+        self._call("nvmlDeviceGetMinorNumber", handle, ctypes.byref(n))
+        return n.value
+
     def utilization(self, handle) -> int:
         """Percent of NVML's last sample period with a kernel running."""
         util = _NvmlUtilization()
@@ -157,9 +167,10 @@ class NvmlBackend:
         nvml = self._nvml or Nvml.load()
         if nvml is None:
             return None
-        chips = []
+        chips, minors = [], {}
         for i in range(nvml.count()):
             h = nvml.handle(i)
+            minors[i] = nvml.minor(h)
             name = nvml.name(h)
             chip_type = chip_type_for(name)
             _, cores = CHIP_MODELS.get(chip_type, (0, 0))
@@ -167,11 +178,14 @@ class NvmlBackend:
                                   chip_type=chip_type,
                                   memory=nvml.memory_usable(h),
                                   core_count=cores, coords=(0, i, 0)))
-        return _result(chips) if chips else None
+        return _result(chips, minors) if chips else None
 
 
 class TorchBackend:
-    """The cards torch sees, in CUDA's order."""
+    """The cards torch sees, in CUDA's order. Torch knows no device-node
+    minor, and CUDA's index is not one (CUDA index 0 has been
+    /dev/nvidia2, 3 and 6 on H100 hosts), so the result carries no
+    minors: a node agent that must name device nodes discovers by NVML."""
 
     def discover(self) -> DiscoveryResult | None:
         import torch
@@ -185,7 +199,7 @@ class TorchBackend:
                                   memory=int(props.total_memory),
                                   core_count=props.multi_processor_count,
                                   coords=(0, i, 0)))
-        return _result(chips) if chips else None
+        return _result(chips, {}) if chips else None
 
 
 class FakeBackend:
@@ -199,7 +213,8 @@ class FakeBackend:
         return _result([ChipSpec(uuid=f"fake-{i}", index=i,
                                  chip_type=self.chip_type, memory=mem,
                                  core_count=cores, coords=(0, i, 0))
-                        for i in range(self.n_chips)])
+                        for i in range(self.n_chips)],
+                       {i: i for i in range(self.n_chips)})
 
 
 def discover(backends: list[DiscoveryBackend] | None = None

@@ -54,3 +54,87 @@ MAX_DEVICE_COUNT = 64
 NODE_WATCHER_INTERVAL_MS = 80  # node-level utilization watcher
 EXTERNAL_WATCHER_FRESH_S = 5   # feed staleness before the shim falls back
 LOCK_TIMEOUT_S = 10
+
+# --- The device plugin's names ----------------------------------------------
+# The same strings as the JAX package's (`util/consts.py:19-106, 215-219,
+# 397-430, 457-561`): the scheduler and the webhook read them, whichever
+# package wrote them.
+
+DEFAULT_RESOURCE_DOMAIN = "google.com"
+DEFAULT_ANNOTATION_DOMAIN = "vtpu-manager.io"
+
+
+def vtpu_number_resource() -> str:
+    return f"{DEFAULT_RESOURCE_DOMAIN}/vtpu-number"
+
+
+def _ann(suffix: str) -> str:
+    return f"{DEFAULT_ANNOTATION_DOMAIN}/{suffix}"
+
+
+def pre_allocated_annotation() -> str:
+    """The scheduler's chosen devices."""
+    return _ann("pre-allocated")
+
+
+def real_allocated_annotation() -> str:
+    """The device plugin's final allocation."""
+    return _ann("real-allocated")
+
+
+def predicate_node_annotation() -> str:
+    return _ann("predicate-node")
+
+
+def allocation_status_annotation() -> str:
+    return _ann("allocation-status")
+
+
+def compute_policy_annotation() -> str:
+    return _ann("compute-policy")
+
+
+def memory_oversold_annotation() -> str:
+    return _ann("memory-oversold")
+
+
+def node_device_register_annotation() -> str:
+    return _ann("node-device-register")
+
+
+def node_device_heartbeat_annotation() -> str:
+    return _ann("node-device-heartbeat")
+
+
+ALLOC_STATUS_SUCCEED = "succeed"
+ALLOC_STATUS_FAILED = "failed"
+
+COMPUTE_POLICY_FIXED = "fixed"      # hard clamp at hard_core
+COMPUTE_POLICY_BALANCE = "balance"  # elastic between hard_core..soft_core
+COMPUTE_POLICY_NONE = "none"        # no core limit
+
+ENV_POD_NAME = "VTPU_POD_NAME"
+ENV_POD_NAMESPACE = "VTPU_POD_NAMESPACE"
+ENV_STEP_TELEMETRY = "VTPU_STEP_TELEMETRY"  # "true": step ring armed
+ENV_STEP_RING_PATH = "VTPU_STEP_RING_PATH"  # tenant-side ring file path
+ENV_TRACE_ID = "VTPU_TRACE_ID"
+
+# the other compatibility modes (bitmask, with COMPAT_HOST above)
+COMPAT_CGROUP = 0x02
+COMPAT_CLIENT = 0x04
+COMPAT_OPEN_KERNEL = 0x08
+
+REGISTRY_DIR = f"{MANAGER_BASE_DIR}/registry"
+# the step ring: <base>/<uid>_<cont>/telemetry/<name> on the host, the
+# subdir mounted read-write at MANAGER_BASE_DIR/telemetry in the container
+TELEMETRY_SUBDIR = "telemetry"
+STEP_RING_NAME = "step_telemetry.ring"
+PIDS_CONFIG_NAME = "pids.config"
+DEVICES_JSON_NAME = "devices.json"          # the plugin's allocation record
+
+# GPU side of Allocate: the NVIDIA container runtime picks the cards named
+# here (UUIDs); the dynamic linker preloads what /etc/ld.so.preload names.
+ENV_NVIDIA_VISIBLE_DEVICES = "NVIDIA_VISIBLE_DEVICES"
+LD_SO_PRELOAD = "/etc/ld.so.preload"
+LD_SO_PRELOAD_NAME = "ld.so.preload"        # the host file, under base dir
+NVIDIA_CONTROL_DEVICES = ("/dev/nvidiactl", "/dev/nvidia-uvm")

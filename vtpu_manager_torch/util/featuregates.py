@@ -1,0 +1,65 @@
+"""Feature gates, parsed from `--feature-gates=A=true,B=false`.
+
+The port of the JAX package's `util/featuregates.py:314-357`, holding only
+the gates the port's device plugin wires (same names and defaults as the
+JAX package's). A gate the port does not know is an error, as it is in the
+JAX parser: a part that is not ported yet is refused, not ignored.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+TC_WATCHER = "TCWatcher"                # the node's utilization watcher
+VMEMORY_NODE = "VMemoryNode"            # the cross-process memory ledger
+HONOR_PREALLOC_IDS = "HonorPreAllocatedDeviceIDs"
+STEP_TELEMETRY = "StepTelemetry"        # per-tenant step rings
+
+_KNOWN = {
+    TC_WATCHER: False,
+    VMEMORY_NODE: False,
+    HONOR_PREALLOC_IDS: False,
+    STEP_TELEMETRY: False,
+}
+
+
+@dataclass
+class FeatureGates:
+    gates: dict[str, bool] = field(default_factory=lambda: dict(_KNOWN))
+
+    def enabled(self, name: str) -> bool:
+        if name not in self.gates:
+            raise KeyError(f"unknown feature gate {name!r}")
+        return self.gates[name]
+
+    def set(self, name: str, value: bool) -> None:
+        if name not in self.gates:
+            raise KeyError(f"unknown feature gate {name!r}")
+        self.gates[name] = value
+
+    def parse(self, spec: str) -> None:
+        """Parses `Gate1=true,Gate2=false`. All or nothing: the whole spec
+        is checked before any gate is set, and every problem (an unknown
+        name included) raises ValueError."""
+        if not spec:
+            return
+        parsed: list[tuple[str, bool]] = []
+        for part in spec.split(","):
+            part = part.strip()
+            if not part:
+                continue
+            if "=" not in part:
+                raise ValueError(f"invalid feature gate spec {part!r}")
+            name, _, raw = part.partition("=")
+            name = name.strip()
+            raw = raw.strip().lower()
+            if raw not in ("true", "false"):
+                raise ValueError(f"invalid feature gate value {part!r}")
+            if name not in self.gates:
+                raise ValueError(f"unknown feature gate {name!r}")
+            parsed.append((name, raw == "true"))
+        for name, value in parsed:
+            self.set(name, value)
+
+    def known(self) -> list[str]:
+        return sorted(self.gates)
