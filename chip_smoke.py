@@ -49,7 +49,16 @@ result line:
    runtime's mounts) run the quota step, hold their caps, launch the
    attention kernel under the interposer, and write one step record per
    step into the rings the plugin mounted. One `ALLOCATE {json}` line per
-   check.
+   check;
+7. dra (`vtpu_manager_torch/bench_dra.py`): the port's DRA kubelet plugin
+   hands slices of the card to tenants. Its ResourceSlice names the card
+   NVML sees; claims the DRA scheduler allocated (50 % and 16 GiB over two
+   slots, 25 % and 8 GiB, one over its slot, and one of two requests) are
+   prepared through `DraDriver.node_prepare`; tenants started from
+   nothing but the CDI specs it wrote (this phase stands in for the
+   container runtime) hold their shares and caps, a claim's two processes
+   share its cap (and, with the JAX package's environment, do not), and
+   a restarted driver keeps its claims. One `DRA {json}` line per check.
 
 The last three lines are the nvidia-smi line, the kernels JSON and the
 result JSON.
@@ -364,25 +373,24 @@ def co_tenancy(torch, shim: str) -> dict:
     return results
 
 
-def allocate(torch, shim: str) -> dict:
+def run_checks(tag: str, phase_cls, torch, shim: str,
+               names: tuple[str, ...]) -> dict:
+    """Runs phase_cls(...).check_<name>() for each name on a private node
+    directory, one `<TAG> {json}` line each; every check runs, and any
+    failure fails the phase."""
     import tempfile
-
-    from vtpu_manager_torch import bench_allocate as ba
 
     results = {}
     with tempfile.TemporaryDirectory(prefix="vtpu-node-") as root:
-        phase = ba.Phase(torch, shim, root)
+        phase = phase_cls(torch, shim, root)
         try:
-            for name, fn in (("registry", phase.check_registry),
-                             ("allocate", phase.check_allocate),
-                             ("tenants", phase.check_tenants),
-                             ("step_ring", phase.check_step_ring)):
+            for name in names:
                 t0 = time.perf_counter()
                 try:
-                    rec = fn()
+                    rec = getattr(phase, f"check_{name}")()
                 except Exception:  # every check runs; any failure fails all
                     rec = {"ok": False, "error": traceback.format_exc()}
-                log("ALLOCATE " + json.dumps(
+                log(f"{tag.upper()} " + json.dumps(
                     {"check": name, "seconds": time.perf_counter() - t0,
                      **rec}, default=str))
                 results[name] = rec
@@ -390,7 +398,15 @@ def allocate(torch, shim: str) -> dict:
             phase.close()
     failed = [name for name, r in results.items() if not r["ok"]]
     if failed:
-        raise AssertionError(f"allocate checks failed: {failed}")
+        raise AssertionError(f"{tag} checks failed: {failed}")
+    return results
+
+
+def allocate(torch, shim: str) -> dict:
+    from vtpu_manager_torch import bench_allocate as ba
+
+    results = run_checks("allocate", ba.Phase, torch, shim,
+                         ("registry", "allocate", "tenants", "step_ring"))
     tenants, rings = results["tenants"], results["step_ring"]
     return {"shares": {p: tenants[p]["share"] for p in ("pod-a", "pod-b")},
             "ms_per_step": {p: tenants[p]["ms_per_step"] for p in ba.PODS},
@@ -399,6 +415,20 @@ def allocate(torch, shim: str) -> dict:
                                 for p in ("pod-a", "pod-b", "pod-d")},
             "throttle_wait_ns": {p: rings[p]["throttle_wait_ns"]
                                  for p in ("pod-a", "pod-b", "pod-d")}}
+
+
+def dra(torch, shim: str) -> dict:
+    from vtpu_manager_torch import bench_dra as bd
+
+    results = run_checks("dra", bd.Phase, torch, shim,
+                         ("slice", "prepare", "tenants", "siblings",
+                          "multi_request", "restart"))
+    tenants, sibs = results["tenants"], results["siblings"]
+    return {"shares": {n: tenants[n]["share"] for n in ("claim-a", "claim-b")},
+            "ms_per_step": {n: tenants[n]["ms_per_step"]
+                            for n in ("solo", "claim-a", "claim-b")},
+            "siblings": {t: sibs[t]["verdicts"] for t in (
+                "first", "second", "control_first", "control_second")}}
 
 
 def main() -> int:
@@ -460,6 +490,7 @@ def main() -> int:
                                   str(paths["shim"]))
     summary["allocate"] = phase("allocate", allocate, torch,
                                 str(paths["shim"]))
+    summary["dra"] = phase("dra", dra, torch, str(paths["shim"]))
     log("SUMMARY " + json.dumps(summary, default=str))
     if failures or record is None:
         print(f"chip_smoke: failed phases: {failures}", file=sys.stderr)

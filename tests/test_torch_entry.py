@@ -234,3 +234,168 @@ def test_container_env_without_the_ring(tmp_path):
     env = bench_allocate.container_env(resp)
     assert consts.ENV_STEP_RING_PATH not in env
     assert consts.ENV_STEP_TELEMETRY not in env
+
+
+# --- the DRA kubelet plugin's entry point -------------------------------------
+
+KUBELET_PLUGIN = [sys.executable, "-m", "vtpu_manager_torch.cmd.kubelet_plugin"]
+
+
+def kubelet_plugin_flags(root, registry_dir=None):
+    return ["--node-name", "node-1", "--plugin-dir", str(root / "plugins"),
+            "--registry-dir", registry_dir or str(root / "registry"),
+            "--base-dir", str(root / "mgr"), "--cdi-dir", str(root / "cdi"),
+            "--vmem-path", str(root / "vmem" / "vmem_node.config"),
+            "--lock-dir", str(root / "locks"),
+            "--watcher-dir", str(root / "watcher"),
+            "--driver-dir", str(root / "driver")]
+
+
+def test_kubelet_plugin_serves_dra_and_registration(tmp_path):
+    import json
+    import shutil
+    import tempfile
+    import urllib.request
+    from pathlib import Path
+
+    import grpc
+
+    from vtpu_manager_torch.kubeletplugin.api import dra_pb2 as pb
+    from vtpu_manager_torch.kubeletplugin.api import \
+        pluginregistration_pb2 as rpb
+    # a unix socket's path has at most 107 bytes; the registration
+    # socket's name alone takes 33
+    registry = tempfile.mkdtemp(prefix="reg-")
+    node_config = tmp_path / "node.json"
+    node_config.write_text('{"default": {"deviceSplitCount": 4}}')
+    proc = subprocess.Popen(
+        KUBELET_PLUGIN + kubelet_plugin_flags(tmp_path, registry)
+        + ["--fake-chips", "2", "--node-config", str(node_config),
+           "--health-port", "0", "--health-host", "127.0.0.1"],
+        cwd=REPO, env=_env(), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    dra_sock = tmp_path / "plugins" / "dra.sock"
+    reg_sock = Path(registry) / f"{consts.DRA_DRIVER_NAME}-reg.sock"
+    try:
+        lines = []
+        while not lines or "DRA driver running on" not in lines[-1]:
+            line = proc.stdout.readline()
+            assert line, "".join(lines)        # exited before serving
+            lines.append(line)
+        log = "".join(lines)
+        assert dra_sock.exists() and reg_sock.exists(), log
+        # the node config's split shapes the slice: 2 cards x 4 slots
+        assert "ResourceSlice: 8 devices (8 healthy)" in log, log
+        port = int(log.split("readiness endpoint on :")[1].split()[0])
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{port}/readyz", timeout=10) as r:
+            ready = json.loads(r.read())
+        assert set(ready["components"]) == {"driver", "registration"}
+        with grpc.insecure_channel(f"unix://{reg_sock}") as chan:
+            info = chan.unary_unary(
+                "/pluginregistration.Registration/GetInfo",
+                request_serializer=rpb.InfoRequest.SerializeToString,
+                response_deserializer=rpb.PluginInfo.FromString)(
+                    rpb.InfoRequest(), timeout=10)
+        assert (info.name, info.endpoint) == (consts.DRA_DRIVER_NAME,
+                                              str(dra_sock))
+        with grpc.insecure_channel(f"unix://{dra_sock}") as chan:
+            resp = chan.unary_unary(
+                "/v1beta1dra.DRAPlugin/NodePrepareResources",
+                request_serializer=
+                pb.NodePrepareResourcesRequest.SerializeToString,
+                response_deserializer=
+                pb.NodePrepareResourcesResponse.FromString)(
+                    pb.NodePrepareResourcesRequest(claims=[
+                        pb.Claim(uid="u1", name="c1", namespace="ml")]),
+                    timeout=10)
+        assert "claim ml/c1 not found" in resp.claims["u1"].error
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=30) == 0
+        assert not reg_sock.exists()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(registry, ignore_errors=True)
+
+
+@pytest.mark.parametrize("args,message", [
+    (["--nri-socket", "/run/nri.sock"],
+     "--nri-socket: the NRI runtime hook is not ported yet"),
+    (["--feature-gates", "NRISupport=true"],
+     "feature gate NRISupport: the NRI runtime hook is not ported yet"),
+    (["--feature-gates", "StepTelemetry=true,Tracing=true"],
+     "feature gate Tracing: tracing is not ported yet"),
+    (["--trace-sampling-rate", "0.5"], "tracing is not ported yet"),
+    (["--trace-spool-dir", "spool"], "tracing is not ported yet"),
+    (["--id-store", "ids.json"],
+     "--id-store: the device-id store (a GPU needs none) is not ported yet"),
+    (["--feature-gates", "CompileCache=true"], "unknown feature gate"),
+])
+def test_kubelet_plugin_refuses_what_is_not_ported(tmp_path, args, message):
+    res = subprocess.run(KUBELET_PLUGIN + kubelet_plugin_flags(tmp_path)
+                         + ["--fake-chips", "1"] + args, cwd=REPO,
+                         env=_env(), capture_output=True, text=True,
+                         timeout=60)
+    assert res.returncode == 2
+    assert message in res.stdout + res.stderr
+    assert not (tmp_path / "plugins").exists()
+
+
+DRA_BLOCKED_CODE = """
+import sys
+BLOCKED = ("grpc", "google.protobuf", "yaml")
+for name in BLOCKED:
+    sys.modules[name] = None
+import importlib
+for name in ("chip_smoke", "vtpu_manager_torch.bench_dra",
+             "vtpu_manager_torch.cmd.kubelet_plugin",
+             "vtpu_manager_torch.kubeletplugin.api",
+             "vtpu_manager_torch.kubeletplugin.api.messages",
+             "vtpu_manager_torch.kubeletplugin.driver",
+             "vtpu_manager_torch.kubeletplugin.registration",
+             "vtpu_manager_torch.kubeletplugin.health",
+             "vtpu_manager_torch.kubeletplugin.readiness"):
+    importlib.import_module(name)
+from vtpu_manager_torch import bench_dra
+from vtpu_manager_torch.client.fake import FakeKubeClient
+from vtpu_manager_torch.kubeletplugin.allocatable import build_resource_slice
+from vtpu_manager_torch.kubeletplugin.api import messages as api
+from vtpu_manager_torch.kubeletplugin.device_state import DeviceState
+from vtpu_manager_torch.kubeletplugin.driver import ClaimSource, DraDriver
+from vtpu_manager_torch.kubeletplugin.registration import \\
+    publish_resource_slice
+from vtpu_manager_torch.tpu.discovery import FakeBackend
+root = sys.argv[1]
+found = FakeBackend(1).discover()
+client = FakeKubeClient()
+assert publish_resource_slice(client, build_resource_slice("n1",
+                                                           found.chips))
+client.add_resourceclaim(bench_dra.allocated_claim("c1", 0, {"gpu": [0]},
+                                                   5, 1024))
+state = DeviceState("n1", found.chips, base_dir=root + "/dra",
+                    cdi_dir=root + "/cdi", minors=found.minors,
+                    shim_host_dir=root + "/d", lock_dir=root + "/l",
+                    vmem_dir=root + "/v", watcher_dir=root + "/w")
+driver = DraDriver("n1", ClaimSource(client), state)
+entry = driver.node_prepare(api.NodePrepareResourcesRequest(
+    [api.Claim("uid-c1", "c1", bench_dra.NAMESPACE)])).claims["uid-c1"]
+assert not entry.error, entry.error
+(device,) = bench_dra.read_spec(root + "/cdi", "uid-c1").values()
+env = bench_dra.cdi_env(device)
+assert env["VTPU_CORE_LIMIT_0"] == "5" and env["VTPU_POD_UID"] == "uid-c1"
+assert env["CUDA_VISIBLE_DEVICES"] == "fake-0", env
+bad = sorted(n for n in sys.modules
+             if any(n == b or n.startswith(b + ".") for b in BLOCKED)
+             and sys.modules[n] is not None)
+print("LOADED", bad)
+"""
+
+
+def test_dra_card_path_runs_without_grpc_protobuf_or_yaml(tmp_path):
+    res = subprocess.run([sys.executable, "-c", DRA_BLOCKED_CODE,
+                          str(tmp_path)], cwd=REPO, env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "LOADED []" in res.stdout

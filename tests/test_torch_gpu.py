@@ -266,3 +266,30 @@ def test_tenant_from_allocate_response_sees_its_cap(card, tmp_path):
     assert lines, res.stderr[-2000:]
     out = json.loads(lines[0][4:])
     assert out["total"] == 3 * 2**30 and out["source"] == "config-file"
+
+
+@pytest.mark.gpu
+def test_dra_prepare_over_nvml_names_the_cards_device_node(card, tmp_path):
+    import json
+    import os
+
+    from vtpu_manager_torch import bench_dra
+    from vtpu_manager_torch.kubeletplugin import cdi
+    from vtpu_manager_torch.kubeletplugin.device_state import DeviceState
+    from vtpu_manager_torch.tpu import discovery
+    mgr, _, _, chip = _nvml_node(tmp_path)
+    nvml = discovery.Nvml.load()
+    minor = nvml.minor(nvml.handle(chip.index))
+    state = DeviceState("n1", mgr.chips, base_dir=str(tmp_path / "dra"),
+                        cdi_dir=str(tmp_path / "cdi"), minors=mgr.minors,
+                        lock_dir=str(tmp_path / "locks"),
+                        vmem_dir=str(tmp_path / "vmem"),
+                        watcher_dir=str(tmp_path / "watcher"))
+    claim = bench_dra.allocated_claim("c1", chip.index, {"gpu": [1]}, 25,
+                                      1024)
+    assert state.prepare_claim(claim) == [cdi.cdi_device_name("uid-c1")]
+    with open(cdi.spec_path("uid-c1", str(tmp_path / "cdi"))) as f:
+        (device,) = json.load(f)["devices"]
+    nodes = [n["path"] for n in device["containerEdits"]["deviceNodes"]]
+    assert nodes[0] == f"/dev/nvidia{minor}" and os.path.exists(nodes[0])
+    assert nodes[1:] == ["/dev/nvidiactl", "/dev/nvidia-uvm"]

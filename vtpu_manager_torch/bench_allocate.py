@@ -208,6 +208,11 @@ class Node:
         p.step_telemetry_enabled = step_telemetry
         return p
 
+    def go_file(self, name: str) -> str:
+        """A start signal for tenants (`bench_quota.run_tenants` takes a
+        node as its world)."""
+        return str(self.root / f"{name}.go")
+
     def close(self) -> None:
         self.daemon.stop()
 

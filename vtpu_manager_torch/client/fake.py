@@ -1,7 +1,9 @@
-"""An in-memory KubeClient: pods, nodes, annotation patches and a watch.
+"""An in-memory KubeClient: pods, nodes, annotation patches and a watch,
+and the DRA objects (ResourceClaims, ResourceSlices).
 
-The port of the JAX package's `client/fake.py:35` (`FakeKubeClient`), cut
-to what the device plugin and the device manager use. Thread-safe; every
+The port of the JAX package's `client/fake.py:35, 343-372`
+(`FakeKubeClient`), cut to what the device plugin, the device manager and
+the DRA kubelet plugin use. Thread-safe; every
 read returns a copy. Every change appends an ADDED / MODIFIED / DELETED
 event under one increasing resourceVersion; `watch_pods` / `watch_nodes`
 return the events after a version and a trailing BOOKMARK, and raise
@@ -27,6 +29,8 @@ class FakeKubeClient:
         self._lock = threading.RLock()
         self.nodes: dict[str, dict] = {}
         self.pods: dict[tuple[str, str], dict] = {}
+        self.resourceclaims: dict[tuple[str, str], dict] = {}
+        self.resourceslices: dict[str, dict] = {}
         self._rv = 0
         self._events: dict[str, deque] = {"pods": deque(), "nodes": deque()}
         self._compacted_rv: dict[str, int] = {"pods": 0, "nodes": 0}
@@ -159,3 +163,25 @@ class FakeKubeClient:
             self._patch(pod, annotations)
             self._record_event("pods", "MODIFIED", pod)
             return copy.deepcopy(pod)
+
+    # -- DRA objects ----------------------------------------------------------
+
+    def add_resourceclaim(self, claim: dict) -> None:
+        meta = claim["metadata"]
+        with self._lock:
+            self.resourceclaims[(meta.get("namespace", "default"),
+                                 meta["name"])] = copy.deepcopy(claim)
+
+    def get_resourceclaim(self, namespace: str, name: str) -> dict:
+        with self._lock:
+            claim = self.resourceclaims.get((namespace, name))
+            if claim is None:
+                raise KubeError(404,
+                                f"resourceclaim {namespace}/{name} not found")
+            return copy.deepcopy(claim)
+
+    def apply_resourceslice(self, slice_doc: dict) -> dict:
+        with self._lock:
+            self.resourceslices[slice_doc["metadata"]["name"]] = \
+                copy.deepcopy(slice_doc)
+            return copy.deepcopy(slice_doc)

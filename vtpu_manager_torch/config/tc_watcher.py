@@ -24,8 +24,8 @@ import struct
 import time
 from dataclasses import dataclass, field
 
-from vtpu_manager_torch.config.vmem import FileLock
 from vtpu_manager_torch.util import consts
+from vtpu_manager_torch.util.flock import FileLock
 
 MAGIC = 0x55544356            # "VCTU"
 VERSION = 2

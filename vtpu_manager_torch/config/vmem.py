@@ -17,8 +17,6 @@ namespace's pid cannot be probed.
 
 from __future__ import annotations
 
-import errno
-import fcntl
 import mmap
 import os
 import struct
@@ -26,6 +24,7 @@ import time
 from dataclasses import dataclass
 
 from vtpu_manager_torch.util import consts
+from vtpu_manager_torch.util.flock import FileLock
 
 MAGIC = 0x4D454D56          # "VMEM"
 VERSION = 3
@@ -76,43 +75,6 @@ def owner_token_from_env() -> int:
     except (OSError, IndexError):
         starttime = "0"
     return fnv64(f"proc-{os.getpid()}-{starttime}")
-
-
-class FileLock:
-    """flock(2) on a dedicated lock file, with the JAX package's backoff
-    (1 ms doubling to 10 ms) and a timeout instead of a hang."""
-
-    def __init__(self, path: str, timeout_s: float = consts.LOCK_TIMEOUT_S):
-        self.path = path
-        self.timeout_s = timeout_s
-        self._fd: int | None = None
-
-    def __enter__(self) -> "FileLock":
-        os.makedirs(os.path.dirname(self.path) or ".", exist_ok=True)
-        fd = os.open(self.path, os.O_CREAT | os.O_RDWR, 0o666)
-        deadline = time.monotonic() + self.timeout_s
-        backoff = 0.001
-        while True:
-            try:
-                fcntl.flock(fd, fcntl.LOCK_EX | fcntl.LOCK_NB)
-                self._fd = fd
-                return self
-            except OSError as e:
-                if e.errno not in (errno.EAGAIN, errno.EACCES):
-                    os.close(fd)
-                    raise
-            if time.monotonic() >= deadline:
-                os.close(fd)
-                raise TimeoutError(f"lock {self.path} not acquired within "
-                                   f"{self.timeout_s}s")
-            time.sleep(backoff)
-            backoff = min(backoff * 2, 0.010)
-
-    def __exit__(self, *exc) -> None:
-        if self._fd is not None:
-            fcntl.flock(self._fd, fcntl.LOCK_UN)
-            os.close(self._fd)
-            self._fd = None
 
 
 @dataclass

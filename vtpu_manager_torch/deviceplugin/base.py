@@ -63,6 +63,14 @@ def to_proto(message, pb_cls):
     return json_format.ParseDict(dataclasses.asdict(message), pb_cls())
 
 
+def unary(fn, req_cls, resp_cls):
+    """A unary gRPC handler over generated request/response classes."""
+    import grpc
+    return grpc.unary_unary_rpc_method_handler(
+        fn, request_deserializer=req_cls.FromString,
+        response_serializer=resp_cls.SerializeToString)
+
+
 def allocate_request(msg) -> api.AllocateRequest:
     return api.AllocateRequest([api.ContainerAllocateRequest(
         list(c.devicesIDs)) for c in msg.container_requests])
@@ -108,11 +116,6 @@ class PluginServer:
         from vtpu_manager_torch.deviceplugin.api import deviceplugin_pb2 as pb
         s = self.servicer
 
-        def _unary(fn, req_cls, resp_cls):
-            return grpc.unary_unary_rpc_method_handler(
-                fn, request_deserializer=req_cls.FromString,
-                response_serializer=resp_cls.SerializeToString)
-
         def list_and_watch(request, context):
             for devices in s.watch_devices():
                 if self._stop.is_set():
@@ -121,23 +124,23 @@ class PluginServer:
                                pb.ListAndWatchResponse)
 
         handlers = {
-            "GetDevicePluginOptions": _unary(
+            "GetDevicePluginOptions": unary(
                 lambda req, ctx: self._options(), pb.Empty,
                 pb.DevicePluginOptions),
             "ListAndWatch": grpc.unary_stream_rpc_method_handler(
                 list_and_watch, request_deserializer=pb.Empty.FromString,
                 response_serializer=pb.ListAndWatchResponse.SerializeToString),
-            "GetPreferredAllocation": _unary(
+            "GetPreferredAllocation": unary(
                 lambda req, ctx: to_proto(
                     s.get_preferred_allocation(preferred_request(req)),
                     pb.PreferredAllocationResponse),
                 pb.PreferredAllocationRequest,
                 pb.PreferredAllocationResponse),
-            "Allocate": _unary(
+            "Allocate": unary(
                 lambda req, ctx: to_proto(s.allocate(allocate_request(req)),
                                           pb.AllocateResponse),
                 pb.AllocateRequest, pb.AllocateResponse),
-            "PreStartContainer": _unary(
+            "PreStartContainer": unary(
                 lambda req, ctx: to_proto(
                     s.pre_start_container(prestart_request(req)),
                     pb.PreStartContainerResponse),

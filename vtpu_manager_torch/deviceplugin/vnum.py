@@ -57,9 +57,9 @@ from vtpu_manager_torch.util import consts
 
 log = logging.getLogger(__name__)
 
-_COMPAT_BITS = {"host": consts.COMPAT_HOST, "cgroup": consts.COMPAT_CGROUP,
-                "client": consts.COMPAT_CLIENT,
-                "open-kernel": consts.COMPAT_OPEN_KERNEL}
+COMPAT_BITS = {"host": consts.COMPAT_HOST, "cgroup": consts.COMPAT_CGROUP,
+               "client": consts.COMPAT_CLIENT,
+               "open-kernel": consts.COMPAT_OPEN_KERNEL}
 
 # what the dynamic linker resolves in the container; the interposer's own
 # default when the variable is unset
@@ -101,6 +101,22 @@ def _write_atomic(path: str, text: str) -> None:
     with open(tmp, "w") as f:
         f.write(text)
     os.replace(tmp, path)
+
+
+def preload_file(base_dir: str) -> str:
+    """The host file mounted at /etc/ld.so.preload, `<base_dir>/ld.so.preload`:
+    one line, the interposer's path in the container. Written when missing
+    or different."""
+    path = os.path.join(base_dir, consts.LD_SO_PRELOAD_NAME)
+    want = interposer_container_path() + "\n"
+    try:
+        with open(path) as f:
+            current = f.read()
+    except OSError:
+        current = None
+    if current != want:
+        _write_atomic(path, want)
+    return path
 
 
 class VnumPlugin(DevicePluginServicer):
@@ -331,20 +347,6 @@ class VnumPlugin(DevicePluginServicer):
     def _container_dir(self, pod_uid: str, cont: str) -> str:
         return os.path.join(self.base_dir, f"{pod_uid}_{cont}")
 
-    def _preload_file(self) -> str:
-        """The host file mounted at /etc/ld.so.preload: one line, the
-        interposer's path in the container."""
-        path = os.path.join(self.base_dir, consts.LD_SO_PRELOAD_NAME)
-        want = interposer_container_path() + "\n"
-        try:
-            with open(path) as f:
-                current = f.read()
-        except OSError:
-            current = None
-        if current != want:
-            _write_atomic(path, want)
-        return path
-
     def _response_for(self, pod: dict | None, cont: str,
                       claims: list[DeviceClaim]
                       ) -> api.ContainerAllocateResponse:
@@ -392,7 +394,7 @@ class VnumPlugin(DevicePluginServicer):
                 resp.devices.append(api.DeviceSpec(
                     container_path=node, host_path=node, permissions="rw"))
 
-        compat = _COMPAT_BITS.get(self.node_config.compat_mode,
+        compat = COMPAT_BITS.get(self.node_config.compat_mode,
                                   consts.COMPAT_HOST)
         resp.envs[consts.ENV_COMPAT_MODE] = str(compat)
         resp.envs[consts.ENV_POD_NAME] = meta.get("name", "")
@@ -448,7 +450,7 @@ class VnumPlugin(DevicePluginServicer):
                                          host_path=consts.REGISTRY_DIR,
                                          read_only=False))
         resp.mounts.append(api.Mount(container_path=consts.LD_SO_PRELOAD,
-                                     host_path=self._preload_file(),
+                                     host_path=preload_file(self.base_dir),
                                      read_only=True))
         resp.envs[consts.ENV_REAL_CUDA_LIBRARY_PATH] = self.real_libcuda_path
         resp.envs[consts.ENV_CONFIG_PATH] = consts.CONTAINER_CONFIG

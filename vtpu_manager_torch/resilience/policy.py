@@ -1,15 +1,19 @@
 """Retries of the node agent's API calls.
 
-The port of the JAX package's `resilience/policy.py:50-140` (`RetryPolicy`,
-`is_retryable`): jittered exponential backoff under a deadline, the API
-server's Retry-After honoured, and only transient failures retried (404,
-403, 409 and 422 mean the world changed, not the wire: they surface at
-once). The circuit breaker and the per-process counters are not ported yet.
+The port of the JAX package's `resilience/policy.py:50-260`
+(`RetryPolicy`, `is_retryable`, `CircuitBreaker`, `KubeResilience`):
+jittered exponential backoff under a deadline, the API server's
+Retry-After honoured, and only transient failures retried (404, 403, 409
+and 422 mean the world changed, not the wire: they surface at once); a
+breaker that, after consecutive failed calls, rejects calls locally for a
+while instead of queueing doomed ones. The per-process counters and their
+metrics are not ported.
 """
 
 from __future__ import annotations
 
 import logging
+import threading
 import time
 from random import Random
 from typing import Callable
@@ -79,3 +83,100 @@ class RetryPolicy:
                 log.debug("%s: attempt %d failed (%s); retrying in %.3fs",
                           op, attempt, e, delay)
                 self._sleep(delay)
+
+
+class CircuitOpenError(RuntimeError):
+    """Raised instead of calling a dependency whose circuit is open."""
+
+
+class CircuitBreaker:
+    """Consecutive-failure breaker for one dependency.
+
+    closed -> (`failure_threshold` consecutive failures) -> open for
+    `reset_timeout_s` (calls rejected) -> one half-open probe -> a success
+    closes it, a failure opens it again. Thread-safe; `clock` is for
+    tests."""
+
+    CLOSED, OPEN, HALF_OPEN = "closed", "open", "half-open"
+
+    def __init__(self, name: str = "kube", failure_threshold: int = 5,
+                 reset_timeout_s: float = 30.0,
+                 clock: Callable[[], float] = time.monotonic):
+        self.name = name
+        self.failure_threshold = max(1, failure_threshold)
+        self.reset_timeout_s = reset_timeout_s
+        self._clock = clock
+        self._lock = threading.Lock()
+        self._state = self.CLOSED
+        self._failures = 0
+        self._opened_at = 0.0
+        self._probing = False
+
+    @property
+    def state(self) -> str:
+        with self._lock:
+            return self._state_locked()
+
+    def _state_locked(self) -> str:
+        if self._state == self.OPEN and \
+                self._clock() - self._opened_at >= self.reset_timeout_s:
+            self._state = self.HALF_OPEN
+            self._probing = False
+        return self._state
+
+    def allow(self) -> bool:
+        """True when a call may proceed. Half-open lets exactly one caller
+        probe; the rest are rejected until it reports."""
+        with self._lock:
+            state = self._state_locked()
+            if state == self.CLOSED:
+                return True
+            if state == self.HALF_OPEN and not self._probing:
+                self._probing = True
+                return True
+            return False
+
+    def record_success(self) -> None:
+        with self._lock:
+            if self._state != self.CLOSED:
+                log.info("circuit %s closed", self.name)
+            self._state = self.CLOSED
+            self._failures = 0
+            self._probing = False
+
+    def record_failure(self) -> None:
+        with self._lock:
+            state = self._state_locked()
+            self._failures += 1
+            if state == self.HALF_OPEN or (
+                    state == self.CLOSED
+                    and self._failures >= self.failure_threshold):
+                if self._state != self.OPEN:
+                    log.warning("circuit %s opened after %d consecutive "
+                                "failure(s)", self.name, self._failures)
+                self._state = self.OPEN
+                self._opened_at = self._clock()
+                self._probing = False
+
+
+class KubeResilience:
+    """Retries under a breaker: the breaker gates the whole retried call,
+    and only a call that fails after its retries counts against it (a 503
+    that a retry absorbed is not a failure)."""
+
+    def __init__(self, policy: RetryPolicy | None = None,
+                 breaker: CircuitBreaker | None = None):
+        self.policy = policy or RetryPolicy()
+        self.breaker = breaker or CircuitBreaker()
+
+    def call(self, fn: Callable, op: str = "kube"):
+        if not self.breaker.allow():
+            raise CircuitOpenError(
+                f"{self.breaker.name} circuit open; rejecting {op}")
+        try:
+            result = self.policy.run(fn, op=op)
+        except Exception:
+            self.breaker.record_failure()
+            raise
+        self.breaker.record_success()
+        return result

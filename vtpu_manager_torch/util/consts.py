@@ -138,3 +138,13 @@ ENV_NVIDIA_VISIBLE_DEVICES = "NVIDIA_VISIBLE_DEVICES"
 LD_SO_PRELOAD = "/etc/ld.so.preload"
 LD_SO_PRELOAD_NAME = "ld.so.preload"        # the host file, under base dir
 NVIDIA_CONTROL_DEVICES = ("/dev/nvidiactl", "/dev/nvidia-uvm")
+
+# --- The DRA kubelet plugin's names -----------------------------------------
+# The JAX package's (`util/consts.py:455-456, 586`; the claim variables of
+# `kubeletplugin/device_state.py:166, 303`): ResourceSlices and claims name
+# the driver, and the runtime hook reads the claim variables.
+DRA_DRIVER_NAME = "vtpu.resource.google.com"
+ENV_CLAIM_UID = "VTPU_CLAIM_UID"
+ENV_CLAIM_REQUEST = "VTPU_CLAIM_REQUEST"     # a multi-request claim's request
+ENV_REGISTER_UUID = "VTPU_REGISTER_UUID"     # ClientMode's registry match
+ENV_OBS_EXCESS_TABLE = "VTPU_OBS_EXCESS_TABLE"
