@@ -30,7 +30,15 @@ result line:
    torch.cuda.OutOfMemoryError), the quota sweep at 100/50/25 (each share
    within 15 points of its quota), one kernel launch seen by the
    interposer's counter, and the interposer's cost to an unthrottled
-   tenant (two pairs without and with it);
+   tenant (two pairs without and with it). Then every launch path and
+   allocation entry: tenants that replay the quota step and one
+   attention-kernel launch from a CUDA graph at q50 and q25, each paired
+   with an eager tenant of the same step at quota 100 (shares within 15
+   points, q50 above q25, every replay counted, nothing charged during the
+   capture, one cooperative launch counted), and under the 64 MiB cap
+   256 MiB asked through cuMemAllocManaged, cuMemAllocPitch_v2 and
+   cuMemAllocFromPoolAsync (ctypes on libcuda.so.1), each refused with
+   CUDA_ERROR_OUT_OF_MEMORY, and 32 MiB granted, freed and granted again;
 5. co_tenancy (`vtpu_manager_torch/bench_cotenancy.py`): several tenants
    on the card at once, each reading its limits from its own vtpu.config,
    under the node watcher fed by NVML: discovery, the config file's cap,
@@ -58,7 +66,18 @@ result line:
    nothing but the CDI specs it wrote (this phase stands in for the
    container runtime) hold their shares and caps, a claim's two processes
    share its cap (and, with the JAX package's environment, do not), and
-   a restarted driver keeps its claims. One `DRA {json}` line per check.
+   a restarted driver keeps its claims. One `DRA {json}` line per check;
+8. cluster (`vtpu_manager_torch/bench_cluster.py`): the same path with a
+   stub API server over TLS and a fake NRI runtime in place of what the
+   `dra` phase plays itself. The kubelet plugin's driver, with the
+   in-cluster client pointed at the stub, publishes its ResourceSlice (PUT,
+   then POST) and fetches the claims it prepares; the port's NRI plugin
+   registers with the runtime, which has it adjust a claim's container,
+   refuse a container whose environment names a claim its pod does not
+   own, and leave a non-tenant container untouched; tenants started from
+   the CDI environment and the NRI adjustment hold 50 % and 25 % with exact
+   caps; the device plugin's Allocate over the in-cluster client answers
+   as over the fake client. One `CLUSTER {json}` line per check.
 
 The last three lines are the nvidia-smi line, the kernels JSON and the
 result JSON.
@@ -318,9 +337,30 @@ def enforcement(shim: str) -> dict:
             and r["kernel_launches_delta"] == 1 for r in kernel_runs):
         raise AssertionError(f"the interposer did not see the kernel: "
                              f"{kernel_runs}")
+    # every launch path: CUDA-graph replays and a cooperative launch
+    graph = bq.graph_sweep(shim)
+    verdicts = bq.graph_sweep_ok(graph, SHARE_BAND)
+    for r in graph["records"]:
+        log(f"graph tenant record: {json.dumps(r)}")
+    log(f"graph sweep: ms/step={graph['ms_per_step']} "
+        f"shares={graph['shares']} verdicts={verdicts}")
+    # every allocation entry under the cap
+    entries = bq.run_entry_check(shim)
+    entries_ok = bq.entry_check_ok(entries)
+    log(f"allocation entries under the 64 MiB cap: ok={entries_ok} "
+        f"{json.dumps(entries)}")
+    if not verdicts["ok"]:
+        raise AssertionError(f"graph or cooperative launches escape the "
+                             f"meter: {verdicts}")
+    if not entries_ok:
+        raise AssertionError(f"an allocation entry escapes the cap: "
+                             f"{entries}")
     return {"hbm": hbm, "ms_per_step": times, "shares": shares,
             "mae": mae, "overhead_pct": overhead_pct,
-            "kernel_under_interposer": kernel_runs[0]}
+            "kernel_under_interposer": kernel_runs[0],
+            "graph": {"ms_per_step": graph["ms_per_step"],
+                      "shares": graph["shares"], "verdicts": verdicts},
+            "entries": entries["entries"]}
 
 
 def co_tenancy(torch, shim: str) -> dict:
@@ -431,6 +471,19 @@ def dra(torch, shim: str) -> dict:
                 "first", "second", "control_first", "control_second")}}
 
 
+def cluster(torch, shim: str) -> dict:
+    from vtpu_manager_torch import bench_cluster as bcl
+
+    results = run_checks("cluster", bcl.Phase, torch, shim,
+                         ("slice", "prepare", "nri", "tenants", "allocate"))
+    tenants = results["tenants"]
+    return {"shares": {n: tenants[n]["share"] for n in bcl.CLAIMS},
+            "ms_per_step": {n: tenants[n]["ms_per_step"]
+                            for n in ("solo", *bcl.CLAIMS)},
+            "slice_calls": results["slice"]["calls"],
+            "nri": {k: results["nri"][k] for k in ("spoofed", "plain")}}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -463,6 +516,10 @@ def main() -> int:
         except Exception:          # every phase runs; any failure fails all
             failures.append(name)
             log(f"PHASE {name} FAILED\n{traceback.format_exc()}")
+            # the reason on stderr too, where a reader of the exit sees it
+            print(f"chip_smoke: phase {name}: "
+                  f"{traceback.format_exc(limit=0).strip()[-2000:]}",
+                  file=sys.stderr)
             return None
         log(f"PHASE {name} ok in {time.perf_counter() - t0:.1f}s")
         return out
@@ -491,6 +548,7 @@ def main() -> int:
     summary["allocate"] = phase("allocate", allocate, torch,
                                 str(paths["shim"]))
     summary["dra"] = phase("dra", dra, torch, str(paths["shim"]))
+    summary["cluster"] = phase("cluster", cluster, torch, str(paths["shim"]))
     log("SUMMARY " + json.dumps(summary, default=str))
     if failures or record is None:
         print(f"chip_smoke: failed phases: {failures}", file=sys.stderr)

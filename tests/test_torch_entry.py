@@ -105,7 +105,8 @@ def test_entry_registers_and_answers_allocate(tmp_path):
      "unknown feature gate"),
     (["--fake-client", "--feature-gates", "StepTelemetry=maybe"],
      "invalid feature gate value"),
-    ([], "in-cluster API client is not ported yet"),
+    # no service account here: the in-cluster client has no API access
+    (["--service-account-dir", "no-such-dir"], "no in-cluster API access"),
     (["--fake-client", "--metrics-port", "9000"],
      "--metrics-port: the resilience metrics endpoint is not ported yet"),
     (["--fake-client", "--spill-budget-gib", "8"],
@@ -321,10 +322,6 @@ def test_kubelet_plugin_serves_dra_and_registration(tmp_path):
 
 
 @pytest.mark.parametrize("args,message", [
-    (["--nri-socket", "/run/nri.sock"],
-     "--nri-socket: the NRI runtime hook is not ported yet"),
-    (["--feature-gates", "NRISupport=true"],
-     "feature gate NRISupport: the NRI runtime hook is not ported yet"),
     (["--feature-gates", "StepTelemetry=true,Tracing=true"],
      "feature gate Tracing: tracing is not ported yet"),
     (["--trace-sampling-rate", "0.5"], "tracing is not ported yet"),

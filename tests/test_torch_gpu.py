@@ -293,3 +293,30 @@ def test_dra_prepare_over_nvml_names_the_cards_device_node(card, tmp_path):
     nodes = [n["path"] for n in device["containerEdits"]["deviceNodes"]]
     assert nodes[0] == f"/dev/nvidia{minor}" and os.path.exists(nodes[0])
     assert nodes[1:] == ["/dev/nvidiactl", "/dev/nvidia-uvm"]
+
+
+# --- every launch path and allocation entry under the interposer -------------
+
+
+@pytest.mark.gpu
+def test_graph_replays_are_metered(card):
+    """The quota step and one attention launch replayed from a CUDA graph
+    at q50 and q25, each paired with the eager step at quota 100: shares
+    within 15 points and in order, every replay counted, the capture
+    charged nothing, one cooperative launch counted."""
+    from vtpu_manager_torch import bench_quota as bq
+    from vtpu_manager_torch import build
+    sweep = bq.graph_sweep(str(build.build_shim()))
+    verdicts = bq.graph_sweep_ok(sweep, 15.0)
+    assert verdicts["ok"], (verdicts, sweep)
+
+
+@pytest.mark.gpu
+def test_allocation_entries_are_capped(card):
+    """Under a 64 MiB cap, 256 MiB through cuMemAllocManaged,
+    cuMemAllocPitch_v2 and cuMemAllocFromPoolAsync is refused with
+    CUDA_ERROR_OUT_OF_MEMORY; 32 MiB is granted, freed, granted again."""
+    from vtpu_manager_torch import bench_quota as bq
+    from vtpu_manager_torch import build
+    rec = bq.run_entry_check(str(build.build_shim()))
+    assert bq.entry_check_ok(rec), rec

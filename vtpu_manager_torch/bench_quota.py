@@ -109,8 +109,15 @@ def _run_tenant(args: list[str], env: dict, tag: str,
     return None
 
 
+# A sweep tenant's steps. Its share is the ratio of two tenants' walls, so
+# the timed section must outlast a stall of the shared host: at 30 steps of
+# 1.8 ms, one 8 ms stall in either tenant moves the share by 15 points.
+SWEEP_WARMUP = 30
+SWEEP_STEPS = 150
+
+
 def run_worker(shim: str | None, quota: int, dim: int = 8192,
-               warmup: int = 10, steps: int = 30,
+               warmup: int = SWEEP_WARMUP, steps: int = SWEEP_STEPS,
                timeout: int = 300) -> dict | None:
     """One tenant run of the step loop at `quota` (`shim` None: no
     interposer). At quota 100 under the interposer the tenant also
@@ -122,6 +129,71 @@ def run_worker(shim: str | None, quota: int, dim: int = 8192,
     if shim is not None and quota >= 100:
         args.append("--kernel")
     return _run_tenant(args, tenant_env(shim, quota), "WORKER", timeout)
+
+
+GRAPH_QUOTAS = (50, 25)
+
+
+def run_graph_worker(shim: str, quota: int, capture_mode: str = "global",
+                     dim: int = 8192, warmup: int = SWEEP_WARMUP,
+                     steps: int = SWEEP_STEPS,
+                     timeout: int = 300) -> dict | None:
+    """One tenant run of the quota step and one block-attention launch
+    (`bench_steps.graph_step_measure`): eager at quota 100, replayed from
+    a CUDA graph below it, captured in `capture_mode` (torch's
+    capture_error_mode). The tenant also makes one cooperative launch."""
+    args = ["-m", "vtpu_manager_torch.bench_quota", "--worker", "--graph",
+            "--capture-mode", capture_mode, "--dim", str(dim), "--warmup",
+            str(warmup), "--steps", str(steps)]
+    return _run_tenant(args, tenant_env(shim, quota), "WORKER", timeout)
+
+
+def graph_sweep(shim: str, capture_mode: str = "global") -> dict:
+    """Graph tenants at GRAPH_QUOTAS, each paired with an eager tenant of
+    the same step at quota 100 (`paired_quota_sweep`). A tenant that
+    failed leaves its quota out of the shares."""
+    times, shares, records = paired_quota_sweep(
+        lambda q: run_graph_worker(shim, q, capture_mode), GRAPH_QUOTAS)
+    return {"ms_per_step": times, "shares": shares, "records": records,
+            "capture_mode": capture_mode}
+
+
+def graph_sweep_ok(sweep: dict, band: float) -> dict:
+    """The F1 verdicts of a graph sweep: shares within `band` of their
+    quotas and in order; every replay counted by the interposer; nothing
+    charged during a capture that held captured launches; one cooperative
+    launch counted in every tenant."""
+    shares = sweep["shares"]
+    graphs = [r for r in sweep["records"] if r.get("graph")]
+    out = {
+        "shares": all(q in shares and abs(shares[q] - q) <= band
+                      for q in GRAPH_QUOTAS)
+        and shares[50] > shares[25],
+        "replays_counted": len(graphs) == len(GRAPH_QUOTAS) and all(
+            r.get("graph_launches_timed") == r["timed_steps"]
+            for r in graphs),
+        "capture_uncharged": bool(graphs) and all(
+            r.get("capture_vtpu_charged_ns_total") == 0
+            and r.get("capture_vtpu_captured_launches_total", 0) > 0
+            for r in graphs),
+        "cooperative_counted": bool(sweep["records"]) and all(
+            r["cooperative_rc"] == 0
+            and r["cooperative_shim_launches_delta"] == 1
+            for r in sweep["records"]),
+    }
+    out["ok"] = all(out.values())
+    return out
+
+
+def run_entry_check(shim: str, timeout: int = 300) -> dict | None:
+    """Under the 64 MiB cap, each allocating entry the CUDA runtime does not
+    reach by cuMemAlloc_v2 (`ENTRY_CHECKS`), called through ctypes on
+    libcuda.so.1: its verdicts for 256 MiB, then 32 MiB, its free, and
+    32 MiB again."""
+    return _run_tenant(["-m", "vtpu_manager_torch.bench_quota",
+                        "--entry-worker"],
+                       tenant_env(shim, 100, mem_limit=CAP_BYTES), "ENTRIES",
+                       timeout)
 
 
 def paired_quota_sweep(run, quotas=QUOTAS, reps: int = 1
@@ -210,19 +282,22 @@ def run_fake_harness(mode: str, timeout: float = 120, **extra) -> dict:
     res = subprocess.run([str(build.build_shim_test()), mode],
                          env=fake_harness_env(**extra), capture_output=True,
                          text=True, timeout=timeout, check=False)
-    return {"rc": res.returncode, "stderr": res.stderr,
+    return {"rc": res.returncode, "stdout": res.stdout, "stderr": res.stderr,
             **parse_harness(res.stdout)}
 
 
 def run_fake_sweep(iters: int = 100, exec_us: int = 2000,
-                   quotas=QUOTAS) -> dict[int, float] | None:
+                   quotas=QUOTAS, launch: str = "kernel"
+                   ) -> dict[int, float] | None:
     """ms per launch+synchronize step at each quota, against the fake
-    driver: the interposer's pacing with no card and no host noise."""
+    driver: the interposer's pacing with no card and no host noise.
+    `launch` is the harness's launch path: kernel, graph or coop."""
     out: dict[int, float] = {}
     for quota in quotas:
         res = run_fake_harness(
             "--throttle-only", VTPU_CORE_LIMIT_0=quota if quota < 100 else 0,
-            FAKE_EXEC_US=exec_us, SHIM_TEST_ITERS=iters)
+            FAKE_EXEC_US=exec_us, SHIM_TEST_ITERS=iters,
+            SHIM_TEST_LAUNCH=launch)
         if "wall_ms" in res:
             out[quota] = res["wall_ms"] / iters
     return out if len(out) == len(quotas) else None
@@ -234,8 +309,12 @@ COUNTERS = ("vtpu_launches_total", "vtpu_sampled_launches_total",
             "vtpu_proc_address_hooked_total", "vtpu_probes_total",
             "vtpu_obs_overhead_ns", "vtpu_watcher_external_total",
             "vtpu_watcher_fallback_total", "vtpu_blind_ticks_total",
-            "vtpu_oom_rejected_total")
+            "vtpu_oom_rejected_total", "vtpu_graph_launches_total",
+            "vtpu_captured_launches_total")
 SIGNED = ("vtpu_charged_ns_total", "vtpu_obs_overhead_ns")
+# what a graph tenant reports across its capture
+CAPTURE_COUNTERS = ("vtpu_launches_total", "vtpu_sampled_launches_total",
+                    "vtpu_charged_ns_total", "vtpu_captured_launches_total")
 
 
 def tenant_config(path: str, pod_uid: str, *, cap: int = 0,
@@ -428,9 +507,11 @@ def _wait_file(path: str | None, timeout_s: float = 300.0) -> None:
 def _worker(args) -> None:
     import torch
 
-    from vtpu_manager_torch.bench_steps import (quota_step_measure,
+    from vtpu_manager_torch.bench_steps import (graph_step_measure,
+                                                quota_step_measure,
                                                 step_device_times)
     at_start = {}
+    capture = {}
 
     def before_timed():
         until = time.monotonic() + args.warmup_s   # balance mode's climb
@@ -440,13 +521,37 @@ def _worker(args) -> None:
         _wait_file(args.go_file)
         at_start.update(_shim_counters(), t=time.monotonic())
 
-    ms = quota_step_measure(dim=args.dim, warmup=args.warmup,
-                            steps=args.steps, before_timed=before_timed)
+    if args.graph:
+        # eager at quota 100 (the pair's reference), a graph below it
+        devices = effective_limits().devices
+        replay = bool(devices) and 0 < devices[0].hard_core < 100
+        at_capture = {}
+
+        def around_capture(when: str) -> None:
+            # the interposer's counters across the capture alone
+            if when == "before":
+                at_capture.update(_shim_counters())
+            else:
+                now = _shim_counters()
+                capture.update({f"capture_{k}": now[k] - at_capture[k]
+                                for k in CAPTURE_COUNTERS if k in now})
+
+        ms = graph_step_measure(
+            dim=args.dim, warmup=args.warmup, steps=args.steps, graph=replay,
+            capture_mode=args.capture_mode, before_timed=before_timed,
+            around_capture=around_capture)
+    else:
+        ms = quota_step_measure(dim=args.dim, warmup=args.warmup,
+                                steps=args.steps, before_timed=before_timed)
     t_end = time.monotonic()
     out = {"ms_per_step": ms, "steps": args.warmup + args.steps,
            "timed_steps": args.steps, "t_start": at_start["t"],
            "t_end": t_end, "source": effective_limits().source,
-           **_shim_counters()}
+           "graph": bool(capture), **capture, **_shim_counters()}
+    if "vtpu_graph_launches_total" in at_start:
+        out["graph_launches_timed"] = (
+            out["vtpu_graph_launches_total"]
+            - at_start["vtpu_graph_launches_total"])
     if "vtpu_charged_ns_total" in at_start:
         out["charged_ns_per_step"] = (
             out["vtpu_charged_ns_total"]
@@ -461,6 +566,8 @@ def _worker(args) -> None:
             "vtpu_throttle_wait_ns_total", 0) - before)
     if args.kernel:
         out.update(kernel_launch_once())
+    if args.graph:
+        out.update(cooperative_launch_once())
     print("WORKER " + json.dumps(out), flush=True)
 
 
@@ -482,6 +589,112 @@ def kernel_launch_once() -> dict:
     return {"kernel_shim_launches_delta":
             _shim_counters()["vtpu_launches_total"] - before,
             "kernel_launches_delta": ba.LAUNCHES["attn_block"] - kernel_before}
+
+
+# an empty kernel, JIT-compiled by the driver: what a cooperative launch
+# needs (no torch or library call makes one)
+NOOP_PTX = b"""
+.version 7.8
+.target sm_90
+.address_size 64
+.visible .entry vtpu_noop()
+{
+    ret;
+}
+\0"""
+
+
+def _libcuda():
+    """libcuda.so.1 by ctypes: its symbols come through the interposer's
+    dlsym, as the CUDA runtime's do."""
+    return ctypes.CDLL("libcuda.so.1")
+
+
+def cooperative_launch_once() -> dict:
+    """One cuLaunchCooperativeKernel of an empty kernel on torch's current
+    stream: its driver result and how many launches the interposer
+    counted for it."""
+    import torch
+    torch.cuda.synchronize()
+    cu = _libcuda()
+    vp = ctypes.c_void_p
+    module, fn = vp(), vp()
+    rc = cu.cuModuleLoadData(ctypes.byref(module), NOOP_PTX)
+    if rc == 0:
+        rc = cu.cuModuleGetFunction(ctypes.byref(fn), module, b"vtpu_noop")
+    launch = cu.cuLaunchCooperativeKernel
+    launch.argtypes = [vp] + [ctypes.c_uint] * 7 + [vp, vp]
+    before = _shim_counters().get("vtpu_launches_total", 0)
+    if rc == 0:
+        rc = launch(fn, 1, 1, 1, 32, 1, 1, 0,
+                    vp(torch.cuda.current_stream().cuda_stream), None)
+    torch.cuda.synchronize()
+    return {"cooperative_rc": rc, "cooperative_shim_launches_delta":
+            _shim_counters().get("vtpu_launches_total", 0) - before}
+
+
+ENTRY_CHECKS = ("managed", "pitch", "pool")
+OOM_RC = 2                           # CUDA_ERROR_OUT_OF_MEMORY
+
+
+def _entry_alloc(cu, entry: str, nbytes: int, pool, stream):
+    """(driver result, pointer) of one allocation through `entry`."""
+    ptr = ctypes.c_uint64()
+    if entry == "managed":
+        rc = cu.cuMemAllocManaged(ctypes.byref(ptr), ctypes.c_size_t(nbytes),
+                                  ctypes.c_uint(1))   # CU_MEM_ATTACH_GLOBAL
+    elif entry == "pitch":
+        pitch = ctypes.c_size_t()
+        rc = cu.cuMemAllocPitch_v2(ctypes.byref(ptr), ctypes.byref(pitch),
+                                   ctypes.c_size_t(65536),
+                                   ctypes.c_size_t(nbytes // 65536),
+                                   ctypes.c_uint(4))
+    else:
+        rc = cu.cuMemAllocFromPoolAsync(ctypes.byref(ptr),
+                                        ctypes.c_size_t(nbytes), pool, stream)
+    return rc, ptr
+
+
+def _entry_free(cu, entry: str, ptr, stream) -> int:
+    if entry == "pool":
+        rc = cu.cuMemFreeAsync(ptr, stream)
+        return rc or cu.cuStreamSynchronize(stream)
+    return cu.cuMemFree_v2(ptr)
+
+
+def _entry_worker() -> None:
+    import torch
+    x = torch.ones((64, 64), device="cuda")
+    _ = float(x.sum())                  # context and allocator are up
+    cu = _libcuda()
+    pool = ctypes.c_void_p()
+    cu.cuDeviceGetDefaultMemPool(ctypes.byref(pool), 0)
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    out = {}
+    for entry in ENTRY_CHECKS:
+        over, big = _entry_alloc(cu, entry, 256 * 2**20, pool, stream)
+        if over == 0:
+            _entry_free(cu, entry, big, stream)
+        granted, ptr = _entry_alloc(cu, entry, 32 * 2**20, pool, stream)
+        free_at_hold = torch.cuda.mem_get_info()[0]
+        freed = _entry_free(cu, entry, ptr, stream) if granted == 0 else None
+        again, ptr = _entry_alloc(cu, entry, 32 * 2**20, pool, stream)
+        if again == 0:
+            _entry_free(cu, entry, ptr, stream)
+        out[entry] = {"over": over, "granted": granted, "freed": freed,
+                      "again": again, "free_while_held": free_at_hold}
+    free, total = torch.cuda.mem_get_info()
+    print("ENTRIES " + json.dumps({"entries": out, "free": free,
+                                   "total": total, **_shim_counters()}),
+          flush=True)
+
+
+def entry_check_ok(rec: dict | None) -> bool:
+    """Every entry: 256 MiB refused with CUDA_ERROR_OUT_OF_MEMORY, 32 MiB
+    granted, freed, and granted again; the view is the cap."""
+    return bool(rec) and rec["total"] == CAP_BYTES and all(
+        e["over"] == OOM_RC and e["granted"] == 0 and e["freed"] == 0
+        and e["again"] == 0 for e in rec["entries"].values())
 
 
 def _hold_worker(args) -> None:
@@ -545,6 +758,15 @@ def main(argv=None) -> None:
     ap.add_argument("--warmup", type=int, default=10)
     ap.add_argument("--steps", type=int, default=30)
     ap.add_argument("--kernel", action="store_true")
+    ap.add_argument("--graph", action="store_true",
+                    help="the quota step and one attention launch, replayed "
+                    "from a CUDA graph below quota 100")
+    ap.add_argument("--capture-mode", default="global",
+                    choices=("global", "thread_local", "relaxed"))
+    ap.add_argument("--entry-worker", action="store_true")
+    ap.add_argument("--graph-sweep", metavar="SHIM",
+                    help="run the graph sweep under this interposer and "
+                    "print GRAPH_SWEEP {json} (on the card)")
     ap.add_argument("--warmup-s", type=float, default=0.0)
     ap.add_argument("--go-file")
     ap.add_argument("--device-times", type=int, default=0,
@@ -561,6 +783,12 @@ def main(argv=None) -> None:
         _hold_worker(args)
     elif args.hbm_worker:
         _hbm_worker()
+    elif args.entry_worker:
+        _entry_worker()
+    elif args.graph_sweep:
+        sweep = graph_sweep(args.graph_sweep, args.capture_mode)
+        print("GRAPH_SWEEP " + json.dumps(
+            {**sweep, "verdicts": graph_sweep_ok(sweep, 15.0)}), flush=True)
     else:
         ap.error("bench_quota runs as a tenant worker; the sweep is driven "
                  "by chip_smoke.py")

@@ -77,6 +77,67 @@ def quota_step_measure(dim: int, warmup: int, steps: int,
     return 1000 * (time.perf_counter() - t0) / steps
 
 
+ATTN_SHAPE = (8, 16, 512, 128)   # the attention probe's shape
+
+
+def graph_step_measure(dim: int, warmup: int, steps: int, graph: bool,
+                       capture_mode: str = "global", before_timed=None,
+                       around_capture=None) -> float:
+    """The quota step and one block-attention kernel launch, each step
+    ending in the scalar readback. With `graph` the step is captured once
+    in a torch.cuda.CUDAGraph (after an eager warm-up on a side stream, as
+    capture needs; `capture_mode` is torch's capture_error_mode) and every
+    step is one replay; without, it runs eagerly.
+    `around_capture(when)` is called with "before" and "after" inside the
+    capture, around the captured step (it must make no CUDA call). Returns
+    ms/step over the timed section, which `before_timed()` is called just
+    before."""
+    from vtpu_manager_torch.workloads import block_attention as ba
+    dev = torch.device("cuda")
+    x = _quota_input(dim, dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    q, k, v = (torch.randn(ATTN_SHAPE, generator=gen, device=dev)
+               for _ in range(3))
+    bias = torch.zeros((ATTN_SHAPE[2], ATTN_SHAPE[2]), device=dev)
+
+    def step() -> torch.Tensor:
+        y, loss = _quota_step(x)
+        x.copy_(y)
+        ba.attention_block(q, k, v, bias)
+        return loss
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            step()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    run = step
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, capture_error_mode=capture_mode):
+            # inside the capture: torch's own launches before it begins
+            # (its RNG state's fills) run, and are no part of it
+            if around_capture is not None:
+                around_capture("before")
+            static_loss = step()
+            if around_capture is not None:
+                around_capture("after")
+
+        def run() -> torch.Tensor:
+            g.replay()
+            return static_loss
+    for _ in range(warmup):
+        _ = float(run())
+    if before_timed is not None:
+        before_timed()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        _ = float(run())
+    return 1000 * (time.perf_counter() - t0) / steps
+
+
 def step_device_share(dim: int, warmup: int, steps: int,
                       device: str | torch.device | None = None) -> dict:
     """How much of the unthrottled quota step the card spends busy: CUDA

@@ -1,7 +1,7 @@
 """The port's device plugin: the node agent that hands out slices of a card.
 
     python -m vtpu_manager_torch.cmd.device_plugin --node-name n1 \\
-        --fake-client [--fake-chips 2] [--feature-gates StepTelemetry=true]
+        [--fake-client] [--fake-chips 2] [--feature-gates StepTelemetry=true]
 
 The port of the JAX package's `cmd/device_plugin.py:108-290`, the parts
 ported so far: discovery (NVML, or `--fake-chips N` synthetic H100s), the
@@ -10,9 +10,14 @@ vtpu-number plugin served to kubelet and registered with it (again after
 a kubelet restart), the health watcher, and behind gates the memory ledger
 (VMemoryNode) and the node's utilization watcher fed by NVML (TCWatcher).
 
-Flags keep their JAX names. A flag of a part not ported yet is refused, as
-is running without `--fake-client` (the in-cluster API client is not
-ported). A run that is not root points `--base-dir`, `--vmem-path`,
+The API server is reached with the pod's service account
+(`client.kube.InClusterClient`: KUBERNETES_SERVICE_HOST and _PORT, the
+token and CA under `--service-account-dir`); `--fake-client` serves from
+an in-memory client instead. Without API access and without
+`--fake-client` the plugin exits 2.
+
+Flags keep their JAX names. A flag of a part not ported yet is refused. A
+run that is not root points `--base-dir`, `--vmem-path`,
 `--lock-dir`, `--watcher-dir`, `--driver-dir` and `--plugin-dir` at a
 directory of its own.
 """
@@ -24,6 +29,9 @@ import logging
 import os
 import signal
 import threading
+
+from vtpu_manager_torch.client.kube import (SERVICE_ACCOUNT_DIR,
+                                            in_cluster_client)
 
 # JAX flags of parts not ported yet: refused when given
 NOT_PORTED = {
@@ -69,6 +77,9 @@ def parse_args(argv: list[str] | None) -> argparse.Namespace:
     ap.add_argument("--fake-chips", type=int, default=0,
                     help="N synthetic H100s instead of NVML discovery")
     ap.add_argument("--fake-client", action="store_true")
+    ap.add_argument("--service-account-dir", default=SERVICE_ACCOUNT_DIR,
+                    help="the API token and CA (the API server is "
+                    "KUBERNETES_SERVICE_HOST:KUBERNETES_SERVICE_PORT)")
     ap.add_argument("--mesh-domain", default="")
     for flag in NOT_PORTED:
         ap.add_argument(flag, default=None)
@@ -105,14 +116,17 @@ def main(argv: list[str] | None = None) -> int:
     if not args.node_name:
         log.error("--node-name or NODE_NAME required")
         return 2
-    if not args.fake_client:
-        log.error("the in-cluster API client is not ported yet; run with "
-                  "--fake-client")
-        return 2
-    from vtpu_manager_torch.client.fake import FakeKubeClient
-    client = FakeKubeClient(upsert_on_patch=True)
-    client.add_node({"metadata": {"name": args.node_name,
-                                  "annotations": {}}})
+    if args.fake_client:
+        from vtpu_manager_torch.client.fake import FakeKubeClient
+        client = FakeKubeClient(upsert_on_patch=True)
+        client.add_node({"metadata": {"name": args.node_name,
+                                      "annotations": {}}})
+    else:
+        client = in_cluster_client(args.service_account_dir)
+        if client is None:
+            log.error("no in-cluster API access; run in a pod with a "
+                      "service account, or with --fake-client")
+            return 2
 
     node_config = load_node_config(args.node_config, args.node_name)
     backends = ([discovery.FakeBackend(n_chips=args.fake_chips)]

@@ -2,7 +2,8 @@
 DynamicResourceAllocation, in place of the device plugin.
 
     python -m vtpu_manager_torch.cmd.kubelet_plugin --node-name n1 \\
-        [--fake-chips 2] [--node-config node.json]
+        [--fake-chips 2] [--node-config node.json] \\
+        [--nri-socket /var/run/nri/nri.sock | --feature-gates NRISupport=true]
 
 The port of the JAX package's `cmd/kubelet_plugin.py:20-243`: discovery
 (NVML, or `--fake-chips N` synthetic H100s), the node config, the DRA
@@ -11,14 +12,22 @@ kubelet's plugins_registry, the node's ResourceSlice, the health watcher
 that publishes it again when a card flips, and /healthz and /readyz on
 `--health-port`.
 
-The in-cluster API client is not ported: the plugin serves with no
-client, as the JAX command does without API access, so claims cannot be
-fetched (each comes back "not found") and the slice is not published.
-Flags and gates of parts not ported (the NRI runtime hook, tracing, the
-device-id store) are refused. A run that is not root points
-`--plugin-dir`, `--registry-dir`, `--base-dir`, `--cdi-dir`,
-`--vmem-path`, `--lock-dir`, `--watcher-dir` and `--driver-dir` at a
-directory of its own.
+The API server is reached with the pod's service account
+(`client.kube.InClusterClient`: KUBERNETES_SERVICE_HOST and _PORT, the
+token and CA under `--service-account-dir`). Through it the plugin
+publishes its ResourceSlice (PUT, then POST the first time) and fetches
+each claim it prepares. Without API access it serves all the same, as the
+JAX command does: every claim is then "not found" and no slice is
+published. With `--nri-socket` (or the NRISupport gate, which names the
+runtime's default socket) the plugin also registers the NRI runtime hook,
+which refuses a container that names a claim its pod does not own; when
+the socket cannot be reached it goes on without the hook, and /readyz
+says so.
+
+Flags and gates of parts not ported (tracing, the device-id store) are
+refused. A run that is not root points `--plugin-dir`, `--registry-dir`,
+`--base-dir`, `--cdi-dir`, `--vmem-path`, `--lock-dir`, `--watcher-dir`
+and `--driver-dir` at a directory of its own.
 """
 
 from __future__ import annotations
@@ -29,17 +38,18 @@ import os
 import signal
 import threading
 
+from vtpu_manager_torch.client.kube import (SERVICE_ACCOUNT_DIR,
+                                            in_cluster_client)
+
 # JAX flags of parts not ported yet: refused when given
 NOT_PORTED = {
-    "--nri-socket": "the NRI runtime hook",
     "--trace-sampling-rate": "tracing",
     "--trace-spool-dir": "tracing",
     # a GPU's id is its NVML UUID; a store's synthetic ids would reach
     # NVIDIA_VISIBLE_DEVICES, which the container runtime cannot resolve
     "--id-store": "the device-id store (a GPU needs none)",
 }
-NOT_PORTED_GATES = {"NRISupport": "the NRI runtime hook",
-                    "Tracing": "tracing"}
+NOT_PORTED_GATES = {"Tracing": "tracing"}
 
 
 def parse_args(argv: list[str] | None) -> argparse.Namespace:
@@ -76,6 +86,12 @@ def parse_args(argv: list[str] | None) -> argparse.Namespace:
     ap.add_argument("--real-libcuda-path", default="libcuda.so.1",
                     help="the card's driver library as the container sees "
                     "it")
+    ap.add_argument("--service-account-dir", default=SERVICE_ACCOUNT_DIR,
+                    help="the API token and CA (the API server is "
+                    "KUBERNETES_SERVICE_HOST:KUBERNETES_SERVICE_PORT)")
+    ap.add_argument("--nri-socket", default=None,
+                    help="the runtime's NRI socket: register the runtime "
+                    "hook there")
     for flag in NOT_PORTED:
         ap.add_argument(flag, default=None)
     ap.add_argument("-v", "--verbose", action="count", default=0)
@@ -108,8 +124,8 @@ def main(argv: list[str] | None = None) -> int:
                                                          device_node_probe)
     from vtpu_manager_torch.kubeletplugin.readiness import (Readiness,
                                                             ReadinessServer)
-    from vtpu_manager_torch.kubeletplugin.registration import \
-        RegistrationServer
+    from vtpu_manager_torch.kubeletplugin.registration import (
+        RegistrationServer, publish_resource_slice)
     from vtpu_manager_torch.manager.device_manager import make_external_probe
     from vtpu_manager_torch.tpu import discovery
     from vtpu_manager_torch.util import featuregates as fg
@@ -142,10 +158,11 @@ def main(argv: list[str] | None = None) -> int:
                         vmem_dir=os.path.dirname(args.vmem_path),
                         watcher_dir=args.watcher_dir,
                         real_libcuda_path=args.real_libcuda_path)
-    log.warning("no API server access (the in-cluster client is not "
-                "ported); claims cannot be fetched, the slice is not "
-                "published")
-    driver = DraDriver(args.node_name, ClaimSource(None), state,
+    client = in_cluster_client(args.service_account_dir)
+    if client is None:
+        log.warning("claims cannot be fetched and the slice is not "
+                    "published")
+    driver = DraDriver(args.node_name, ClaimSource(client), state,
                        plugin_dir=args.plugin_dir)
     driver.serve()
 
@@ -170,6 +187,27 @@ def main(argv: list[str] | None = None) -> int:
         readiness.set("registration", False, f"registration socket: {e}")
         registration = None
 
+    nri_session = None
+    if args.nri_socket or gates.enabled(fg.NRI_SUPPORT):
+        from vtpu_manager_torch.kubeletplugin.nri import RuntimeHook
+        from vtpu_manager_torch.kubeletplugin.nri_transport import (
+            DEFAULT_SOCKET, NriPlugin)
+        from vtpu_manager_torch.util.ttrpc import TtrpcError
+        nri_socket = args.nri_socket or DEFAULT_SOCKET
+        try:
+            nri_session = NriPlugin(
+                RuntimeHook(state),
+                claim_uids_for_pod=driver.claim_uids_for_pod,
+            ).run(nri_socket)
+            log.info("NRI runtime hook registered on %s", nri_socket)
+            readiness.set("nri", True)
+        except (OSError, TtrpcError) as e:
+            # the CDI spec still wires tenants; the hook's check is what is
+            # missing, and /readyz says so
+            log.warning("NRI socket unavailable (%s); going on without the "
+                        "runtime hook", e)
+            readiness.set("nri", False, f"requested but not attached: {e}")
+
     def slice_built(updated) -> None:
         rs = build_resource_slice(args.node_name, updated)
         log.info("ResourceSlice: %d devices (%d healthy), %d shared counter "
@@ -177,6 +215,9 @@ def main(argv: list[str] | None = None) -> int:
                  sum(d["basic"]["attributes"]["healthy"]["bool"]
                      for d in rs["spec"]["devices"]),
                  len(rs["spec"]["sharedCounters"]))
+        if client is not None:
+            log.info("ResourceSlice published: %s",
+                     publish_resource_slice(client, rs))
 
     slice_built(chips)
 
@@ -196,6 +237,8 @@ def main(argv: list[str] | None = None) -> int:
     stop.wait()
     log.info("stopping")
     health.stop()
+    if nri_session is not None:
+        nri_session.close()
     driver.stop()
     if registration is not None:
         registration.stop()

@@ -6,8 +6,18 @@
 // FindOrClaimOwnEntryLocked:551, RecordOwnBytes:573), ReserveMemory:792,
 // UnreserveMemory:850 and WrappedMemoryStats:1249.
 //
-// Every allocation the driver hands out is recorded by pointer (or by
-// handle for cuMemCreate) with its size. An allocation is admitted under
+// Every allocating entry of the driver API is capped, as the reference
+// wraps every allocating entry of its API (enforce.cc:965-989): linear
+// memory (cuMemAlloc_v2, cuMemAllocPitch_v2, cuMemAllocManaged, the
+// stream-ordered cuMemAllocAsync and cuMemAllocFromPoolAsync), physical
+// memory (cuMemCreate) and arrays (cuArrayCreate_v2, cuArray3DCreate_v2,
+// cuMipmappedArrayCreate; their bytes from the descriptor, summed over a
+// mipmap's levels). Every allocation the driver hands out is recorded by
+// pointer (by handle for cuMemCreate and arrays) with its size, and its
+// free (cuMemFree_v2, cuMemFreeAsync, cuMemRelease, cuArrayDestroy,
+// cuMipmappedArrayDestroy) returns the credit. A pitched allocation is
+// reserved at its width rounded to 512 bytes before the call and settled
+// to pitch x height after it. An allocation is admitted under
 // two checks, made together with the charge under the node-wide per-device
 // flock (VTPU_LOCK_DIR/vtpu_<host>.lock), so two processes allocating at
 // once cannot both pass:
@@ -58,6 +68,7 @@ std::mutex g_mu;
 int64_t g_used[kMaxDevices] = {};
 std::unordered_map<CUdeviceptr, Allocation> g_by_ptr;
 std::unordered_map<CUmemGenericAllocationHandle, Allocation> g_by_handle;
+std::unordered_map<uintptr_t, Allocation> g_by_array;  // arrays, mipmaps
 std::atomic<uint64_t> g_oom_rejected{0};
 
 int64_t Used(int slot) {
@@ -134,6 +145,7 @@ void ResetInChild() {
   for (auto& u : g_used) u = 0;
   g_by_ptr.clear();
   g_by_handle.clear();
+  g_by_array.clear();
 }
 
 // The Python ledger's FileLock protocol: flock on <ledger>.lock.
@@ -435,6 +447,57 @@ CUresult AllocateCapped(CUdeviceptr* dptr, size_t bytes, Alloc alloc) {
   return rc;
 }
 
+// An array's bytes: width x height x depth x channels x the format's size
+// (a zero height or depth is a lower dimension). Formats the subset does
+// not name count 4 bytes a channel.
+int64_t ArrayBytes(size_t width, size_t height, size_t depth, int format,
+                   unsigned channels) {
+  int64_t elem;
+  switch (format) {
+    case CU_AD_FORMAT_UNSIGNED_INT8:
+    case CU_AD_FORMAT_SIGNED_INT8:
+      elem = 1;
+      break;
+    case CU_AD_FORMAT_UNSIGNED_INT16:
+    case CU_AD_FORMAT_SIGNED_INT16:
+    case CU_AD_FORMAT_HALF:
+      elem = 2;
+      break;
+    default:
+      elem = 4;
+  }
+  return (int64_t)width * (int64_t)(height ? height : 1) *
+         (int64_t)(depth ? depth : 1) * (int64_t)channels * elem;
+}
+
+// Reserves `bytes`, creates the array, records it by handle.
+template <typename Create>
+CUresult CreateArrayCapped(uintptr_t* handle, int64_t bytes, Create create) {
+  int slot = CurrentSlot();
+  CUresult rc = ReserveMemory(slot, bytes);
+  if (rc != CUDA_SUCCESS) return rc;
+  rc = create();
+  if (rc != CUDA_SUCCESS || !handle) {
+    UnreserveMemory(slot, bytes);
+    return rc;
+  }
+  std::lock_guard<std::mutex> lock(g_mu);
+  g_by_array[*handle] = Allocation{slot, bytes};
+  return rc;
+}
+
+void ForgetArray(uintptr_t handle) {
+  Allocation a{0, 0};
+  {
+    std::lock_guard<std::mutex> lock(g_mu);
+    auto it = g_by_array.find(handle);
+    if (it == g_by_array.end()) return;
+    a = it->second;
+    g_by_array.erase(it);
+  }
+  UnreserveMemory(a.slot, a.bytes);
+}
+
 }  // namespace
 
 VTPU_EXPORT CUresult cuMemAlloc_v2(CUdeviceptr* dptr, size_t bytes) {
@@ -457,6 +520,116 @@ VTPU_EXPORT CUresult cuMemAllocAsync_ptsz(CUdeviceptr* dptr, size_t bytes,
   if (!real) return CUDA_ERROR_NOT_INITIALIZED;
   return AllocateCapped(dptr, bytes,
                         [&] { return real(dptr, bytes, stream); });
+}
+
+VTPU_EXPORT CUresult cuMemAllocPitch_v2(CUdeviceptr* dptr, size_t* pitch,
+                                        size_t width_bytes, size_t height,
+                                        unsigned element_bytes) {
+  auto real = VTPU_REAL(cuMemAllocPitch_v2);
+  if (!real) return CUDA_ERROR_NOT_INITIALIZED;
+  int slot = CurrentSlot();
+  int64_t reserved = (int64_t)((width_bytes + 511) / 512 * 512 * height);
+  CUresult rc = ReserveMemory(slot, reserved);
+  if (rc != CUDA_SUCCESS) return rc;
+  rc = real(dptr, pitch, width_bytes, height, element_bytes);
+  if (rc != CUDA_SUCCESS || !dptr || !pitch) {
+    UnreserveMemory(slot, reserved);
+    return rc;
+  }
+  // settle to what the driver laid out
+  int64_t actual = (int64_t)(*pitch * height);
+  if (actual > reserved &&
+      ReserveMemory(slot, actual - reserved) != CUDA_SUCCESS) {
+    VTPU_REAL(cuMemFree_v2)(*dptr);
+    UnreserveMemory(slot, reserved);
+    return CUDA_ERROR_OUT_OF_MEMORY;
+  }
+  if (actual < reserved) UnreserveMemory(slot, reserved - actual);
+  Record(*dptr, slot, actual);
+  return rc;
+}
+
+VTPU_EXPORT CUresult cuMemAllocManaged(CUdeviceptr* dptr, size_t bytes,
+                                       unsigned flags) {
+  auto real = VTPU_REAL(cuMemAllocManaged);
+  if (!real) return CUDA_ERROR_NOT_INITIALIZED;
+  return AllocateCapped(dptr, bytes, [&] { return real(dptr, bytes, flags); });
+}
+
+VTPU_EXPORT CUresult cuMemAllocFromPoolAsync(CUdeviceptr* dptr, size_t bytes,
+                                             CUmemoryPool pool,
+                                             CUstream stream) {
+  auto real = VTPU_REAL(cuMemAllocFromPoolAsync);
+  if (!real) return CUDA_ERROR_NOT_INITIALIZED;
+  return AllocateCapped(dptr, bytes,
+                        [&] { return real(dptr, bytes, pool, stream); });
+}
+
+VTPU_EXPORT CUresult cuMemAllocFromPoolAsync_ptsz(CUdeviceptr* dptr,
+                                                  size_t bytes,
+                                                  CUmemoryPool pool,
+                                                  CUstream stream) {
+  auto real = VTPU_REAL(cuMemAllocFromPoolAsync_ptsz);
+  if (!real) return CUDA_ERROR_NOT_INITIALIZED;
+  return AllocateCapped(dptr, bytes,
+                        [&] { return real(dptr, bytes, pool, stream); });
+}
+
+VTPU_EXPORT CUresult cuArrayCreate_v2(CUarray* array,
+                                      const CUDA_ARRAY_DESCRIPTOR* desc) {
+  auto real = VTPU_REAL(cuArrayCreate_v2);
+  if (!real) return CUDA_ERROR_NOT_INITIALIZED;
+  if (!desc) return real(array, desc);
+  return CreateArrayCapped(
+      reinterpret_cast<uintptr_t*>(array),
+      ArrayBytes(desc->Width, desc->Height, 0, desc->Format,
+                 desc->NumChannels),
+      [&] { return real(array, desc); });
+}
+
+VTPU_EXPORT CUresult cuArray3DCreate_v2(CUarray* array,
+                                        const CUDA_ARRAY3D_DESCRIPTOR* desc) {
+  auto real = VTPU_REAL(cuArray3DCreate_v2);
+  if (!real) return CUDA_ERROR_NOT_INITIALIZED;
+  if (!desc) return real(array, desc);
+  return CreateArrayCapped(
+      reinterpret_cast<uintptr_t*>(array),
+      ArrayBytes(desc->Width, desc->Height, desc->Depth, desc->Format,
+                 desc->NumChannels),
+      [&] { return real(array, desc); });
+}
+
+VTPU_EXPORT CUresult cuMipmappedArrayCreate(
+    CUmipmappedArray* array, const CUDA_ARRAY3D_DESCRIPTOR* desc,
+    unsigned levels) {
+  auto real = VTPU_REAL(cuMipmappedArrayCreate);
+  if (!real) return CUDA_ERROR_NOT_INITIALIZED;
+  if (!desc) return real(array, desc, levels);
+  // each level halves every dimension the array has, down to 1
+  int64_t bytes = 0;
+  for (unsigned l = 0; l < levels && l < 64; l++) {
+    auto at = [l](size_t n) { return n ? std::max<size_t>(1, n >> l) : 0; };
+    bytes += ArrayBytes(at(desc->Width), at(desc->Height), at(desc->Depth),
+                        desc->Format, desc->NumChannels);
+  }
+  return CreateArrayCapped(reinterpret_cast<uintptr_t*>(array), bytes,
+                           [&] { return real(array, desc, levels); });
+}
+
+VTPU_EXPORT CUresult cuArrayDestroy(CUarray array) {
+  auto real = VTPU_REAL(cuArrayDestroy);
+  if (!real) return CUDA_ERROR_NOT_INITIALIZED;
+  CUresult rc = real(array);
+  if (rc == CUDA_SUCCESS) ForgetArray(reinterpret_cast<uintptr_t>(array));
+  return rc;
+}
+
+VTPU_EXPORT CUresult cuMipmappedArrayDestroy(CUmipmappedArray array) {
+  auto real = VTPU_REAL(cuMipmappedArrayDestroy);
+  if (!real) return CUDA_ERROR_NOT_INITIALIZED;
+  CUresult rc = real(array);
+  if (rc == CUDA_SUCCESS) ForgetArray(reinterpret_cast<uintptr_t>(array));
+  return rc;
 }
 
 VTPU_EXPORT CUresult cuMemFree_v2(CUdeviceptr dptr) {

@@ -8,9 +8,29 @@
 // its kernel's cost up front, and a launch that finds the bucket in debt
 // waits until the refill, at the tenant's rate, has paid the debt.
 //
+// What is metered. A PJRT tenant runs work one way (WrappedExecute,
+// enforce.cc:3045); a CUDA tenant has three, and each goes through the
+// bucket: kernel launches (cuLaunchKernel*, keyed by CUfunction),
+// cooperative launches (the same, a multi-device list charged entry by
+// entry to each stream's device) and CUDA-graph replays (cuGraphLaunch,
+// keyed by CUgraphExec: one replay is one charge for the whole graph).
+//
+// Capture. A launch into a stream that is being captured runs nothing; it
+// becomes a node of a graph that runs, and is charged, when replayed. So
+// the stream's capture status is asked first, and a capturing stream's
+// launch is neither charged nor sampled, and nothing else is done on its
+// behalf: recording an event on, or querying, a capturing stream
+// invalidates the capture, and in the global capture mode so do the sample
+// drain's event queries and any use of the legacy stream (which
+// cuStreamIsCapturing then reports as an error, taken as capturing). A
+// launch from another thread into another stream during a global-mode
+// capture still drains samples; the interposer does not track captures
+// across threads.
+//
 // Cost. A TPU program is one executable with a measured duration; a GPU
-// step is many kernels. Each CUfunction keeps an exponential moving average
-// of its duration (alpha 0.3, as enforce.cc:66). A sample of launches is
+// step is many kernels. Each CUfunction (and each CUgraphExec) keeps an
+// exponential moving average of its duration (alpha 0.3, as
+// enforce.cc:66). A sample of launches is
 // bracketed by two cuEventRecord calls on the launch's stream, and the pair
 // is read back later with a non-blocking cuEventQuery, in the launching
 // thread, so a launch never waits on the device. A measured sample also
@@ -148,6 +168,8 @@ struct ControllerState {
 DeviceBucket g_bucket[kMaxDevices];
 ControllerState g_ctl[kMaxDevices];
 std::atomic<uint64_t> g_launches{0};
+std::atomic<uint64_t> g_graph_launches{0};
+std::atomic<uint64_t> g_captured{0};
 std::atomic<uint64_t> g_sampled{0};
 std::atomic<uint64_t> g_probes{0};
 std::atomic<uint64_t> g_gap_bypass{0};
@@ -165,9 +187,12 @@ struct FnCost {
   bool inflight = false;
 };
 
-// A sampled launch, or an observation probe (fn == nullptr).
+// What a cost is kept for: a CUfunction or a CUgraphExec.
+using CostKey = const void*;
+
+// A sampled launch, or an observation probe (key == nullptr).
 struct Sample {
-  CUfunction fn = nullptr;
+  CostKey key = nullptr;
   CUevent start = nullptr;
   CUevent end = nullptr;
   int slot = 0;
@@ -176,7 +201,7 @@ struct Sample {
 };
 
 std::mutex g_cost_mu;
-std::unordered_map<CUfunction, FnCost> g_costs;
+std::unordered_map<CostKey, FnCost> g_costs;
 std::vector<Sample> g_pending;
 std::vector<CUevent> g_event_pool;
 void* g_probe_word[kMaxDevices] = {};
@@ -590,10 +615,10 @@ void DrainLocked() {
     bool ok = rc == CUDA_SUCCESS &&
               elapsed(&ms, s.start, s.end) == CUDA_SUCCESS;
     int64_t dur = (int64_t)(ms * 1e6);
-    if (!s.fn) {
+    if (!s.key) {
       if (ok) AdoptProbe(s.slot, dur);
     } else {
-      FnCost& c = g_costs[s.fn];
+      FnCost& c = g_costs[s.key];
       c.inflight = false;
       if (ok) {
         DeviceBucket& b = g_bucket[s.slot];
@@ -658,13 +683,30 @@ struct Ticket {
   CUstream stream = nullptr;
 };
 
-// Charges the launch to its device's bucket (waiting out any debt) and,
-// for a sampled launch, records the start event; a launch on an idle
-// stream may carry the observation probe instead.
-void BeforeLaunch(CUfunction fn, CUstream stream, Ticket* t) {
+// Whether a launch into `stream` is captured rather than run: the stream
+// is capturing, or the driver refuses to say (the legacy stream while
+// another stream captures in the global mode).
+bool Capturing(CUstream stream) {
+  auto capturing = VTPU_REAL_AS(PFN_cuStreamIsCapturing, "cuStreamIsCapturing");
+  if (!capturing) return false;
+  CUstreamCaptureStatus status = CU_STREAM_CAPTURE_STATUS_NONE;
+  return capturing(stream, &status) != CUDA_SUCCESS ||
+         status != CU_STREAM_CAPTURE_STATUS_NONE;
+}
+
+// Charges the launch to the bucket of `slot` (the current device when -1),
+// waiting out any debt, and, for a sampled launch, records the start
+// event; a launch on an idle stream may carry the observation probe
+// instead. A captured launch is counted and nothing more.
+void BeforeLaunch(CostKey key, CUstream stream, int slot, bool may_sample,
+                  Ticket* t) {
   g_launches.fetch_add(1, std::memory_order_relaxed);
-  int slot = CurrentSlot();
+  if (slot < 0) slot = CurrentSlot();
   if (!IsMetered(Dev(slot))) return;
+  if (Capturing(stream)) {
+    g_captured.fetch_add(1, std::memory_order_relaxed);
+    return;
+  }
   StartWatcherOnce();
   DeviceBucket& b = g_bucket[slot];
   uint64_t now = NowNs();
@@ -673,16 +715,16 @@ void BeforeLaunch(CUfunction fn, CUstream stream, Ticket* t) {
   {
     std::lock_guard<std::mutex> lock(g_cost_mu);
     DrainLocked();
-    FnCost& c = g_costs[fn];
+    FnCost& c = g_costs[key];
     cost = c.ema_ns > 0 ? c.ema_ns : kDefaultCostNs;
     if (b.blind.load(std::memory_order_relaxed))
       cost = std::max(cost, b.blind_cost_ns.load(std::memory_order_relaxed));
     c.launches++;
-    sample = !c.inflight && g_pending.size() < kMaxPending &&
+    sample = may_sample && !c.inflight && g_pending.size() < kMaxPending &&
              (c.launches <= kAlwaysSampleFirst || c.launches % kSampleEvery == 0);
     if (sample) c.inflight = true;
     uint64_t since = now - b.last_probe_ns.load(std::memory_order_relaxed);
-    probe = !g_probe_off[slot] && ObsOverrideNs() < 0 &&
+    probe = may_sample && !g_probe_off[slot] && ObsOverrideNs() < 0 &&
             since >= (b.obs_samples.load(std::memory_order_relaxed) <
                               kProbeConverged
                           ? kProbeFastNs
@@ -691,13 +733,9 @@ void BeforeLaunch(CUfunction fn, CUstream stream, Ticket* t) {
   RateLimit(slot, cost);
   BumpActivity(slot);
   if (!sample && !probe) return;
-  auto capturing = VTPU_REAL_AS(PFN_cuStreamIsCapturing, "cuStreamIsCapturing");
   auto record = VTPU_REAL_AS(PFN_cuEventRecord, "cuEventRecord");
   auto query = VTPU_REAL_AS(PFN_cuStreamQuery, "cuStreamQuery");
-  CUstreamCaptureStatus status = CU_STREAM_CAPTURE_STATUS_NONE;
-  bool ok = record && query &&
-            (!capturing || (capturing(stream, &status) == CUDA_SUCCESS &&
-                            status == CU_STREAM_CAPTURE_STATUS_NONE));
+  bool ok = record && query;
   // idle: nothing of this tenant pending on the stream
   bool idle = ok && query(stream) == CUDA_SUCCESS;
   std::lock_guard<std::mutex> lock(g_cost_mu);
@@ -708,7 +746,7 @@ void BeforeLaunch(CUfunction fn, CUstream stream, Ticket* t) {
   }
   if (!sample) return;
   Sample s;
-  s.fn = fn;
+  s.key = key;
   s.slot = slot;
   s.charged_ns = cost;
   s.isolated = idle;
@@ -719,7 +757,7 @@ void BeforeLaunch(CUfunction fn, CUstream stream, Ticket* t) {
   }
   if (!ok) {
     GiveEvents(s);
-    g_costs[fn].inflight = false;
+    g_costs[key].inflight = false;
     return;
   }
   t->sampled = true;
@@ -737,17 +775,17 @@ void AfterLaunch(CUresult rc, Ticket* t) {
     return;
   }
   GiveEvents(t->sample);
-  g_costs[t->sample.fn].inflight = false;
+  g_costs[t->sample.key].inflight = false;
 }
 
 template <typename Launch>
-CUresult Metered(CUfunction fn, CUstream stream, bool ptsz, Launch launch) {
+CUresult Metered(CostKey key, CUstream stream, bool ptsz, Launch launch) {
   // A null stream in a _ptsz launch is the per-thread default stream, and
   // the events must go on that stream too.
   CUstream ev_stream = (ptsz && stream == nullptr) ? CU_STREAM_PER_THREAD
                                                    : stream;
   Ticket t;
-  BeforeLaunch(fn, ev_stream, &t);
+  BeforeLaunch(key, ev_stream, -1, /*may_sample=*/true, &t);
   CUresult rc = launch();
   AfterLaunch(rc, &t);
   return rc;
@@ -804,9 +842,86 @@ VTPU_EXPORT CUresult cuLaunchKernelEx_ptsz(const CUlaunchConfig* config,
                  [&] { return real(config, f, params, extra); });
 }
 
-// Counters a tenant reads over ctypes.
+VTPU_EXPORT CUresult cuLaunchCooperativeKernel(CUfunction f, unsigned gx,
+                                               unsigned gy, unsigned gz,
+                                               unsigned bx, unsigned by,
+                                               unsigned bz, unsigned smem,
+                                               CUstream stream,
+                                               void** params) {
+  auto real = VTPU_REAL(cuLaunchCooperativeKernel);
+  if (!real) return CUDA_ERROR_NOT_INITIALIZED;
+  return Metered(f, stream, false, [&] {
+    return real(f, gx, gy, gz, bx, by, bz, smem, stream, params);
+  });
+}
+
+VTPU_EXPORT CUresult cuLaunchCooperativeKernel_ptsz(
+    CUfunction f, unsigned gx, unsigned gy, unsigned gz, unsigned bx,
+    unsigned by, unsigned bz, unsigned smem, CUstream stream,
+    void** params) {
+  auto real = VTPU_REAL(cuLaunchCooperativeKernel_ptsz);
+  if (!real) return CUDA_ERROR_NOT_INITIALIZED;
+  return Metered(f, stream, true, [&] {
+    return real(f, gx, gy, gz, bx, by, bz, smem, stream, params);
+  });
+}
+
+// Each entry is charged to its stream's device. Entries are not sampled:
+// the interposer's events belong to the calling thread's context, and an
+// entry's stream may lie in another one.
+VTPU_EXPORT CUresult cuLaunchCooperativeKernelMultiDevice(
+    CUDA_LAUNCH_PARAMS* list, unsigned num_devices, unsigned flags) {
+  auto real = VTPU_REAL(cuLaunchCooperativeKernelMultiDevice);
+  if (!real) return CUDA_ERROR_NOT_INITIALIZED;
+  auto stream_ctx = VTPU_REAL_AS(PFN_cuStreamGetCtx, "cuStreamGetCtx");
+  auto push = VTPU_REAL_AS(PFN_cuCtxPushCurrent, "cuCtxPushCurrent_v2");
+  auto pop = VTPU_REAL_AS(PFN_cuCtxPopCurrent, "cuCtxPopCurrent_v2");
+  auto get_device = VTPU_REAL_AS(PFN_cuCtxGetDevice, "cuCtxGetDevice");
+  for (unsigned i = 0; list && i < num_devices; i++) {
+    int slot = -1;
+    CUcontext ctx = nullptr;
+    CUdevice dev = 0;
+    if (stream_ctx && push && pop && get_device &&
+        stream_ctx(list[i].hStream, &ctx) == CUDA_SUCCESS &&
+        push(ctx) == CUDA_SUCCESS) {
+      if (get_device(&dev) == CUDA_SUCCESS && dev >= 0 && dev < kMaxDevices)
+        slot = dev;
+      pop(&ctx);
+    }
+    Ticket t;
+    BeforeLaunch(list[i].function, list[i].hStream, slot,
+                 /*may_sample=*/false, &t);
+  }
+  return real(list, num_devices, flags);
+}
+
+VTPU_EXPORT CUresult cuGraphLaunch(CUgraphExec exec, CUstream stream) {
+  auto real = VTPU_REAL(cuGraphLaunch);
+  if (!real) return CUDA_ERROR_NOT_INITIALIZED;
+  g_graph_launches.fetch_add(1, std::memory_order_relaxed);
+  return Metered(exec, stream, false, [&] { return real(exec, stream); });
+}
+
+VTPU_EXPORT CUresult cuGraphLaunch_ptsz(CUgraphExec exec, CUstream stream) {
+  auto real = VTPU_REAL(cuGraphLaunch_ptsz);
+  if (!real) return CUDA_ERROR_NOT_INITIALIZED;
+  g_graph_launches.fetch_add(1, std::memory_order_relaxed);
+  return Metered(exec, stream, true, [&] { return real(exec, stream); });
+}
+
+// Counters a tenant reads over ctypes. Every launch the hooks saw, graph
+// replays and captured launches included.
 VTPU_EXPORT uint64_t vtpu_launches_total() {
   return g_launches.load(std::memory_order_relaxed);
+}
+
+VTPU_EXPORT uint64_t vtpu_graph_launches_total() {
+  return g_graph_launches.load(std::memory_order_relaxed);
+}
+
+// Launches of a metered tenant into a capturing stream: not charged.
+VTPU_EXPORT uint64_t vtpu_captured_launches_total() {
+  return g_captured.load(std::memory_order_relaxed);
 }
 
 VTPU_EXPORT uint64_t vtpu_sampled_launches_total() {

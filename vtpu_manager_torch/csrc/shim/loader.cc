@@ -200,7 +200,24 @@ Route g_routes[] = {
     {"cuLaunchKernel_ptsz", (void*)&cuLaunchKernel_ptsz, nullptr},
     {"cuLaunchKernelEx", (void*)&cuLaunchKernelEx, nullptr},
     {"cuLaunchKernelEx_ptsz", (void*)&cuLaunchKernelEx_ptsz, nullptr},
+    {"cuLaunchCooperativeKernel", (void*)&cuLaunchCooperativeKernel, nullptr},
+    {"cuLaunchCooperativeKernel_ptsz", (void*)&cuLaunchCooperativeKernel_ptsz,
+     nullptr},
+    {"cuLaunchCooperativeKernelMultiDevice",
+     (void*)&cuLaunchCooperativeKernelMultiDevice, nullptr},
+    {"cuGraphLaunch", (void*)&cuGraphLaunch, nullptr},
+    {"cuGraphLaunch_ptsz", (void*)&cuGraphLaunch_ptsz, nullptr},
     {"cuMemAlloc_v2", (void*)&cuMemAlloc_v2, nullptr},
+    {"cuMemAllocPitch_v2", (void*)&cuMemAllocPitch_v2, nullptr},
+    {"cuMemAllocManaged", (void*)&cuMemAllocManaged, nullptr},
+    {"cuMemAllocFromPoolAsync", (void*)&cuMemAllocFromPoolAsync, nullptr},
+    {"cuMemAllocFromPoolAsync_ptsz", (void*)&cuMemAllocFromPoolAsync_ptsz,
+     nullptr},
+    {"cuArrayCreate_v2", (void*)&cuArrayCreate_v2, nullptr},
+    {"cuArray3DCreate_v2", (void*)&cuArray3DCreate_v2, nullptr},
+    {"cuMipmappedArrayCreate", (void*)&cuMipmappedArrayCreate, nullptr},
+    {"cuArrayDestroy", (void*)&cuArrayDestroy, nullptr},
+    {"cuMipmappedArrayDestroy", (void*)&cuMipmappedArrayDestroy, nullptr},
     {"cuMemAllocAsync", (void*)&cuMemAllocAsync, nullptr},
     {"cuMemAllocAsync_ptsz", (void*)&cuMemAllocAsync_ptsz, nullptr},
     {"cuMemFree_v2", (void*)&cuMemFree_v2, nullptr},

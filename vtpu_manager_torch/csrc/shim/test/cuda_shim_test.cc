@@ -10,7 +10,20 @@
 //   --caps           cap verdicts under, at and over VTPU_MEM_LIMIT_0, the
 //                    credit a free returns, and the capped memory view
 //   --throttle-only  SHIM_TEST_ITERS launch+synchronize steps; prints wall=
-//                    and the interposer's counters (COUNTERS name=value ...)
+//                    and the interposer's counters (COUNTERS name=value ...).
+//                    SHIM_TEST_LAUNCH picks the path: kernel (cuLaunchKernel,
+//                    the default), graph (one captured kernel, replayed by
+//                    cuGraphLaunch) or coop (cuLaunchCooperativeKernel)
+//   --capture        eager launches, then SHIM_TEST_CAPTURE launches of every
+//                    kind captured on a stream in global mode, a legacy-stream
+//                    launch during that capture, the graph replayed, and one
+//                    multi-device cooperative launch over two devices; prints
+//                    CAPTURE name=value ... (what the interposer charged and
+//                    counted across each part, and the capture's result)
+//   --entry-caps     SHIM_TEST_ENTRY (pitch, managed, pool, pool_ptsz, array,
+//                    array3d, mipmap) under VTPU_MEM_LIMIT_0: SHIM_TEST_BIG
+//                    bytes refused, SHIM_TEST_SMALL granted, the capped view
+//                    while held, the free, the same granted again
 //   --alloc          allocates each size of SHIM_TEST_ALLOCS (comma-separated
 //                    bytes) and keeps what it got, prints a VERDICT per size
 //                    and HELD, then holds it until SHIM_TEST_HOLD_FILE exists
@@ -33,6 +46,7 @@
 #include <unistd.h>
 
 #include <atomic>
+#include <string>
 #include <thread>
 #include <vector>
 
@@ -59,6 +73,32 @@ using InfoFn = CUresult (*)(size_t*, size_t*);
 using TotalFn = CUresult (*)(size_t*, CUdevice);
 using CounterFn = uint64_t (*)();
 using AddressFn = void* (*)(const char*);
+using LaunchExFn = CUresult (*)(const CUlaunchConfig*, CUfunction, void**,
+                                void**);
+using CoopFn = CUresult (*)(CUfunction, unsigned, unsigned, unsigned,
+                            unsigned, unsigned, unsigned, unsigned, CUstream,
+                            void**);
+using MultiFn = CUresult (*)(CUDA_LAUNCH_PARAMS*, unsigned, unsigned);
+using BeginCaptureFn = CUresult (*)(CUstream, CUstreamCaptureMode);
+using EndCaptureFn = CUresult (*)(CUstream, CUgraph*);
+using InstantiateFn = CUresult (*)(CUgraphExec*, CUgraph, unsigned long long);
+using GraphLaunchFn = CUresult (*)(CUgraphExec, CUstream);
+using PitchFn = CUresult (*)(CUdeviceptr*, size_t*, size_t, size_t, unsigned);
+using ManagedFn = CUresult (*)(CUdeviceptr*, size_t, unsigned);
+using PoolFn = CUresult (*)(CUmemoryPool*, CUdevice);
+using FromPoolFn = CUresult (*)(CUdeviceptr*, size_t, CUmemoryPool, CUstream);
+using FreeAsyncFn = CUresult (*)(CUdeviceptr, CUstream);
+using ArrayFn = CUresult (*)(CUarray*, const CUDA_ARRAY_DESCRIPTOR*);
+using Array3DFn = CUresult (*)(CUarray*, const CUDA_ARRAY3D_DESCRIPTOR*);
+using MipmapFn = CUresult (*)(CUmipmappedArray*,
+                              const CUDA_ARRAY3D_DESCRIPTOR*, unsigned);
+using ArrayDestroyFn = CUresult (*)(CUarray);
+using MipmapDestroyFn = CUresult (*)(CUmipmappedArray);
+
+// A stream of the harness's own on device 0 (the fake reads a stream's
+// device from bits 12-15 of its handle), and one on device 1.
+CUstream const kStream = reinterpret_cast<CUstream>(0x10);
+CUstream const kStreamDev1 = reinterpret_cast<CUstream>(0x1010);
 
 void* g_driver = nullptr;
 GetProcV2 g_get_proc = nullptr;
@@ -144,6 +184,39 @@ int Routes() {
                "cuDeviceTotalMem_v2");
   ok &= Expect("proc:cuGetProcAddress", Proc("cuGetProcAddress"), shim_base,
                "cuGetProcAddress_v2");
+  // launch paths and allocation entries beyond cuLaunchKernel / cuMemAlloc
+  struct Lookup {
+    const char* name;
+    cuuint64_t flags;
+    const char* hook;
+  };
+  static const Lookup kMore[] = {
+      {"cuGraphLaunch", 0, "cuGraphLaunch"},
+      {"cuGraphLaunch", ptsz, "cuGraphLaunch_ptsz"},
+      {"cuLaunchCooperativeKernel", 0, "cuLaunchCooperativeKernel"},
+      {"cuLaunchCooperativeKernel", ptsz, "cuLaunchCooperativeKernel_ptsz"},
+      {"cuLaunchCooperativeKernelMultiDevice", 0,
+       "cuLaunchCooperativeKernelMultiDevice"},
+      {"cuMemAllocPitch", 0, "cuMemAllocPitch_v2"},
+      {"cuMemAllocManaged", 0, "cuMemAllocManaged"},
+      {"cuMemAllocFromPoolAsync", 0, "cuMemAllocFromPoolAsync"},
+      {"cuMemAllocFromPoolAsync", ptsz, "cuMemAllocFromPoolAsync_ptsz"},
+      {"cuArrayCreate", 0, "cuArrayCreate_v2"},
+      {"cuArray3DCreate", 0, "cuArray3DCreate_v2"},
+      {"cuMipmappedArrayCreate", 0, "cuMipmappedArrayCreate"},
+      {"cuArrayDestroy", 0, "cuArrayDestroy"},
+      {"cuMipmappedArrayDestroy", 0, "cuMipmappedArrayDestroy"},
+  };
+  for (const Lookup& l : kMore) {
+    char label[128];
+    snprintf(label, sizeof(label), "proc:%s%s", l.name,
+             l.flags ? "/ptsz" : "");
+    ok &= Expect(label, Proc(l.name, l.flags), shim_base, l.hook);
+  }
+  ok &= Expect("dlsym:cuMemAllocManaged", dlsym(g_driver, "cuMemAllocManaged"),
+               shim_base, "cuMemAllocManaged");
+  ok &= Expect("dlsym:cuGraphLaunch", dlsym(g_driver, "cuGraphLaunch"),
+               shim_base, "cuGraphLaunch");
   auto v1 = reinterpret_cast<GetProcV1>(Proc("cuGetProcAddress", 0, 11030));
   void* via_v1 = nullptr;
   if (v1) v1("cuLaunchKernel", &via_v1, 12000, 0);
@@ -218,7 +291,8 @@ void PrintCounters() {
       "vtpu_probes_total",          "vtpu_charged_ns_total",
       "vtpu_obs_overhead_ns",       "vtpu_throttle_wait_ns_total",
       "vtpu_watcher_external_total", "vtpu_watcher_fallback_total",
-      "vtpu_blind_ticks_total",     "vtpu_oom_rejected_total"};
+      "vtpu_blind_ticks_total",     "vtpu_oom_rejected_total",
+      "vtpu_graph_launches_total",  "vtpu_captured_launches_total"};
   printf("COUNTERS");
   for (const char* name : kNames) {
     auto fn = reinterpret_cast<int64_t (*)()>(dlsym(RTLD_DEFAULT, name));
@@ -260,29 +334,265 @@ int Alloc() {
   return 0;
 }
 
+// One kernel captured on kStream and instantiated: what the graph path
+// replays.
+CUgraphExec CaptureOne(CUfunction fn) {
+  auto launch = reinterpret_cast<LaunchFn>(Proc("cuLaunchKernel"));
+  auto begin = reinterpret_cast<BeginCaptureFn>(Proc("cuStreamBeginCapture"));
+  auto end = reinterpret_cast<EndCaptureFn>(Proc("cuStreamEndCapture"));
+  auto inst =
+      reinterpret_cast<InstantiateFn>(Proc("cuGraphInstantiateWithFlags"));
+  CUgraph graph = nullptr;
+  CUgraphExec exec = nullptr;
+  if (!launch || !begin || !end || !inst ||
+      begin(kStream, CU_STREAM_CAPTURE_MODE_GLOBAL) != CUDA_SUCCESS ||
+      launch(fn, 1, 1, 1, 1, 1, 1, 0, kStream, nullptr, nullptr) !=
+          CUDA_SUCCESS ||
+      end(kStream, &graph) != CUDA_SUCCESS ||
+      inst(&exec, graph, 0) != CUDA_SUCCESS)
+    return nullptr;
+  return exec;
+}
+
 int ThrottleOnly() {
   const char* raw = getenv("SHIM_TEST_ITERS");
   int iters = raw ? atoi(raw) : 100;
+  const char* path = getenv("SHIM_TEST_LAUNCH");
+  std::string kind = path && *path ? path : "kernel";
   auto launch = reinterpret_cast<LaunchFn>(Proc("cuLaunchKernel"));
+  auto coop = reinterpret_cast<CoopFn>(Proc("cuLaunchCooperativeKernel"));
+  auto graph_launch = reinterpret_cast<GraphLaunchFn>(Proc("cuGraphLaunch"));
   auto sync = reinterpret_cast<SyncFn>(Proc("cuStreamSynchronize"));
-  if (!launch || !sync) {
+  if (!launch || !coop || !graph_launch || !sync) {
     fprintf(stderr, "driver entry points missing\n");
     return 2;
   }
   // one distinct "kernel" handle, as a real module's function would be
   CUfunction fn = reinterpret_cast<CUfunction>(0x1234);
+  CUgraphExec exec = nullptr;
+  if (kind == "graph" && !(exec = CaptureOne(fn))) {
+    fprintf(stderr, "capturing the graph failed\n");
+    return 1;
+  }
   double t0 = NowMs();
   for (int i = 0; i < iters; i++) {
-    if (launch(fn, 1, 1, 1, 1, 1, 1, 0, nullptr, nullptr, nullptr) !=
-        CUDA_SUCCESS)
-      return 1;
-    sync(nullptr);
+    CUresult rc =
+        kind == "graph" ? graph_launch(exec, kStream)
+        : kind == "coop"
+            ? coop(fn, 1, 1, 1, 1, 1, 1, 0, nullptr, nullptr)
+            : launch(fn, 1, 1, 1, 1, 1, 1, 0, nullptr, nullptr, nullptr);
+    if (rc != CUDA_SUCCESS) return 1;
+    sync(kind == "graph" ? kStream : nullptr);
   }
   double wall = NowMs() - t0;
   auto launches = reinterpret_cast<CounterFn>(dlsym(RTLD_DEFAULT,
                                                     "vtpu_launches_total"));
   printf("wall=%.3fms iters=%d shim_launches=%llu\n", wall, iters,
          launches ? (unsigned long long)launches() : 0ull);
+  PrintCounters();
+  return 0;
+}
+
+int64_t Counter(const char* name) {
+  auto fn = reinterpret_cast<int64_t (*)()>(dlsym(RTLD_DEFAULT, name));
+  return fn ? fn() : -1;
+}
+
+int64_t Driver(const char* name) {
+  auto fn = reinterpret_cast<int64_t (*)()>(dlsym(g_driver, name));
+  return fn ? fn() : -1;
+}
+
+int Capture() {
+  const char* raw = getenv("SHIM_TEST_CAPTURE");
+  int n = raw ? atoi(raw) : 8;
+  auto launch = reinterpret_cast<LaunchFn>(Proc("cuLaunchKernel"));
+  auto launch_ex = reinterpret_cast<LaunchExFn>(Proc("cuLaunchKernelEx"));
+  auto coop = reinterpret_cast<CoopFn>(Proc("cuLaunchCooperativeKernel"));
+  auto multi = reinterpret_cast<MultiFn>(
+      Proc("cuLaunchCooperativeKernelMultiDevice"));
+  auto begin = reinterpret_cast<BeginCaptureFn>(Proc("cuStreamBeginCapture"));
+  auto end = reinterpret_cast<EndCaptureFn>(Proc("cuStreamEndCapture"));
+  auto inst =
+      reinterpret_cast<InstantiateFn>(Proc("cuGraphInstantiateWithFlags"));
+  auto graph_launch = reinterpret_cast<GraphLaunchFn>(Proc("cuGraphLaunch"));
+  auto sync = reinterpret_cast<SyncFn>(Proc("cuStreamSynchronize"));
+  if (!launch || !launch_ex || !coop || !multi || !begin || !end || !inst ||
+      !graph_launch || !sync) {
+    fprintf(stderr, "driver entry points missing\n");
+    return 2;
+  }
+  CUfunction fn = reinterpret_cast<CUfunction>(0x1234);
+  // eager launches, the last ones left unsynchronized: samples in flight
+  for (int i = 0; i < 6; i++)
+    launch(fn, 1, 1, 1, 1, 1, 1, 0, kStream, nullptr, nullptr);
+  int64_t charged0 = Counter("vtpu_charged_ns_total");
+  int64_t launches0 = Counter("vtpu_launches_total");
+  int64_t sampled0 = Counter("vtpu_sampled_launches_total");
+  CUresult begin_rc = begin(kStream, CU_STREAM_CAPTURE_MODE_GLOBAL);
+  CUlaunchConfig cfg = {1, 1, 1, 1, 1, 1, 0, kStream, nullptr, 0};
+  int failed = 0;
+  for (int i = 0; i < n; i++) {
+    CUresult rc = i % 3 == 0   ? launch(fn, 1, 1, 1, 1, 1, 1, 0, kStream,
+                                        nullptr, nullptr)
+                  : i % 3 == 1 ? launch_ex(&cfg, fn, nullptr, nullptr)
+                               : coop(fn, 1, 1, 1, 1, 1, 1, 0, kStream,
+                                      nullptr);
+    failed += rc != CUDA_SUCCESS;
+  }
+  CUgraph graph = nullptr;
+  CUresult end_rc = end(kStream, &graph);
+  int64_t charged1 = Counter("vtpu_charged_ns_total");
+  int64_t launches1 = Counter("vtpu_launches_total");
+  int64_t sampled1 = Counter("vtpu_sampled_launches_total");
+  int64_t captured1 = Counter("vtpu_captured_launches_total");
+  // the legacy stream while another stream captures in global mode: the
+  // driver refuses the launch; the interposer charges nothing for it
+  CUresult begin2_rc = begin(kStream, CU_STREAM_CAPTURE_MODE_GLOBAL);
+  CUresult implicit_rc =
+      launch(fn, 1, 1, 1, 1, 1, 1, 0, nullptr, nullptr, nullptr);
+  CUgraph dropped = nullptr;
+  end(kStream, &dropped);
+  int64_t charged2 = Counter("vtpu_charged_ns_total");
+  // the captured graph, replayed
+  sync(kStream);
+  CUgraphExec exec = nullptr;
+  CUresult inst_rc = graph ? inst(&exec, graph, 0) : CUDA_ERROR_INVALID_VALUE;
+  int64_t graphs0 = Counter("vtpu_graph_launches_total");
+  int64_t fake_graphs0 = Driver("fake_graph_launches_total");
+  int replays = 3;
+  for (int i = 0; i < replays && exec; i++) {
+    graph_launch(exec, kStream);
+    sync(kStream);
+  }
+  int64_t graphs1 = Counter("vtpu_graph_launches_total");
+  int64_t charged3 = Counter("vtpu_charged_ns_total");
+  // one cooperative launch over two devices
+  CUDA_LAUNCH_PARAMS list[2] = {
+      {fn, 1, 1, 1, 1, 1, 1, 0, kStream, nullptr},
+      {fn, 1, 1, 1, 1, 1, 1, 0, kStreamDev1, nullptr}};
+  int64_t launches2 = Counter("vtpu_launches_total");
+  CUresult multi_rc = multi(list, 2, 0);
+  int64_t launches3 = Counter("vtpu_launches_total");
+  sync(nullptr);
+  printf("CAPTURE begin_rc=%d end_rc=%d failed=%d captured=%d "
+         "charged_during=%lld launches_during=%lld sampled_during=%lld "
+         "captured_counter=%lld begin2_rc=%d implicit_rc=%d "
+         "charged_implicit=%lld inst_rc=%d replays=%d graph_launches=%lld "
+         "fake_graph_launches=%lld charged_replays=%lld multi_rc=%d "
+         "multi_launches=%lld\n",
+         begin_rc, end_rc, failed, n, (long long)(charged1 - charged0),
+         (long long)(launches1 - launches0), (long long)(sampled1 - sampled0),
+         (long long)captured1, begin2_rc,
+         implicit_rc, (long long)(charged2 - charged1), inst_rc, replays,
+         (long long)(graphs1 - graphs0),
+         (long long)(Driver("fake_graph_launches_total") - fake_graphs0),
+         (long long)(charged3 - charged2), multi_rc,
+         (long long)(launches3 - launches2));
+  PrintCounters();
+  return 0;
+}
+
+// The bytes an entry asks for, shaped for it: `bytes` is a multiple of
+// 64 KiB. A mipmapped array has two levels, so it asks for 5/4 of `bytes`.
+struct EntryCall {
+  CUresult rc;
+  uint64_t asked;
+};
+
+EntryCall AllocEntry(const std::string& entry, uint64_t bytes,
+                     uintptr_t* handle) {
+  CUdeviceptr ptr = 0;
+  if (entry == "pitch") {
+    size_t pitch = 0;
+    auto fn = reinterpret_cast<PitchFn>(Proc("cuMemAllocPitch"));
+    CUresult rc = fn(&ptr, &pitch, 65536, bytes / 65536, 4);
+    *handle = ptr;
+    return {rc, bytes};
+  }
+  if (entry == "managed") {
+    auto fn = reinterpret_cast<ManagedFn>(Proc("cuMemAllocManaged"));
+    CUresult rc = fn(&ptr, bytes, CU_MEM_ATTACH_GLOBAL);
+    *handle = ptr;
+    return {rc, bytes};
+  }
+  if (entry == "pool" || entry == "pool_ptsz") {
+    CUmemoryPool pool = nullptr;
+    reinterpret_cast<PoolFn>(Proc("cuDeviceGetDefaultMemPool"))(&pool, 0);
+    auto fn = reinterpret_cast<FromPoolFn>(Proc(
+        "cuMemAllocFromPoolAsync",
+        entry == "pool" ? 0 : CU_GET_PROC_ADDRESS_PER_THREAD_DEFAULT_STREAM));
+    CUresult rc = fn(&ptr, bytes, pool, nullptr);
+    *handle = ptr;
+    return {rc, bytes};
+  }
+  if (entry == "array") {
+    CUDA_ARRAY_DESCRIPTOR d = {4096, bytes / (4096 * 4), CU_AD_FORMAT_FLOAT,
+                               1};
+    auto fn = reinterpret_cast<ArrayFn>(Proc("cuArrayCreate"));
+    return {fn(reinterpret_cast<CUarray*>(handle), &d), bytes};
+  }
+  if (entry == "array3d") {
+    CUDA_ARRAY3D_DESCRIPTOR d = {256, 64, bytes / (256 * 64 * 2 * 2),
+                                 CU_AD_FORMAT_HALF, 2, 0};
+    auto fn = reinterpret_cast<Array3DFn>(Proc("cuArray3DCreate"));
+    return {fn(reinterpret_cast<CUarray*>(handle), &d), bytes};
+  }
+  if (entry == "mipmap") {
+    // 2D, two levels: level 1 is a quarter of level 0
+    CUDA_ARRAY3D_DESCRIPTOR d = {4096, bytes / 4096, 0,
+                                 CU_AD_FORMAT_UNSIGNED_INT8, 1, 0};
+    auto fn = reinterpret_cast<MipmapFn>(Proc("cuMipmappedArrayCreate"));
+    return {fn(reinterpret_cast<CUmipmappedArray*>(handle), &d, 2),
+            bytes + bytes / 4};
+  }
+  return {CUDA_ERROR_INVALID_VALUE, 0};
+}
+
+CUresult FreeEntry(const std::string& entry, uintptr_t handle) {
+  if (entry == "array")
+    return reinterpret_cast<ArrayDestroyFn>(Proc("cuArrayDestroy"))(
+        reinterpret_cast<CUarray>(handle));
+  if (entry == "array3d")
+    return reinterpret_cast<ArrayDestroyFn>(Proc("cuArrayDestroy"))(
+        reinterpret_cast<CUarray>(handle));
+  if (entry == "mipmap")
+    return reinterpret_cast<MipmapDestroyFn>(Proc("cuMipmappedArrayDestroy"))(
+        reinterpret_cast<CUmipmappedArray>(handle));
+  if (entry == "pool" || entry == "pool_ptsz")
+    return reinterpret_cast<FreeAsyncFn>(Proc("cuMemFreeAsync"))(
+        (CUdeviceptr)handle, nullptr);
+  return reinterpret_cast<FreeFn>(Proc("cuMemFree"))((CUdeviceptr)handle);
+}
+
+int EntryCaps() {
+  const char* entry_raw = getenv("SHIM_TEST_ENTRY");
+  const char* big_raw = getenv("SHIM_TEST_BIG");
+  const char* small_raw = getenv("SHIM_TEST_SMALL");
+  auto info = reinterpret_cast<InfoFn>(Proc("cuMemGetInfo"));
+  if (!entry_raw || !big_raw || !small_raw || !info) {
+    fprintf(stderr, "--entry-caps needs SHIM_TEST_ENTRY, SHIM_TEST_BIG and "
+            "SHIM_TEST_SMALL\n");
+    return 2;
+  }
+  std::string entry = entry_raw;
+  uint64_t big = strtoull(big_raw, nullptr, 10);
+  uint64_t small = strtoull(small_raw, nullptr, 10);
+  uintptr_t h = 0, h2 = 0;
+  EntryCall over = AllocEntry(entry, big, &h);
+  Verdict("over", over.rc);
+  EntryCall got = AllocEntry(entry, small, &h);
+  Verdict("granted", got.rc);
+  size_t free_b = 0, total_b = 0;
+  info(&free_b, &total_b);
+  printf("MEMINFO held free=%zu total=%zu\n", free_b, total_b);
+  printf("ASKED %llu\n", (unsigned long long)got.asked);
+  Verdict("free", FreeEntry(entry, h));
+  info(&free_b, &total_b);
+  printf("MEMINFO freed free=%zu total=%zu\n", free_b, total_b);
+  Verdict("again", AllocEntry(entry, small, &h2).rc);
+  Verdict("free_again", FreeEntry(entry, h2));
+  printf("FAKE_USED %lld\n", (long long)Driver("fake_used_bytes"));
   PrintCounters();
   return 0;
 }
@@ -381,8 +691,10 @@ int main(int argc, char** argv) {
   if (strcmp(mode, "--throttle-only") == 0) return ThrottleOnly();
   if (strcmp(mode, "--stress") == 0) return Stress();
   if (strcmp(mode, "--alloc") == 0) return Alloc();
+  if (strcmp(mode, "--capture") == 0) return Capture();
+  if (strcmp(mode, "--entry-caps") == 0) return EntryCaps();
   fprintf(stderr, "usage: %s --routes|--caps|--throttle-only|--alloc|"
-          "--stress\n",
+          "--stress|--capture|--entry-caps\n",
           argv[0]);
   return 2;
 }

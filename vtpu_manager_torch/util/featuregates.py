@@ -1,7 +1,7 @@
 """Feature gates, parsed from `--feature-gates=A=true,B=false`.
 
 The port of the JAX package's `util/featuregates.py:314-357`, holding only
-the gates the port's device plugin wires (same names and defaults as the
+the gates the port's node agents wire (same names and defaults as the
 JAX package's). A gate the port does not know is an error, as it is in the
 JAX parser: a part that is not ported yet is refused, not ignored.
 """
@@ -14,12 +14,14 @@ TC_WATCHER = "TCWatcher"                # the node's utilization watcher
 VMEMORY_NODE = "VMemoryNode"            # the cross-process memory ledger
 HONOR_PREALLOC_IDS = "HonorPreAllocatedDeviceIDs"
 STEP_TELEMETRY = "StepTelemetry"        # per-tenant step rings
+NRI_SUPPORT = "NRISupport"              # DRA: the NRI runtime hook
 
 _KNOWN = {
     TC_WATCHER: False,
     VMEMORY_NODE: False,
     HONOR_PREALLOC_IDS: False,
     STEP_TELEMETRY: False,
+    NRI_SUPPORT: False,
 }
 
 
