@@ -77,7 +77,24 @@ result line:
    own, and leave a non-tenant container untouched; tenants started from
    the CDI environment and the NRI adjustment hold 50 % and 25 % with exact
    caps; the device plugin's Allocate over the in-cluster client answers
-   as over the fake client. One `CLUSTER {json}` line per check.
+   as over the fake client. One `CLUSTER {json}` line per check;
+9. monitor (`vtpu_manager_torch/bench_monitor.py`): the port's node
+   exporter (`cmd/device_monitor.py`, a subprocess on 127.0.0.1 with a
+   bearer token) reports each tenant's slice. The device plugin allocates
+   50 % / 16 GiB (one attention-kernel launch per step) and 25 % / 8 GiB,
+   both with the step ring, beside a kubelet checkpoint naming both and an
+   orphan config dir it does not name; while the two tenants run, scrapes
+   must show the card's memory and 4 slots, both tenants' limits, memory
+   in use equal to the ledger, attributed shares above 0 in quota order
+   and each within 8 points of the share of the card its steps took,
+   75 % of the cores assigned, the orphan flagged and no feed in error;
+   after they exit, each pod's step count equals its ring's records, the
+   throttle-wait fractions are above 0 in quota order and the node
+   pressure is the rings' own. The pressure annotation goes through the
+   in-cluster client to a TLS stub API server and decodes to what was
+   published; the reporters list 100 core devices and one per 256 MiB;
+   /healthz, /traces and /utilization (404) answer. One `MONITOR {json}`
+   line per check.
 
 The last three lines are the nvidia-smi line, the kernels JSON and the
 result JSON.
@@ -484,6 +501,25 @@ def cluster(torch, shim: str) -> dict:
             "nri": {k: results["nri"][k] for k in ("spoofed", "plain")}}
 
 
+def monitor(torch, shim: str) -> dict:
+    from vtpu_manager_torch import bench_monitor as bm
+
+    results = run_checks("monitor", bm.Phase, torch, shim,
+                         ("setup", "running", "after", "publish"))
+    running, after = results["running"], results["after"]
+    return {"mean_share": {p: running["pods"][p]["mean_share"]
+                           for p in bm.PODS},
+            "taken_share": {p: running["pods"][p]["taken_share"]
+                            for p in bm.PODS},
+            "memory_used": {p: running["pods"][p]["memory_used"]
+                            for p in bm.PODS},
+            "steps": {p: after["pods"][p]["count"] for p in bm.PODS},
+            "wait_fraction": {p: after["pods"][p]["wait_fraction"]
+                              for p in bm.PODS},
+            "pressure": [after["pressure_frac"], after["pressure_headroom"]],
+            "scrape_s": results["publish"]["scrape_s"]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -549,6 +585,7 @@ def main() -> int:
                                 str(paths["shim"]))
     summary["dra"] = phase("dra", dra, torch, str(paths["shim"]))
     summary["cluster"] = phase("cluster", cluster, torch, str(paths["shim"]))
+    summary["monitor"] = phase("monitor", monitor, torch, str(paths["shim"]))
     log("SUMMARY " + json.dumps(summary, default=str))
     if failures or record is None:
         print(f"chip_smoke: failed phases: {failures}", file=sys.stderr)

@@ -320,3 +320,50 @@ def test_allocation_entries_are_capped(card):
     from vtpu_manager_torch import build
     rec = bq.run_entry_check(str(build.build_shim()))
     assert bq.entry_check_ok(rec), rec
+
+
+# --- the node exporter on the card -----------------------------------------
+
+
+@pytest.mark.gpu
+def test_collector_reads_back_a_tenants_held_memory(card, tmp_path):
+    """A tenant under the interposer holds 64 MiB; the exporter's collector
+    reports the tenant's ledger bytes, at least the 64 MiB it holds."""
+    import os
+    import shutil
+    from pathlib import Path
+
+    from vtpu_manager_torch import bench_quota as bq
+    from vtpu_manager_torch import build
+    from vtpu_manager_torch.config.vmem import VmemLedger, fnv64
+    from vtpu_manager_torch.metrics.collector import NodeCollector
+    from vtpu_manager_torch.tpu.discovery import NvmlBackend
+    world = bq.World(str(tmp_path / "node"))
+    env = world.env(str(build.build_shim()), "pod-mon", cap=2**30)
+    base = tmp_path / "mgr" / "pod-mon_main" / "config"
+    base.mkdir(parents=True)
+    shutil.copy(env["VTPU_CONFIG_PATH"], base / "vtpu.config")
+    release = str(tmp_path / "release")
+    tenant = bq.Tenant("hold", bq.hold_args("0.0625", world.go_file("hold"),
+                                            release), env, str(tmp_path))
+    try:
+        tenant.line("READY")
+        Path(world.go_file("hold")).touch()
+        assert tenant.line("HOLD ")["verdicts"] == ["granted"]
+        chips = NvmlBackend().discover().chips
+        text = NodeCollector("n1", chips, base_dir=str(tmp_path / "mgr"),
+                             tc_path=world.tc_path,
+                             vmem_path=world.vmem_path).render()
+        led = VmemLedger(world.vmem_path)
+        held = sum(e.bytes for e in led.entries()
+                   if e.owner_token == fnv64("pod-mon/main"))
+        led.close()
+        Path(release).touch()
+    finally:
+        tenant.stop()
+    rows = [ln for ln in text.splitlines() if ln.startswith(
+        'vtpu_container_memory_used_bytes{node="n1",pod_uid="pod-mon"')]
+    assert len(rows) == 1, text
+    used = float(rows[0].rsplit(" ", 1)[1])
+    assert used == held >= 64 * 2**20
+    assert os.path.exists(world.vmem_path)

@@ -7,3 +7,5 @@ CUDA driver-API interposer that enforces a compute-% and a memory cap
 inside the tenant process. Entry points run on the card unless the caller
 asks for the CPU. Nothing here imports JAX or the JAX package.
 """
+
+__version__ = "0.1.0"

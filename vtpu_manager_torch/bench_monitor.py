@@ -1,0 +1,637 @@
+"""The node exporter reports each tenant's slice of the card: the checks of
+chip_smoke.py's `monitor` phase.
+
+On a private node (`bench_allocate.Node`: NVML discovery split 4 ways, the
+interposer installed, locks, ledger and the NVML-fed watcher in
+directories of their own), the port's device plugin allocates two pods
+with the step ring, and the port's exporter
+(`python -m vtpu_manager_torch.cmd.device_monitor`) runs as a subprocess
+on 127.0.0.1 over that node's base dir, feed, ledger and a kubelet
+checkpoint the phase writes. Its pod-resources socket names a path that
+does not exist: the card machine has no kubelet and no grpc.
+
+Checks, each a record with an `ok` verdict:
+
+1. setup: the device plugin answers both pods (q50: 50 % and 16 GiB, and
+   one attention-kernel launch per step; q25: 25 % and 8 GiB), the
+   checkpoint names both (pod_uid, container) pairs under the vtpu-number
+   resource, and an orphan config dir `bogus-uid_main` (0 %, 1 GiB) is
+   named by no entry; the exporter answers /healthz. It runs with
+   `VTPU_MAP_STARTUP_GRACE_S=0`, so the orphan is judged at once;
+2. running: both tenants, started from their Allocate responses alone,
+   warm up, hold `HOLD_MIB` and step. `SCRAPES` scrapes while they step:
+   a scrape without the token is 401; the card's memory total is the
+   registry's, 4 slots, one card, core limits 50 and 25, memory limits 16
+   and 8 GiB, 75 % of the card's cores assigned, both pods corroborated by
+   the checkpoint and the orphan flagged, the source "checkpoint", no
+   feed in error; each tenant's attributed share, averaged over the
+   scrapes, above 0, q50's above q25's, and within SHARE_BAND points of
+   the share of the card the tenant took over the same scrapes: the steps
+   its ring gained times the card time of one of its steps alone (timed
+   by the phase before the tenants start, no interposer), over the
+   scrapes' wall time. Then the tenants pause (they
+   hold their memory and write no step record) and one more scrape: each
+   tenant's memory gauge equals the sum of its ledger entries, read just
+   before and just after it, and is at least the held buffer;
+3. after: the tenants step `TAIL_STEPS` more and exit; a scrape then
+   counts, per pod, as many steps as its ring holds (at most
+   RING_CAPACITY), a throttle-wait fraction above 0 with q25's above
+   q50's, and the node pressure (fraction and memory headroom) that a
+   `TenantStepTelemetry` over the same rings gives, scanned at the pause
+   and after the exit as the exporter was;
+4. publish: `PressurePublisher.publish_once` over the in-cluster client
+   patches the node annotation on `client.apistub.ApiStub` (TLS), and the
+   annotation decodes with `parse_pressure` to what was published; the
+   vtpu-cores reporter lists 100 devices and the vtpu-memory reporter one
+   per 256 MiB of the card's usable memory; /healthz answers `ok`,
+   /traces an empty document and /utilization 404; the scrape's own
+   duration is recorded.
+
+Run `python -m vtpu_manager_torch.bench_monitor --tenant ...` only as the
+tenant subprocess the phase starts.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import subprocess
+import sys
+import time
+import urllib.error
+import urllib.request
+from pathlib import Path
+
+from vtpu_manager_torch import bench_allocate as ba
+from vtpu_manager_torch import bench_quota as bq
+from vtpu_manager_torch.build import REPO
+from vtpu_manager_torch.util import consts
+
+GIB = 2**30
+MIB = 2**20
+# pod: (cores %, memory GiB, one attention launch per step, kubelet's slot)
+PODS = {"pod-q50": (50, 16, True, 0), "pod-q25": (25, 8, False, 1)}
+ORPHAN = ("bogus-uid", "main")
+TOKEN = "monitor-phase-token"
+HOLD_MIB = 256
+DIM = 16384          # ~15 ms a step alone: 256 records last seconds at q50
+WARMUP = 5
+TAIL_STEPS = 20
+MAX_STEPS = 240      # warm-up, running and tail stay inside one ring
+SETTLE_S = 2.0       # NVML's utilization averages over about a second
+SCRAPES = 10
+SCRAPE_GAP_S = 0.25
+SOLO_STEPS = 10
+# attributed against taken, in points of the card: a mean of SCRAPES
+# scrapes of one 80 ms tick's split (single scrapes of q25 read 5-20 for a
+# mean of 12) and NVML's averaging window leave a few points of noise; a
+# split that ignored who launched (equal shares, 37.5 each here) or halved
+# a tenant's share would miss by more
+SHARE_BAND = 8.0
+
+_SAMPLE = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(?:\{(.*)\})? (\S+)$')
+_LABEL = re.compile(r'(\w+)="([^"]*)"')
+
+
+def parse_metrics(text: str) -> list[tuple[str, dict, float]]:
+    """(name, labels, value) per sample line of a Prometheus text."""
+    out = []
+    for line in text.splitlines():
+        m = _SAMPLE.match(line)
+        if m and not line.startswith("#"):
+            out.append((m.group(1), dict(_LABEL.findall(m.group(2) or "")),
+                        float(m.group(3))))
+    return out
+
+
+def value(samples, name: str, **labels) -> float | None:
+    for n, lab, v in samples:
+        if n == name and all(lab.get(k) == w for k, w in labels.items()):
+            return v
+    return None
+
+
+def pod_uid(pod: str) -> str:
+    return f"uid-{pod}"
+
+
+def write_checkpoint(path: str, entries: list[tuple[str, str, list[str]]]
+                     ) -> None:
+    """Kubelet's device-manager checkpoint naming each (pod_uid, container)
+    under the vtpu-number resource."""
+    with open(path, "w") as f:
+        json.dump({"Data": {"PodDeviceEntries": [
+            {"PodUID": uid, "ContainerName": name,
+             "ResourceName": consts.vtpu_number_resource(),
+             "DeviceIDs": {"-1": ids}} for uid, name, ids in entries]}}, f)
+
+
+class Exporter:
+    """The port's exporter as a subprocess on 127.0.0.1 and a free port."""
+
+    def __init__(self, root: Path, node: ba.Node, checkpoint: str,
+                 node_config: str):
+        self.token_file = root / "metrics-token"
+        self.token_file.write_text(TOKEN + "\n")
+        self.log_path = root / "monitor.log"
+        self._log = open(self.log_path, "w")
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith("VTPU_") and k != consts.ENV_LD_PRELOAD}
+        env["VTPU_MAP_STARTUP_GRACE_S"] = "0"
+        env["PYTHONPATH"] = os.pathsep.join(
+            p for p in (str(REPO), os.environ.get("PYTHONPATH")) if p)
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "vtpu_manager_torch.cmd.device_monitor",
+             "--host", "127.0.0.1", "--port", "0", "--node-name", ba.NODE,
+             "--node-config", node_config,
+             "--base-dir", node.base_dir,
+             "--tc-path", os.path.join(node.watcher_dir, os.path.basename(
+                 consts.TC_UTIL_CONFIG)),
+             "--vmem-path", os.path.join(node.vmem_dir, os.path.basename(
+                 consts.VMEM_NODE_CONFIG)),
+             "--trace-spool-dir", str(root / "trace"),
+             "--kubelet-checkpoint", checkpoint,
+             "--pod-resources-socket", str(root / "no-kubelet.sock"),
+             "--metrics-token-file", str(self.token_file)],
+            cwd=str(REPO), env=env, stdout=self._log,
+            stderr=subprocess.STDOUT)
+        self.url = self._wait_for_port()
+
+    def _wait_for_port(self, timeout: float = 60.0) -> str:
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            if self.proc.poll() is not None:
+                raise RuntimeError(f"exporter exited rc={self.proc.returncode}"
+                                   f":\n{self.log_path.read_text()[-2000:]}")
+            m = re.search(r"vtpu-monitor on 127\.0\.0\.1:(\d+)",
+                          self.log_path.read_text())
+            if m:
+                return f"http://127.0.0.1:{m.group(1)}"
+            time.sleep(0.05)
+        raise TimeoutError("the exporter never said its port")
+
+    def get(self, path: str, token: bool = True) -> tuple[int, str]:
+        req = urllib.request.Request(self.url + path)
+        if token:
+            req.add_header("Authorization", f"Bearer {TOKEN}")
+        try:
+            with urllib.request.urlopen(req, timeout=30) as resp:
+                return resp.status, resp.read().decode()
+        except urllib.error.HTTPError as e:
+            return e.code, e.read().decode()
+
+    def metrics(self) -> tuple[str, list]:
+        status, text = self.get("/metrics")
+        if status != 200:
+            raise RuntimeError(f"/metrics answered {status}: {text[:200]}")
+        return text, parse_metrics(text)
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+        self._log.close()
+
+
+class Phase:
+    def __init__(self, torch, shim: str, root: str):
+        from vtpu_manager_torch.telemetry import TenantStepTelemetry
+        self.torch = torch
+        self.root = Path(root)
+        self.node = ba.Node(root, shim)
+        uuid = f"GPU-{torch.cuda.get_device_properties(0).uuid}"
+        self.chip = next((c for c in self.node.manager.chips
+                          if c.uuid == uuid), None)
+        if self.chip is None:
+            raise RuntimeError(f"NVML's devices do not include torch's "
+                               f"{uuid}")
+        self.vmem_path = os.path.join(
+            self.node.vmem_dir, os.path.basename(consts.VMEM_NODE_CONFIG))
+        self.responses: dict = {}
+        self.tenants: dict[str, bq.Tenant] = {}
+        self.exporter: Exporter | None = None
+        self.paused_counts: dict[str, int] = {}
+        # the phase's own fold of the rings, scanned where the exporter's
+        # last two scrapes were (the pause, and after the exit)
+        self.rings = TenantStepTelemetry(self.node.base_dir)
+        self.scrape_s: list[float] = []
+        self.solo_s: dict[str, float] = {}
+
+    def close(self) -> None:
+        for t in self.tenants.values():
+            t.stop()
+        if self.exporter is not None:
+            self.exporter.close()
+        self.node.close()
+
+    def _scrape(self):
+        text, samples = self.exporter.metrics()
+        self.scrape_s.append(value(samples,
+                                   "vtpu_node_scrape_duration_seconds"))
+        return text, samples
+
+    # --- 1. setup ---------------------------------------------------------
+
+    def check_setup(self) -> dict:
+        from vtpu_manager_torch.config import vtpu_config as vc
+        from vtpu_manager_torch.deviceplugin.api import messages as api
+        from vtpu_manager_torch.deviceplugin.vnum import device_id
+        chip, node = self.chip, self.node
+        plugin = node.plugin(True)
+        ids = {}
+        for pod, (cores, gib, _, slot) in PODS.items():
+            node.client.add_pod(ba.committed_pod(pod, chip, cores, gib * GIB))
+            ids[pod] = [device_id(chip.uuid, slot)]
+            (self.responses[pod],) = plugin.allocate(api.AllocateRequest(
+                [api.ContainerAllocateRequest(ids[pod])])).container_responses
+        checkpoint = str(self.root / "kubelet_internal_checkpoint")
+        write_checkpoint(checkpoint, [(pod_uid(p), "main", ids[p])
+                                      for p in PODS])
+        vc.write_config(
+            os.path.join(node.base_dir, "_".join(ORPHAN), "config",
+                         "vtpu.config"),
+            vc.VtpuConfig(pod_uid=ORPHAN[0], container_name=ORPHAN[1],
+                          devices=[vc.DeviceConfig(
+                              uuid=chip.uuid, total_memory=GIB,
+                              real_memory=chip.memory, hard_core=0,
+                              host_index=chip.index)]))
+        node_config = self.root / "node-config.json"
+        node_config.write_text(json.dumps({"default": {
+            "deviceSplitCount": ba.SPLIT}}))
+        t0 = time.perf_counter()
+        self.exporter = Exporter(self.root, node, checkpoint,
+                                 str(node_config))
+        start_s = time.perf_counter() - t0
+        health = self.exporter.get("/healthz", token=False)
+        rec = {"exporter": self.exporter.url, "exporter_start_s": start_s,
+               "healthz": health,
+               "envs": {p: {k: v for k, v in r.envs.items()
+                            if k.startswith(("VTPU_", "NVIDIA"))}
+                        for p, r in self.responses.items()}}
+        rec["ok"] = bool(
+            health == (200, "ok")
+            and all(r.envs.get(consts.ENV_STEP_TELEMETRY) == "true"
+                    and r.envs.get(f"{consts.ENV_MEM_LIMIT}_0")
+                    == str(PODS[p][1] * GIB)
+                    for p, r in self.responses.items()))
+        return rec
+
+    # --- 2. scrapes while the tenants run -----------------------------------
+
+    def _ledger_bytes(self) -> dict[str, int]:
+        from vtpu_manager_torch.config.vmem import VmemLedger, fnv64
+        led = VmemLedger(self.vmem_path)
+        try:
+            entries = led.entries()
+        finally:
+            led.close()
+        return {p: sum(e.bytes for e in entries
+                       if e.owner_token == fnv64(f"{pod_uid(p)}/main"))
+                for p in PODS}
+
+    def _solo_step_s(self) -> dict[str, float]:
+        """Card time of one tenant step alone, per pod: the quota step (and
+        the q50 pod's attention launch) back to back between two CUDA
+        events in this process, before any tenant runs."""
+        torch = self.torch
+        from vtpu_manager_torch.bench_steps import (ATTN_SHAPE, _quota_input,
+                                                    _quota_step)
+        from vtpu_manager_torch.workloads import block_attention as attn
+        dev = torch.device("cuda")
+        x = _quota_input(DIM, dev)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        q, k, v = (torch.randn(ATTN_SHAPE, generator=gen, device=dev)
+                   for _ in range(3))
+        bias = torch.zeros((ATTN_SHAPE[2], ATTN_SHAPE[2]), device=dev)
+        out = {}
+        for pod, (_, _, with_attn, _) in PODS.items():
+            def step():
+                nonlocal x
+                x, _ = _quota_step(x)
+                if with_attn:
+                    attn.attention_block(q, k, v, bias)
+            for _ in range(2):
+                step()
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            torch.cuda.synchronize()
+            start.record()
+            for _ in range(SOLO_STEPS):
+                step()
+            end.record()
+            end.synchronize()
+            out[pod] = start.elapsed_time(end) / 1e3 / SOLO_STEPS
+        del x, q, k, v, bias
+        torch.cuda.empty_cache()
+        return out
+
+    def _ring_path(self, pod: str) -> str:
+        return os.path.join(self.node.base_dir, f"{pod_uid(pod)}_main",
+                            consts.TELEMETRY_SUBDIR, consts.STEP_RING_NAME)
+
+    def _ring_heads(self) -> dict[str, int]:
+        from vtpu_manager_torch.telemetry.stepring import StepRingReader
+        heads = {}
+        for p in PODS:
+            reader = StepRingReader(self._ring_path(p))
+            try:
+                heads[p] = reader.poll(0)[1]
+            finally:
+                reader.close()
+        return heads
+
+    def _start_tenants(self) -> None:
+        go = str(self.root / "go")
+        for pod, (_, _, attn, _) in PODS.items():
+            args = ["-m", "vtpu_manager_torch.bench_monitor", "--tenant",
+                    "--dim", str(DIM), "--hold-mib", str(HOLD_MIB),
+                    "--go-file", go, "--pause-file", str(self.root / "pause"),
+                    "--resume-file", str(self.root / "resume")]
+            if attn:
+                args.append("--attn")
+            self.tenants[pod] = bq.Tenant(
+                pod, args, ba.container_env(self.responses[pod]),
+                str(self.root))
+        for t in self.tenants.values():
+            t.line("READY")
+        Path(go).touch()
+
+    def check_running(self) -> dict:
+        chip = self.chip
+        self.solo_s = self._solo_step_s()
+        self._start_tenants()
+        time.sleep(SETTLE_S)
+        unauthorized = self.exporter.get("/metrics", token=False)[0]
+        shares = {p: [] for p in PODS}
+        heads0, t0 = self._ring_heads(), time.monotonic()
+        for i in range(SCRAPES):
+            if i:
+                time.sleep(SCRAPE_GAP_S)
+            _, samples = self._scrape()
+            for p in PODS:
+                shares[p].append(value(
+                    samples, "vtpu_container_utilization_percent",
+                    pod_uid=pod_uid(p), container="main"))
+        heads1, window_s = self._ring_heads(), time.monotonic() - t0
+        Path(self.root / "pause").touch()
+        for p, t in self.tenants.items():
+            self.paused_counts[p] = t.line("PAUSED")["records"]
+        before = self._ledger_bytes()
+        text, samples = self._scrape()
+        after = self._ledger_bytes()
+        self.rings.scan()
+        (self.root / "scrape-paused.txt").write_text(text)
+        dev = {"uuid": chip.uuid, "index": str(chip.index)}
+        per_pod = {}
+        for p, (cores, gib, _, _) in PODS.items():
+            lab = {"pod_uid": pod_uid(p), "container": "main"}
+            per_pod[p] = {
+                "core_limit": value(samples,
+                                    "vtpu_container_core_limit_percent",
+                                    **lab),
+                "memory_limit": value(samples,
+                                      "vtpu_container_memory_limit_bytes",
+                                      **lab),
+                "memory_used": value(samples,
+                                     "vtpu_container_memory_used_bytes",
+                                     **lab),
+                "ledger_before": before[p], "ledger_after": after[p],
+                "mismatch": value(samples,
+                                  "vtpu_container_pod_mapping_mismatch",
+                                  **lab),
+                "shares": shares[p],
+                "mean_share": (sum(s or 0.0 for s in shares[p])
+                               / len(shares[p])),
+                "solo_step_ms": self.solo_s[p] * 1e3,
+                "window_steps": heads1[p] - heads0[p],
+                "taken_share": (100.0 * (heads1[p] - heads0[p])
+                                * self.solo_s[p] / window_s)}
+            r = per_pod[p]
+            r["ok"] = bool(
+                r["core_limit"] == cores and r["memory_limit"] == gib * GIB
+                and r["ledger_before"] == r["ledger_after"]
+                == r["memory_used"] and r["memory_used"] >= HOLD_MIB * MIB
+                and r["mismatch"] == 0.0 and r["mean_share"] > 0
+                and all(s is not None for s in r["shares"])
+                and abs(r["mean_share"] - r["taken_share"]) <= SHARE_BAND
+                and self.paused_counts[p] < MAX_STEPS - TAIL_STEPS)
+        errors = {lab["feed"]: v for n, lab, v in samples
+                  if n == "vtpu_node_scrape_last_error"}
+        rec = {
+            "unauthorized": unauthorized, "pods": per_pod,
+            "memory_total": value(samples, "vtpu_device_memory_total_bytes",
+                                  **dev),
+            "registry_memory": chip.memory,
+            "slots_total": value(samples, "vtpu_device_slots_total", **dev),
+            "chips": [lab.get("chips") for n, lab, _ in samples
+                      if n == "vtpu_node_info"],
+            "cores_assigned": value(samples,
+                                    "vtpu_device_cores_assigned_percent",
+                                    **dev),
+            "orphan_mismatch": value(samples,
+                                     "vtpu_container_pod_mapping_mismatch",
+                                     pod_uid=ORPHAN[0], container=ORPHAN[1]),
+            "mapping_source": value(samples, "vtpu_node_pod_mapping_source"),
+            "feed_errors": errors, "paused_records": self.paused_counts,
+            "window_s": window_s}
+        rec["ok"] = bool(
+            unauthorized == 401
+            and rec["memory_total"] == chip.memory
+            and rec["slots_total"] == ba.SPLIT and rec["chips"] == ["1"]
+            and rec["cores_assigned"] == 75
+            and rec["orphan_mismatch"] == 1.0
+            and rec["mapping_source"] == 1.0
+            and errors and not any(errors.values())
+            and all(r["ok"] for r in per_pod.values())
+            and per_pod["pod-q50"]["mean_share"]
+            > per_pod["pod-q25"]["mean_share"])
+        return rec
+
+    # --- 3. after the tenants exit ---------------------------------------
+
+    def check_after(self) -> dict:
+        from vtpu_manager_torch.telemetry.stepring import (RING_CAPACITY,
+                                                           StepRingReader)
+        Path(self.root / "resume").touch()
+        workers = {}
+        for p, t in self.tenants.items():
+            workers[p] = t.line("WORKER ")
+            t.proc.wait(timeout=60)
+        text, samples = self._scrape()
+        self.rings.scan()
+        (self.root / "scrape-after.txt").write_text(text)
+        frac, headroom = self.rings.pressure(self.chip.memory)
+        per_pod = {}
+        for p in PODS:
+            reader = StepRingReader(self._ring_path(p))
+            try:
+                records, head, _ = reader.poll(0)
+            finally:
+                reader.close()
+            lab = {"pod_uid": pod_uid(p), "container": "main"}
+            r = per_pod[p] = {
+                "count": value(samples,
+                               "vtpu_tenant_step_duration_seconds_count",
+                               **lab),
+                "ring_records": len(records), "ring_head": head,
+                "steps": workers[p]["records"],
+                "wait_fraction": value(
+                    samples, "vtpu_tenant_throttle_wait_fraction", **lab),
+                "attn_launches": workers[p]["attn_launches"],
+                "shim_launches": workers[p].get("vtpu_launches_total")}
+            r["ok"] = bool(
+                r["count"] == r["ring_records"] == r["ring_head"]
+                == r["steps"] <= RING_CAPACITY
+                and r["wait_fraction"] is not None
+                and r["wait_fraction"] > 0
+                and (r["attn_launches"] > 0) == PODS[p][2])
+        rec = {"pods": per_pod,
+               "pressure_frac": value(samples,
+                                      "vtpu_node_pressure_throttle_frac"),
+               "pressure_headroom": value(
+                   samples, "vtpu_node_pressure_hbm_headroom_bytes"),
+               "expected_frac": round(frac, 6),
+               "expected_headroom": headroom}
+        rec["ok"] = bool(
+            all(r["ok"] for r in per_pod.values())
+            and per_pod["pod-q25"]["wait_fraction"]
+            > per_pod["pod-q50"]["wait_fraction"]
+            and rec["pressure_frac"] == rec["expected_frac"]
+            and rec["pressure_headroom"] == headroom)
+        return rec
+
+    # --- 4. the annotation, the reporters and the other routes ------------
+
+    def check_publish(self) -> dict:
+        from vtpu_manager_torch.bench_cluster import CERTS
+        from vtpu_manager_torch.client.apistub import ApiStub
+        from vtpu_manager_torch.client.kube import InClusterClient
+        from vtpu_manager_torch.deviceplugin.reporters import (VcorePlugin,
+                                                               VmemPlugin)
+        from vtpu_manager_torch.telemetry import TenantStepTelemetry
+        from vtpu_manager_torch.telemetry.pressure import (PressurePublisher,
+                                                           parse_pressure)
+        stub = ApiStub(str(CERTS / "server.crt"), str(CERTS / "server.key"),
+                       token=TOKEN)
+        stub.store.add_node({"metadata": {"name": ba.NODE,
+                                          "annotations": {}}})
+        stub.start()
+        try:
+            token = self.root / "api-token"
+            token.write_text(TOKEN)
+            client = InClusterClient(stub.url, str(token),
+                                     str(CERTS / "ca.crt"))
+            published = PressurePublisher(
+                client, ba.NODE, TenantStepTelemetry(self.node.base_dir),
+                node_hbm_total=self.chip.memory).publish_once()
+            raw = stub.store.get_node(ba.NODE)["metadata"]["annotations"].get(
+                consts.node_pressure_annotation())
+            patches = [r["method"] for r in stub.requests
+                       if r["path"].endswith(f"/nodes/{ba.NODE}")]
+        finally:
+            stub.stop()
+        got = parse_pressure(raw)
+        cores = VcorePlugin(self.node.manager).list_devices()
+        mem = VmemPlugin(self.node.manager).list_devices()
+        traces = self.exporter.get("/traces")
+        rec = {"annotation": raw, "patches": patches,
+               "published": [published.throttle_frac,
+                             published.hbm_headroom_bytes],
+               "decoded": [got.throttle_frac, got.hbm_headroom_bytes]
+               if got else None,
+               "vcore_devices": len(cores), "vmem_devices": len(mem),
+               "usable_mib": self.chip.memory // MIB,
+               "healthz": self.exporter.get("/healthz", token=False),
+               "traces": traces,
+               "utilization": self.exporter.get("/utilization")[0],
+               "scrape_s": self.scrape_s}
+        rec["ok"] = bool(
+            got is not None and "PATCH" in patches
+            and got.throttle_frac == round(published.throttle_frac, 4)
+            and got.hbm_headroom_bytes == published.hbm_headroom_bytes
+            and rec["vcore_devices"] == 100
+            and rec["vmem_devices"] == self.chip.memory // (256 * MIB)
+            and rec["healthz"] == (200, "ok")
+            and traces[0] == 200 and json.loads(traces[1]) == {
+                "pods": [], "timelines": [], "outliers": [],
+                "spool_drops": 0}
+            and rec["utilization"] == 404)
+        return rec
+
+
+def _tenant(args) -> None:
+    import torch
+
+    from vtpu_manager_torch.bench_quota import _shim_counters, _wait_file
+    from vtpu_manager_torch.bench_steps import (ATTN_SHAPE, _quota_input,
+                                                _quota_step)
+    from vtpu_manager_torch.runtime.client import step_telemetry
+    from vtpu_manager_torch.workloads import block_attention as attn
+
+    dev = torch.device("cuda")
+    x = _quota_input(args.dim, dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    q, k, v = (torch.randn(ATTN_SHAPE, generator=gen, device=dev)
+               for _ in range(3))
+    bias = torch.zeros((ATTN_SHAPE[2], ATTN_SHAPE[2]), device=dev)
+    tel = step_telemetry()
+    if tel is None:
+        raise RuntimeError("no step ring: the plugin armed no StepTelemetry")
+    steps = 0
+
+    def step() -> None:
+        nonlocal x, steps
+        s0 = time.monotonic_ns()
+        x, loss = _quota_step(x)
+        if args.attn:
+            attn.attention_block(q, k, v, bias)
+        _ = float(loss)
+        tel.record(time.monotonic_ns() - s0,
+                   hbm_highwater_bytes=torch.cuda.max_memory_allocated(),
+                   compiled=(steps == 0))
+        steps += 1
+
+    for _ in range(WARMUP):
+        step()
+    hold = torch.ones(args.hold_mib * MIB, dtype=torch.uint8, device=dev)
+    torch.cuda.synchronize()
+    print("READY", flush=True)
+    _wait_file(args.go_file)
+    while steps < MAX_STEPS - TAIL_STEPS and not os.path.exists(
+            args.pause_file):
+        step()
+    print("PAUSED " + json.dumps({"records": steps}), flush=True)
+    _wait_file(args.resume_file)
+    for _ in range(TAIL_STEPS):
+        step()
+    print("WORKER " + json.dumps({
+        "pid": os.getpid(), "records": steps, "hold_bytes": hold.numel(),
+        "attn_launches": attn.LAUNCHES["attn_block"],
+        **_shim_counters()}), flush=True)
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--tenant", action="store_true")
+    ap.add_argument("--dim", type=int, default=DIM)
+    ap.add_argument("--hold-mib", type=int, default=HOLD_MIB)
+    ap.add_argument("--attn", action="store_true")
+    ap.add_argument("--go-file")
+    ap.add_argument("--pause-file")
+    ap.add_argument("--resume-file")
+    args = ap.parse_args(argv)
+    if args.tenant:
+        _tenant(args)
+    else:
+        ap.error("bench_monitor runs as a tenant; the phase is driven by "
+                 "chip_smoke.py")
+
+
+if __name__ == "__main__":
+    sys.exit(main())

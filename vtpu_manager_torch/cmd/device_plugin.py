@@ -7,8 +7,10 @@ The port of the JAX package's `cmd/device_plugin.py:108-290`, the parts
 ported so far: discovery (NVML, or `--fake-chips N` synthetic H100s), the
 device manager with the node registration and its heartbeat, the
 vtpu-number plugin served to kubelet and registered with it (again after
-a kubelet restart), the health watcher, and behind gates the memory ledger
-(VMemoryNode) and the node's utilization watcher fed by NVML (TCWatcher).
+a kubelet restart), the health watcher, and behind gates the vtpu-cores
+and vtpu-memory reporters (CorePlugin, MemoryPlugin), the memory ledger
+(VMemoryNode), the node's utilization watcher fed by NVML (TCWatcher) and
+the step rings' pressure annotation (StepTelemetry).
 
 The API server is reached with the pod's service account
 (`client.kube.InClusterClient`: KUBERNETES_SERVICE_HOST and _PORT, the
@@ -100,6 +102,8 @@ def main(argv: list[str] | None = None) -> int:
 
     from vtpu_manager_torch.config.node_config import load_node_config
     from vtpu_manager_torch.deviceplugin.base import PluginServer
+    from vtpu_manager_torch.deviceplugin.reporters import (VcorePlugin,
+                                                           VmemPlugin)
     from vtpu_manager_torch.deviceplugin.vnum import (VnumPlugin,
                                                       install_interposer)
     from vtpu_manager_torch.manager.device_manager import (
@@ -160,14 +164,22 @@ def main(argv: list[str] | None = None) -> int:
                       watcher_dir=args.watcher_dir)
     vnum.preferred_allocation_available = gates.enabled(fg.HONOR_PREALLOC_IDS)
     vnum.step_telemetry_enabled = gates.enabled(fg.STEP_TELEMETRY)
-    server = PluginServer(vnum, plugin_dir=args.plugin_dir)
-    server.serve()
-    try:
-        server.register()
-    except Exception:  # noqa: BLE001 - no kubelet listening yet
-        log.warning("kubelet registration failed for %s (no kubelet?)",
-                    vnum.resource_name)
-    server.watch_kubelet_restarts()
+    plugins = [vnum]
+    if gates.enabled(fg.CORE_PLUGIN):
+        plugins.append(VcorePlugin(manager))
+    if gates.enabled(fg.MEMORY_PLUGIN):
+        plugins.append(VmemPlugin(manager))
+    servers = []
+    for plugin in plugins:
+        server = PluginServer(plugin, plugin_dir=args.plugin_dir)
+        server.serve()
+        try:
+            server.register()
+        except Exception:  # noqa: BLE001 - no kubelet listening yet
+            log.warning("kubelet registration failed for %s (no kubelet?)",
+                        plugin.resource_name)
+        server.watch_kubelet_restarts()
+        servers.append(server)
 
     if args.health_probe_cmd:
         probe = make_external_probe(args.health_probe_cmd)
@@ -193,17 +205,32 @@ def main(argv: list[str] | None = None) -> int:
                                  os.path.basename(consts.TC_UTIL_CONFIG)),
             vmem_path=args.vmem_path)
         watcher.start()
+    pressure = None
+    if gates.enabled(fg.STEP_TELEMETRY):
+        # this agent owns the node's annotations: it scans the step rings
+        # and publishes the pressure the scheduler scores by
+        from vtpu_manager_torch.telemetry import TenantStepTelemetry
+        from vtpu_manager_torch.telemetry.pressure import PressurePublisher
+        pressure = PressurePublisher(
+            client, args.node_name, TenantStepTelemetry(args.base_dir),
+            node_hbm_total=sum(c.memory for c in chips))
+        pressure.start()
+        log.info("step-telemetry pressure publisher running")
 
     stop = threading.Event()
     for sig in (signal.SIGTERM, signal.SIGINT):
         signal.signal(sig, lambda *_: stop.set())
-    log.info("device plugin running on %s", server.socket_path)
+    log.info("device plugin running on %s",
+             ", ".join(s.socket_path for s in servers))
     stop.wait()
     log.info("stopping")
     health.stop()
     if watcher is not None:
         watcher.stop()
-    server.stop()
+    if pressure is not None:
+        pressure.stop()
+    for server in servers:
+        server.stop()
     manager.stop()
     return 0
 

@@ -223,6 +223,14 @@ class TcUtilFile:
     def read_calibration(self, retries: int = 8
                          ) -> list[tuple[int, int]] | None:
         """The table, or None when absent, empty or mid-write throughout."""
+        full = self.read_calibration_full(retries)
+        return None if full is None else full[0]
+
+    def read_calibration_full(self, retries: int = 8
+                              ) -> tuple[list[tuple[int, int]], int] | None:
+        """(table, timestamp_ns), both read in one seqlock window: a torn
+        stamp beside another generation's table would misreport the
+        calibration's age."""
         if not self._has_cal:
             return None
         for _ in range(retries):
@@ -239,7 +247,7 @@ class TcUtilFile:
                 return None
             gaps = vals[4:4 + MAX_EXCESS_POINTS]
             exc = vals[4 + MAX_EXCESS_POINTS:4 + 2 * MAX_EXCESS_POINTS]
-            return [(gaps[i], exc[i]) for i in range(n)]
+            return [(gaps[i], exc[i]) for i in range(n)], vals[1]
         return None
 
     def read_device(self, index: int, retries: int = 8) -> DeviceUtil | None:

@@ -6,8 +6,11 @@ jittered exponential backoff under a deadline, the API server's
 Retry-After honoured, and only transient failures retried (404, 403, 409
 and 422 mean the world changed, not the wire: they surface at once); a
 breaker that, after consecutive failed calls, rejects calls locally for a
-while instead of queueing doomed ones. The per-process counters and their
-metrics are not ported.
+while instead of queueing doomed ones. `render_resilience_metrics` (the
+JAX package's `:245`) renders this process's counters; the node exporter
+appends it to /metrics, so it shows the exporter's own counters, not
+those of the plugins that retry. Its failpoint block is the JAX
+registry's output with nothing armed: fault injection is not ported.
 """
 
 from __future__ import annotations
@@ -30,6 +33,20 @@ def is_retryable(exc: BaseException) -> bool:
     if isinstance(exc, KubeError):
         return exc.status in RETRYABLE_STATUSES
     return isinstance(exc, (ConnectionError, TimeoutError))
+
+
+class _Counters:
+    """(op, event) -> count for this process; dict adds under the GIL."""
+
+    def __init__(self) -> None:
+        self.data: dict[tuple[str, str], int] = {}
+
+    def bump(self, op: str, event: str, n: int = 1) -> None:
+        key = (op, event)
+        self.data[key] = self.data.get(key, 0) + n
+
+
+COUNTERS = _Counters()
 
 
 class RetryPolicy:
@@ -67,22 +84,29 @@ class RetryPolicy:
         while True:
             attempt += 1
             try:
-                return fn()
+                result = fn()
             except Exception as e:  # noqa: BLE001 - classified, re-raised
                 if not is_retryable(e):
+                    COUNTERS.bump(op, "terminal")
                     raise
                 delay = self.backoff_s(attempt,
                                        getattr(e, "retry_after", None))
                 elapsed = self._clock() - start
                 if attempt >= self.max_attempts or \
                         elapsed + delay > self.deadline_s:
+                    COUNTERS.bump(op, "exhausted")
                     log.warning("%s: giving up after %d attempt(s) "
                                 "(%.2fs elapsed): %s", op, attempt,
                                 elapsed, e)
                     raise
+                COUNTERS.bump(op, "retries")
                 log.debug("%s: attempt %d failed (%s); retrying in %.3fs",
                           op, attempt, e, delay)
                 self._sleep(delay)
+                continue
+            if attempt > 1:
+                COUNTERS.bump(op, "recovered")
+            return result
 
 
 class CircuitOpenError(RuntimeError):
@@ -134,11 +158,13 @@ class CircuitBreaker:
             if state == self.HALF_OPEN and not self._probing:
                 self._probing = True
                 return True
+            COUNTERS.bump(self.name, "circuit_rejected")
             return False
 
     def record_success(self) -> None:
         with self._lock:
             if self._state != self.CLOSED:
+                COUNTERS.bump(self.name, "circuit_closed")
                 log.info("circuit %s closed", self.name)
             self._state = self.CLOSED
             self._failures = 0
@@ -152,6 +178,7 @@ class CircuitBreaker:
                     state == self.CLOSED
                     and self._failures >= self.failure_threshold):
                 if self._state != self.OPEN:
+                    COUNTERS.bump(self.name, "circuit_opened")
                     log.warning("circuit %s opened after %d consecutive "
                                 "failure(s)", self.name, self._failures)
                 self._state = self.OPEN
@@ -180,3 +207,40 @@ class KubeResilience:
             raise
         self.breaker.record_success()
         return result
+
+
+# -- metrics -----------------------------------------------------------------
+
+def render_failpoint_metrics() -> str:
+    """The JAX registry's block with nothing armed (fault injection is not
+    ported, so nothing here ever fires)."""
+    return ("# TYPE vtpu_failpoint_fires_total counter\n"
+            "# TYPE vtpu_failpoint_evaluations_total counter\n"
+            "vtpu_failpoint_evaluations_total 0")
+
+
+def render_resilience_metrics() -> str:
+    """This process's counters as Prometheus text, appended to the node
+    exporter's /metrics; the same families and lines as the JAX
+    package's with no breaker passed."""
+    events: dict[str, list[tuple[str, int]]] = {}
+    for (op, event), count in sorted(COUNTERS.data.items()):
+        events.setdefault(event, []).append((op, count))
+    lines: list[str] = []
+    for event, metric in (("retries", "vtpu_resilience_retries_total"),
+                          ("terminal",
+                           "vtpu_resilience_terminal_errors_total"),
+                          ("exhausted", "vtpu_resilience_exhausted_total"),
+                          ("recovered", "vtpu_resilience_recovered_total"),
+                          ("circuit_rejected",
+                           "vtpu_circuit_rejected_total")):
+        lines.append(f"# TYPE {metric} counter")
+        for op, count in events.get(event, ()):
+            lines.append(f'{metric}{{op="{op}"}} {count}')
+    total_failures = sum(
+        count for (op, event), count in COUNTERS.data.items()
+        if op == "reschedule.reconcile" and event == "failure")
+    lines.append("# TYPE vtpu_reschedule_reconcile_failures_total counter\n"
+                 f"vtpu_reschedule_reconcile_failures_total {total_failures}")
+    lines.append(render_failpoint_metrics())
+    return "\n".join(lines)

@@ -64,12 +64,28 @@ DEFAULT_RESOURCE_DOMAIN = "google.com"
 DEFAULT_ANNOTATION_DOMAIN = "vtpu-manager.io"
 
 
+def resource_domain() -> str:
+    return DEFAULT_RESOURCE_DOMAIN
+
+
+def annotation_domain() -> str:
+    return DEFAULT_ANNOTATION_DOMAIN
+
+
 def vtpu_number_resource() -> str:
-    return f"{DEFAULT_RESOURCE_DOMAIN}/vtpu-number"
+    return f"{resource_domain()}/vtpu-number"
+
+
+def vtpu_cores_resource() -> str:
+    return f"{resource_domain()}/vtpu-cores"
+
+
+def vtpu_memory_resource() -> str:
+    return f"{resource_domain()}/vtpu-memory"
 
 
 def _ann(suffix: str) -> str:
-    return f"{DEFAULT_ANNOTATION_DOMAIN}/{suffix}"
+    return f"{annotation_domain()}/{suffix}"
 
 
 def pre_allocated_annotation() -> str:
@@ -104,6 +120,13 @@ def node_device_register_annotation() -> str:
 
 def node_device_heartbeat_annotation() -> str:
     return _ann("node-device-heartbeat")
+
+
+def node_pressure_annotation() -> str:
+    """The node's step-ring pressure rollup,
+    `<throttle_frac>:<hbm_headroom>@<ts>` (telemetry/pressure.py), which
+    the scheduler scores by."""
+    return _ann("node-pressure")
 
 
 ALLOC_STATUS_SUCCEED = "succeed"
@@ -148,3 +171,9 @@ ENV_CLAIM_UID = "VTPU_CLAIM_UID"
 ENV_CLAIM_REQUEST = "VTPU_CLAIM_REQUEST"     # a multi-request claim's request
 ENV_REGISTER_UUID = "VTPU_REGISTER_UUID"     # ClientMode's registry match
 ENV_OBS_EXCESS_TABLE = "VTPU_OBS_EXCESS_TABLE"
+
+# --- The node exporter's names ----------------------------------------------
+# The JAX package's (`util/consts.py:525, 538`): the span spools it serves
+# on /traces and the compile cache whose counters close every scrape.
+TRACE_DIR = f"{MANAGER_BASE_DIR}/trace"
+COMPILE_CACHE_SUBDIR = "compilecache"

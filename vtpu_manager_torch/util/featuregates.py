@@ -15,6 +15,8 @@ VMEMORY_NODE = "VMemoryNode"            # the cross-process memory ledger
 HONOR_PREALLOC_IDS = "HonorPreAllocatedDeviceIDs"
 STEP_TELEMETRY = "StepTelemetry"        # per-tenant step rings
 NRI_SUPPORT = "NRISupport"              # DRA: the NRI runtime hook
+CORE_PLUGIN = "CorePlugin"              # advertise the vtpu-cores resource
+MEMORY_PLUGIN = "MemoryPlugin"          # advertise the vtpu-memory resource
 
 _KNOWN = {
     TC_WATCHER: False,
@@ -22,6 +24,8 @@ _KNOWN = {
     HONOR_PREALLOC_IDS: False,
     STEP_TELEMETRY: False,
     NRI_SUPPORT: False,
+    CORE_PLUGIN: False,
+    MEMORY_PLUGIN: False,
 }
 
 
