@@ -93,8 +93,24 @@ result line:
    pressure is the rings' own. The pressure annotation goes through the
    in-cluster client to a TLS stub API server and decodes to what was
    published; the reporters list 100 core devices and one per 256 MiB;
-   /healthz, /traces and /utilization (404) answer. One `MONITOR {json}`
-   line per check.
+   /healthz, /traces and /utilization (404) answer. Each tenant's share
+   of the card lies within 5 points of its quota, and what the interposer
+   charged it per step within 5 % of the step's card time alone at the
+   tenant's duty (R9). One
+   `MONITOR {json}` line per check;
+10. compile_cache (`vtpu_manager_torch/bench_compilecache.py`): the
+   device plugin with the CompileCache gate allocates pods of 25 % (gate
+   on: the cache mount, env and config field; gate off: none), and three
+   replicas started together from their responses reach the first step of
+   a `torch.compile`d step (the 8192 bf16 quota step, an Inductor tail,
+   one `vtpu::attn_block` call) in four scenarios: `off` (each compiles:
+   3 compiles), `cold` (the store: 1 compile, 2 waits, no torn entry),
+   `warm` (3 hits, no compile) and `env` (Inductor's own cache on the
+   mount). Every replica's outputs within 1e-4 of one that compiled
+   alone, `warm` faster to its first step than `off`, the exporter's
+   counters equal to the replicas', the kernel launched in every replica
+   and counted by the interposer. One `COMPILE_CACHE {json}` line per
+   check.
 
 The last three lines are the nvidia-smi line, the kernels JSON and the
 result JSON.
@@ -511,6 +527,14 @@ def monitor(torch, shim: str) -> dict:
                            for p in bm.PODS},
             "taken_share": {p: running["pods"][p]["taken_share"]
                             for p in bm.PODS},
+            "taken_at_duty": {p: running["pods"][p]["taken_at_duty"]
+                              for p in bm.PODS},
+            "charge_rel_err": {p: running["pods"][p]["charge_rel_err"]
+                               for p in bm.PODS},
+            # the same charge against the step back to back, first and again
+            "charge_rel_b2b": {p: [running["pods"][p]["charge_rel_b2b"],
+                                   running["pods"][p]["charge_rel_again"]]
+                               for p in bm.PODS},
             "memory_used": {p: running["pods"][p]["memory_used"]
                             for p in bm.PODS},
             "steps": {p: after["pods"][p]["count"] for p in bm.PODS},
@@ -518,6 +542,22 @@ def monitor(torch, shim: str) -> dict:
                               for p in bm.PODS},
             "pressure": [after["pressure_frac"], after["pressure_headroom"]],
             "scrape_s": results["publish"]["scrape_s"]}
+
+
+def compile_cache(torch, shim: str) -> dict:
+    from vtpu_manager_torch import bench_compilecache as bcc
+
+    results = run_checks("compile_cache", bcc.Phase, torch, shim, bcc.CHECKS)
+    rows = [r for s in bcc.SCENARIOS for r in results[s]["rows"]]
+    launches = sum(r["step_launches"] for r in rows)
+    if launches == 0:
+        raise AssertionError("the compiled step never launched attn_block")
+    return {"scenarios": {s: {k: results[s][k] for k in (
+                "compiles", "outcomes", "ttfs_mean_s", "ttfs_max_s")}
+                          for s in bcc.SCENARIOS},
+            "attn_block_launches": launches,
+            "max_abs_err": max(results["shared"]["max_abs_err"].values()),
+            "counters": results["shared"]["counters"]}
 
 
 def main() -> int:
@@ -586,6 +626,8 @@ def main() -> int:
     summary["dra"] = phase("dra", dra, torch, str(paths["shim"]))
     summary["cluster"] = phase("cluster", cluster, torch, str(paths["shim"]))
     summary["monitor"] = phase("monitor", monitor, torch, str(paths["shim"]))
+    summary["compile_cache"] = phase("compile_cache", compile_cache, torch,
+                                     str(paths["shim"]))
     log("SUMMARY " + json.dumps(summary, default=str))
     if failures or record is None:
         print(f"chip_smoke: failed phases: {failures}", file=sys.stderr)

@@ -367,3 +367,27 @@ def test_collector_reads_back_a_tenants_held_memory(card, tmp_path):
     used = float(rows[0].rsplit(" ", 1)[1])
     assert used == held >= 64 * 2**20
     assert os.path.exists(world.vmem_path)
+
+
+@pytest.mark.gpu
+def test_custom_op_in_a_compiled_step_launches_the_kernel(card, tmp_path,
+                                                          monkeypatch):
+    """`torch.compile` of the compiled step (Inductor, in empty cache
+    directories) reaches the kernel through `vtpu::attn_block`: one launch
+    per step, outputs equal to the eager step's."""
+    from vtpu_manager_torch.workloads import compiled_step as cs
+    monkeypatch.setenv("TORCHINDUCTOR_CACHE_DIR", str(tmp_path / "inductor"))
+    monkeypatch.setenv("TRITON_CACHE_DIR", str(tmp_path / "triton"))
+    inputs = cs.make_inputs(dim=1024, device="cuda")
+    torch._dynamo.reset()
+    before = ba.LAUNCHES["attn_block"]
+    (y, a), outcome, _ = cs.first_step(inputs)
+    torch.cuda.synchronize()
+    assert outcome == "uncached"
+    assert ba.LAUNCHES["attn_block"] == before + 1
+    ey, ea = cs.step(*inputs)
+    assert (a - ea).abs().max().item() <= TOL
+    # y is bf16 below 1e-3, where a bf16 step is at most 7.6e-6: Inductor's
+    # fused tail may round differently from eager's kernels by a few steps
+    assert (y.float() - ey.float()).abs().max().item() <= 3e-5
+    torch._dynamo.reset()

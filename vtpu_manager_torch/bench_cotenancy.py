@@ -253,6 +253,10 @@ class Phase:
                 "blind_ticks": rec.get("vtpu_blind_ticks_total"),
                 "up_limit": rec.get("vtpu_up_limit"),
                 "obs_overhead_ns": rec.get("vtpu_obs_overhead_ns"),
+                # R9's sampling windows: taken, and waited out for others'
+                "windows": rec.get("vtpu_windows_total"),
+                "stand_aside_ms": rec.get("vtpu_stand_aside_ns_total",
+                                          0) / 1e6,
                 "horizon_log": rec.get("horizon_log")}
 
     def check_50_25_with_feed(self) -> tuple[dict, dict]:
@@ -370,3 +374,60 @@ class Phase:
             ok &= s["ok"]
         out["ok"] = ok
         return out
+
+
+def compare_shares(torch, shims: dict[str, str], rounds: int) -> None:
+    """50 + 50 and 60 / 25 / 10 under each interposer in turn, the order
+    reversed every other round (a, b, b, a, ...), each on a node of its
+    own; one `SHARES {json}` line per check: shares, their sum (the card's
+    throughput that reached the tenants), windows and stand-aside time."""
+    import json
+    import tempfile
+
+    _, chip = check_discovery(torch)
+    names = list(shims)
+    for r in range(rounds):
+        for name in (names if r % 2 == 0 else names[::-1]):
+            with tempfile.TemporaryDirectory(prefix="vtpu-node-") as root:
+                phase = Phase(shims[name], root, chip)
+                try:
+                    for check in (phase.check_50_50, phase.check_60_25_10):
+                        rec = check()
+                        tenants = {k: v for k, v in rec.items()
+                                   if isinstance(v, dict)}
+                        print("SHARES " + json.dumps({
+                            "shim": name, "round": r,
+                            "check": check.__name__, "ok": rec["ok"],
+                            "shares": {k: v["share"]
+                                       for k, v in tenants.items()},
+                            "sum": sum(v["share"] for v in tenants.values()),
+                            "windows": {k: v["windows"]
+                                        for k, v in tenants.items()},
+                            "stand_aside_ms": {k: v["stand_aside_ms"]
+                                               for k, v in tenants.items()},
+                            "charged_ms_per_step": {
+                                k: v["charged_ms_per_step"]
+                                for k, v in tenants.items()},
+                            "solo_ms": phase.solo_ms(STEPS)["ms_per_step"]}),
+                            flush=True)
+                finally:
+                    phase.close()
+
+
+def main(argv=None) -> None:
+    import argparse
+
+    ap = argparse.ArgumentParser(
+        description="co-tenant shares under several interposers")
+    ap.add_argument("--shares", nargs="+", required=True,
+                    metavar="NAME=SHIM",
+                    help="interposers to compare (e.g. a parent's build)")
+    ap.add_argument("--rounds", type=int, default=3)
+    args = ap.parse_args(argv)
+    import torch
+    compare_shares(torch, dict(a.split("=", 1) for a in args.shares),
+                   args.rounds)
+
+
+if __name__ == "__main__":
+    main()

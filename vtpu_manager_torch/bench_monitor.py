@@ -29,10 +29,18 @@ Checks, each a record with an `ok` verdict:
    the share of the card the tenant took over the same scrapes: the steps
    its ring gained times the card time of one of its steps alone (timed
    by the phase before the tenants start, no interposer), over the
-   scrapes' wall time. Then the tenants pause (they
-   hold their memory and write no step record) and one more scrape: each
-   tenant's memory gauge equals the sum of its ledger entries, read just
-   before and just after it, and is at least the held buffer;
+   scrapes' wall time. The same steps times the card time of one step
+   alone run at the pod's quota's duty (each step timed between its own
+   events, then the host idles for the rest of the pod's share, as the
+   tenant's steps run) lie within QUOTA_BAND points of the tenant's
+   quota, and what the interposer charged per step of the running
+   stretch (its `vtpu_charged_ns_total` from the go file to the pause,
+   over the steps between) within CHARGE_REL of that step: a kernel
+   time-sliced with a co-tenant is charged its own device time, not its
+   span. Then the tenants pause (they hold their memory and write no step
+   record) and one more scrape: each tenant's memory gauge equals the sum
+   of its ledger entries, read just before and just after it, and is at
+   least the held buffer;
 3. after: the tenants step `TAIL_STEPS` more and exit; a scrape then
    counts, per pod, as many steps as its ring holds (at most
    RING_CAPACITY), a throttle-wait fraction above 0 with q25's above
@@ -90,6 +98,12 @@ SOLO_STEPS = 10
 # split that ignored who launched (equal shares, 37.5 each here) or halved
 # a tenant's share would miss by more
 SHARE_BAND = 8.0
+# taken against the quota, in points of the card, and the charge against
+# the card time of a step at the tenant's duty: a tenant charged its own
+# device time takes its quota (co_tenancy's long runs hold the charge to
+# 5 % of kernel time at 8192)
+QUOTA_BAND = 5.0
+CHARGE_REL = 0.05
 
 _SAMPLE = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(?:\{(.*)\})? (\S+)$')
 _LABEL = re.compile(r'(\w+)="([^"]*)"')
@@ -222,6 +236,8 @@ class Phase:
         self.rings = TenantStepTelemetry(self.node.base_dir)
         self.scrape_s: list[float] = []
         self.solo_s: dict[str, float] = {}
+        self.duty_s: dict[str, float] = {}
+        self.again_s: dict[str, float] = {}
 
     def close(self) -> None:
         for t in self.tenants.values():
@@ -295,10 +311,16 @@ class Phase:
                        if e.owner_token == fnv64(f"{pod_uid(p)}/main"))
                 for p in PODS}
 
-    def _solo_step_s(self) -> dict[str, float]:
-        """Card time of one tenant step alone, per pod: the quota step (and
-        the q50 pod's attention launch) back to back between two CUDA
-        events in this process, before any tenant runs."""
+    def _solo_step_s(self) -> tuple[dict[str, float], dict[str, float],
+                                    dict[str, float]]:
+        """Card time of one tenant step alone, per pod, in this process
+        before any tenant runs: the quota step (and the q50 pod's attention
+        launch) (1) back to back between two CUDA events, and (2) one at a
+        time, each between its own events and followed by idle host time,
+        so that the card runs it at the pod's quota's duty, as the tenant
+        will (the median step); (3) back to back again once every pod has
+        run (1) and (2), which tells a first run's warm-up from the step's
+        own time (reported, not judged)."""
         torch = self.torch
         from vtpu_manager_torch.bench_steps import (ATTN_SHAPE, _quota_input,
                                                     _quota_step)
@@ -309,27 +331,42 @@ class Phase:
         q, k, v = (torch.randn(ATTN_SHAPE, generator=gen, device=dev)
                    for _ in range(3))
         bias = torch.zeros((ATTN_SHAPE[2], ATTN_SHAPE[2]), device=dev)
-        out = {}
-        for pod, (_, _, with_attn, _) in PODS.items():
-            def step():
-                nonlocal x
-                x, _ = _quota_step(x)
-                if with_attn:
-                    attn.attention_block(q, k, v, bias)
-            for _ in range(2):
-                step()
-            start, end = (torch.cuda.Event(enable_timing=True)
-                          for _ in range(2))
+        back_to_back, at_duty, again = {}, {}, {}
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+
+        def step(with_attn):
+            nonlocal x
+            x, _ = _quota_step(x)
+            if with_attn:
+                attn.attention_block(q, k, v, bias)
+
+        def run_back_to_back(with_attn) -> float:
             torch.cuda.synchronize()
             start.record()
             for _ in range(SOLO_STEPS):
-                step()
+                step(with_attn)
             end.record()
             end.synchronize()
-            out[pod] = start.elapsed_time(end) / 1e3 / SOLO_STEPS
+            return start.elapsed_time(end) / 1e3 / SOLO_STEPS
+
+        for pod, (cores, _, with_attn, _) in PODS.items():
+            for _ in range(2):
+                step(with_attn)
+            back_to_back[pod] = run_back_to_back(with_attn)
+            times = []
+            for _ in range(SOLO_STEPS):
+                start.record()
+                step(with_attn)
+                end.record()
+                end.synchronize()
+                times.append(start.elapsed_time(end) / 1e3)
+                time.sleep(times[-1] * (100.0 / cores - 1.0))
+            at_duty[pod] = sorted(times)[len(times) // 2]
+        for pod, (_, _, with_attn, _) in PODS.items():
+            again[pod] = run_back_to_back(with_attn)
         del x, q, k, v, bias
         torch.cuda.empty_cache()
-        return out
+        return back_to_back, at_duty, again
 
     def _ring_path(self, pod: str) -> str:
         return os.path.join(self.node.base_dir, f"{pod_uid(pod)}_main",
@@ -364,7 +401,7 @@ class Phase:
 
     def check_running(self) -> dict:
         chip = self.chip
-        self.solo_s = self._solo_step_s()
+        self.solo_s, self.duty_s, self.again_s = self._solo_step_s()
         self._start_tenants()
         time.sleep(SETTLE_S)
         unauthorized = self.exporter.get("/metrics", token=False)[0]
@@ -380,8 +417,10 @@ class Phase:
                     pod_uid=pod_uid(p), container="main"))
         heads1, window_s = self._ring_heads(), time.monotonic() - t0
         Path(self.root / "pause").touch()
+        paused = {}
         for p, t in self.tenants.items():
-            self.paused_counts[p] = t.line("PAUSED")["records"]
+            paused[p] = t.line("PAUSED")
+            self.paused_counts[p] = paused[p]["records"]
         before = self._ledger_bytes()
         text, samples = self._scrape()
         after = self._ledger_bytes()
@@ -409,10 +448,25 @@ class Phase:
                 "mean_share": (sum(s or 0.0 for s in shares[p])
                                / len(shares[p])),
                 "solo_step_ms": self.solo_s[p] * 1e3,
+                "duty_step_ms": self.duty_s[p] * 1e3,
+                "solo_again_ms": self.again_s[p] * 1e3,
                 "window_steps": heads1[p] - heads0[p],
                 "taken_share": (100.0 * (heads1[p] - heads0[p])
-                                * self.solo_s[p] / window_s)}
+                                * self.solo_s[p] / window_s),
+                # what the interposer charged per step of the running
+                # stretch, over the card time of that step alone
+                "charged_ms_per_step": (paused[p]["charged_ns"] / 1e6
+                                        / max(paused[p]["run_steps"], 1))}
             r = per_pod[p]
+            r["charge_rel_err"] = (r["charged_ms_per_step"]
+                                   / r["duty_step_ms"] - 1.0)
+            # the same charge against the back-to-back yardsticks (reported)
+            r["charge_rel_b2b"] = (r["charged_ms_per_step"]
+                                   / r["solo_step_ms"] - 1.0)
+            r["charge_rel_again"] = (r["charged_ms_per_step"]
+                                     / r["solo_again_ms"] - 1.0)
+            r["taken_at_duty"] = (100.0 * r["window_steps"] * self.duty_s[p]
+                                  / window_s)
             r["ok"] = bool(
                 r["core_limit"] == cores and r["memory_limit"] == gib * GIB
                 and r["ledger_before"] == r["ledger_after"]
@@ -420,6 +474,8 @@ class Phase:
                 and r["mismatch"] == 0.0 and r["mean_share"] > 0
                 and all(s is not None for s in r["shares"])
                 and abs(r["mean_share"] - r["taken_share"]) <= SHARE_BAND
+                and abs(r["taken_at_duty"] - cores) <= QUOTA_BAND
+                and abs(r["charge_rel_err"]) <= CHARGE_REL
                 and self.paused_counts[p] < MAX_STEPS - TAIL_STEPS)
         errors = {lab["feed"]: v for n, lab, v in samples
                   if n == "vtpu_node_scrape_last_error"}
@@ -484,7 +540,8 @@ class Phase:
                 "wait_fraction": value(
                     samples, "vtpu_tenant_throttle_wait_fraction", **lab),
                 "attn_launches": workers[p]["attn_launches"],
-                "shim_launches": workers[p].get("vtpu_launches_total")}
+                "shim_launches": workers[p].get("vtpu_launches_total"),
+                "blind_ticks": workers[p].get("vtpu_blind_ticks_total")}
             r["ok"] = bool(
                 r["count"] == r["ring_records"] == r["ring_head"]
                 == r["steps"] <= RING_CAPACITY
@@ -603,10 +660,14 @@ def _tenant(args) -> None:
     torch.cuda.synchronize()
     print("READY", flush=True)
     _wait_file(args.go_file)
+    charged0, steps0 = _shim_counters()["vtpu_charged_ns_total"], steps
     while steps < MAX_STEPS - TAIL_STEPS and not os.path.exists(
             args.pause_file):
         step()
-    print("PAUSED " + json.dumps({"records": steps}), flush=True)
+    print("PAUSED " + json.dumps({
+        "records": steps, "run_steps": steps - steps0,
+        "charged_ns": _shim_counters()["vtpu_charged_ns_total"] - charged0}),
+        flush=True)
     _wait_file(args.resume_file)
     for _ in range(TAIL_STEPS):
         step()

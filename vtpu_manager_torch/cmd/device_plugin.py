@@ -2,6 +2,7 @@
 
     python -m vtpu_manager_torch.cmd.device_plugin --node-name n1 \\
         [--fake-client] [--fake-chips 2] [--feature-gates StepTelemetry=true]
+        [--feature-gates CompileCache=true --compile-cache-budget-mb 4096]
 
 The port of the JAX package's `cmd/device_plugin.py:108-290`, the parts
 ported so far: discovery (NVML, or `--fake-chips N` synthetic H100s), the
@@ -9,8 +10,11 @@ device manager with the node registration and its heartbeat, the
 vtpu-number plugin served to kubelet and registered with it (again after
 a kubelet restart), the health watcher, and behind gates the vtpu-cores
 and vtpu-memory reporters (CorePlugin, MemoryPlugin), the memory ledger
-(VMemoryNode), the node's utilization watcher fed by NVML (TCWatcher) and
-the step rings' pressure annotation (StepTelemetry).
+(VMemoryNode), the node's utilization watcher fed by NVML (TCWatcher), the
+step rings' pressure annotation (StepTelemetry) and the node compile
+cache (CompileCache: Allocate mounts `<base-dir>/compilecache` into every
+tenant, and this agent evicts it to `--compile-cache-budget-mb` every
+`--compile-cache-evict-interval` seconds).
 
 The API server is reached with the pod's service account
 (`client.kube.InClusterClient`: KUBERNETES_SERVICE_HOST and _PORT, the
@@ -41,8 +45,6 @@ NOT_PORTED = {
     "--trace-sampling-rate": "tracing",
     "--trace-spool-dir": "tracing",
     "--lease-namespace": "the reschedule controller",
-    "--compile-cache-budget-mb": "the compile cache",
-    "--compile-cache-evict-interval": "the compile cache",
     "--cache-advertise-endpoint": "the cluster compile cache",
     "--cache-ad-max-pairs": "the cluster compile cache",
     "--spill-budget-gib": "memory over-commit",
@@ -83,6 +85,15 @@ def parse_args(argv: list[str] | None) -> argparse.Namespace:
                     help="the API token and CA (the API server is "
                     "KUBERNETES_SERVICE_HOST:KUBERNETES_SERVICE_PORT)")
     ap.add_argument("--mesh-domain", default="")
+    ap.add_argument("--compile-cache-budget-mb", type=int, default=4096,
+                    help="CompileCache: the node compile cache's LRU byte "
+                    "budget; this agent runs the evictor, so tenants never "
+                    "pay for eviction")
+    ap.add_argument("--compile-cache-evict-interval", type=float,
+                    default=60.0,
+                    help="seconds between evictor passes (which also reap "
+                    "crashed writers' temp files and fold exited tenants' "
+                    "counters)")
     for flag in NOT_PORTED:
         ap.add_argument(flag, default=None)
     ap.add_argument("-v", "--verbose", action="count", default=0)
@@ -93,8 +104,40 @@ def parse_args(argv: list[str] | None) -> argparse.Namespace:
     return args
 
 
+def start_cache_evictor(root: str, budget_bytes: int, interval_s: float,
+                        stop: threading.Event) -> bool:
+    """The node compile cache's janitor (JAX `cmd/device_plugin.py:
+    454-486`): every `interval_s` an LRU pass to the budget, which also
+    reaps crashed writers' temp files and folds exited tenants' counters.
+    False when the cache root cannot be made."""
+    from vtpu_manager_torch.compilecache import CompileCache
+    log = logging.getLogger("vtpu-device-plugin")
+    try:
+        cache = CompileCache(root)
+    except OSError as e:
+        log.warning("compile cache root %s unavailable (%s); evictor "
+                    "disabled", root, e)
+        return False
+
+    def loop():
+        while not stop.wait(interval_s):
+            try:
+                cache.evict(budget_bytes)
+            except OSError:
+                log.warning("compile cache evictor pass failed",
+                            exc_info=True)
+
+    threading.Thread(target=loop, daemon=True, name="vtcc-evictor").start()
+    log.info("compile cache at %s (budget %d MiB)", root, budget_bytes >> 20)
+    return True
+
+
 def main(argv: list[str] | None = None) -> int:
     args = parse_args(argv)
+    # a SIGTERM while the agent starts stops it once started, cleanly
+    stop = threading.Event()
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(sig, lambda *_: stop.set())
     logging.basicConfig(
         level=logging.DEBUG if args.verbose else logging.INFO,
         format="%(asctime)s %(levelname)s %(name)s: %(message)s")
@@ -164,6 +207,7 @@ def main(argv: list[str] | None = None) -> int:
                       watcher_dir=args.watcher_dir)
     vnum.preferred_allocation_available = gates.enabled(fg.HONOR_PREALLOC_IDS)
     vnum.step_telemetry_enabled = gates.enabled(fg.STEP_TELEMETRY)
+    vnum.compile_cache_enabled = gates.enabled(fg.COMPILE_CACHE)
     plugins = [vnum]
     if gates.enabled(fg.CORE_PLUGIN):
         plugins.append(VcorePlugin(manager))
@@ -217,9 +261,10 @@ def main(argv: list[str] | None = None) -> int:
         pressure.start()
         log.info("step-telemetry pressure publisher running")
 
-    stop = threading.Event()
-    for sig in (signal.SIGTERM, signal.SIGINT):
-        signal.signal(sig, lambda *_: stop.set())
+    if gates.enabled(fg.COMPILE_CACHE):
+        start_cache_evictor(vnum.compile_cache_host_dir(),
+                            args.compile_cache_budget_mb << 20,
+                            args.compile_cache_evict_interval, stop)
     log.info("device plugin running on %s",
              ", ".join(s.socket_path for s in servers))
     stop.wait()

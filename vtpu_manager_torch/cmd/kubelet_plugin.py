@@ -109,6 +109,10 @@ def parse_args(argv: list[str] | None) -> argparse.Namespace:
 
 def main(argv: list[str] | None = None) -> int:
     args = parse_args(argv)
+    # a SIGTERM while the agent starts stops it once started, cleanly
+    stop = threading.Event()
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(sig, lambda *_: stop.set())
     logging.basicConfig(
         level=logging.DEBUG if args.verbose else logging.INFO,
         format="%(asctime)s %(levelname)s %(name)s: %(message)s")
@@ -230,9 +234,6 @@ def main(argv: list[str] | None = None) -> int:
     health = DraHealthWatcher(chips, probe, slice_built)
     health.start()
 
-    stop = threading.Event()
-    for sig in (signal.SIGTERM, signal.SIGINT):
-        signal.signal(sig, lambda *_: stop.set())
     log.info("DRA driver running on %s", driver.socket_path)
     stop.wait()
     log.info("stopping")

@@ -362,6 +362,21 @@ LedgerBytes ScanLedgerBytes(int slot) {
   return out;
 }
 
+bool TenantOnCard(int slot, uint64_t token) {
+  const DeviceLimits* d = Dev(slot);
+  MapLedgerOnce();
+  if (!g_vmem || !d) return false;
+  uint64_t now = NowNs();
+  for (int i = 0; i < kVmemMaxEntries; i++) {
+    const VmemEntry& e = g_vmem->entries[i];
+    int pid = __atomic_load_n(&e.pid, __ATOMIC_ACQUIRE);
+    if (pid == 0 || e.host_index != d->host_index || e.owner_token != token)
+      continue;
+    if (PidAlive(pid) || now - e.last_update_ns <= StaleReapNs()) return true;
+  }
+  return false;
+}
+
 VmemEntry* OwnLedgerEntry(int slot) {
   const DeviceLimits* d = Dev(slot);
   MapLedgerOnce();

@@ -30,7 +30,8 @@
 // Cost. A TPU program is one executable with a measured duration; a GPU
 // step is many kernels. Each CUfunction (and each CUgraphExec) keeps an
 // exponential moving average of its duration (alpha 0.3, as
-// enforce.cc:66). A sample of launches is
+// enforce.cc:66); beside a co-tenant it is learned otherwise (below). A
+// sample of launches is
 // bracketed by two cuEventRecord calls on the launch's stream, and the pair
 // is read back later with a non-blocking cuEventQuery, in the launching
 // thread, so a launch never waits on the device. A measured sample also
@@ -49,6 +50,34 @@
 // calibration, VTPU_OBS_OVERHEAD_US (enforce.cc:111), replaces the probe;
 // 0 turns the discount off.
 //
+// Co-tenancy. Two contexts on a card without MPS take turns in time
+// slices, so the span of a kernel that ran beside a co-tenant's also holds
+// the co-tenant's slices (a PJRT execution, which the reference times at
+// enforce.cc:2684 OnExecuteDone, is never preempted). While the feed or
+// the ledger shows a co-tenant on the card, the tenants measure long
+// kernels (a millisecond or more, sampled at every launch) in windows of
+// their own: such a kernel's sample claims the device's sampling window (a
+// small file beside the device lock, <VTPU_LOCK_DIR>/vtpu_<host>.window),
+// during which every other tenant holds its launches back (StandAside),
+// waits until the co-tenants' queued kernels have drained (WaitIdleCard:
+// an empty kernel finishes within kIdleHostNs of its launch only on an
+// idle card), launches alone, and closes the window when its kernel ends.
+// A launch is then charged, and its sample settles to, the EMA of the
+// kernel's windowed samples. The first sample does this, and then every
+// kGateEvery-th while the spans sampled outside windows disagree with that
+// EMA by more than kDisagree (a co-tenant's slices in them), else every
+// kGateRefresh-th, which follows a kernel whose own time drifts. A short
+// kernel, and a tenant alone, are charged the EMA of the samples outside
+// windows, as before. A window that finds no idle card within twice the
+// kernel's cost is given up and the next kGateBackoff chances skipped; a
+// window longer than kSampleWindowMaxNs, or one whose owner has no entry
+// on the card in the ledger, is neither honoured nor respected. Beside a
+// co-tenant the observation probe runs only in a window of the tenant's
+// own, so the isolated discount stays the launch latency, not a slice.
+// What this costs: a co-tenant's launch waits while a window is open
+// (vtpu_stand_aside_ns_total), and the card idles while a window waits for
+// the drain to show.
+//
 // Refill and the tick. A watcher thread refills every 10 ms window (the
 // GPU's kernels are micro- to milliseconds long, where the TPU's 100 ms
 // window suits whole programs); a thread waiting on debt also refills for
@@ -61,6 +90,8 @@
 // than the feed attributes to it (events that complete at submission) is
 // charged a per-launch cost learned from the feed instead, reconciled
 // against the feed, and its rate is steered by the delta/AIMD controllers.
+// A horizon in which no sample finished is not judged (a kernel of tens of
+// milliseconds may be sampled less often than every horizon).
 // NVML averages its utilization over a sample period of up to 1 s, so for
 // 1 s after the tenant starts launching (or resumes after an idle gap) and
 // after the set of co-tenants in the feed changes, the feed still holds
@@ -77,11 +108,15 @@
 // goes at once and its cost becomes debt (enforce.cc:2541); a launch that
 // has waited 10 s goes unthrottled (enforce.cc:2561-2571).
 
+#include <fcntl.h>
 #include <pthread.h>
+#include <sys/mman.h>
+#include <sys/stat.h>
 #include <time.h>
 #include <unistd.h>
 
 #include <algorithm>
+#include <cstdio>
 #include <cstdlib>
 #include <mutex>
 #include <unordered_map>
@@ -107,6 +142,14 @@ constexpr int64_t kMinSleepNs = 20'000;
 constexpr int64_t kMaxSleepNs = 2'000'000;
 constexpr uint64_t kAlwaysSampleFirst = 16;
 constexpr uint64_t kSampleEvery = 4;
+constexpr int64_t kSampleAllNs = 1'000'000;  // a cost this long: every launch
+constexpr int64_t kIdleHostNs = 300'000;  // the idle probe on an idle card
+constexpr int64_t kIdlePollNs = 20'000;
+constexpr int kGateBackoff = 4;
+constexpr uint64_t kGateEvery = 8;
+constexpr uint64_t kGateRefresh = 64;
+constexpr double kDisagree = 0.1;
+constexpr int64_t kSampleWindowMaxNs = 50'000'000;
 constexpr size_t kMaxPending = 256;
 constexpr int kProbeConverged = 6;
 constexpr uint64_t kProbeFastNs = 20'000'000;
@@ -141,6 +184,7 @@ struct DeviceBucket {
   // feed shows it
   std::atomic<uint64_t> active_since_ns{0};
   std::atomic<bool> blind{false};
+  std::atomic<bool> shared{false};  // a co-tenant on the card, last tick
   std::atomic<int64_t> blind_cost_ns{0};
   std::atomic<uint64_t> vmem_retry_ns{0};
   std::atomic<int64_t> obs_overhead_ns{0};
@@ -179,13 +223,31 @@ std::atomic<int64_t> g_charged_ns{0};  // launch charges plus settlements
 std::atomic<uint64_t> g_watcher_external{0};
 std::atomic<uint64_t> g_watcher_fallback{0};
 std::atomic<uint64_t> g_blind_ticks{0};
+std::atomic<uint64_t> g_windows{0};          // samples taken in a window
+std::atomic<uint64_t> g_stand_aside_ns{0};   // held for others' windows
 std::atomic<bool> g_watcher_started{false};
 
 struct FnCost {
-  int64_t ema_ns = 0;
+  int64_t ema_ns = 0;    // EMA of the samples taken alone
+  int64_t low_ns = 0;    // shared spans outside windows, min-filtered
+  int64_t clean_ns = 0;  // EMA of the samples taken in windows of its own
   uint64_t launches = 0;
   bool inflight = false;
+  bool agree = false;    // the last shared span outside a window ~ clean_ns
+  int gate_backoff = 0;  // window chances to skip after a drain timed out
 };
+
+// What a launch is charged. Beside a co-tenant: the windowed EMA, else
+// (a short kernel, or before its first window) the min-filtered spans,
+// which follow a lower span at once and a higher one by 1/16, as the
+// probe's estimate does (a span is never shorter than the kernel's own
+// time). Alone: the EMA of the samples taken alone.
+int64_t CostOf(const FnCost& c, bool shared) {
+  int64_t beside = c.clean_ns > 0 ? c.clean_ns : c.low_ns;
+  if (shared && beside > 0) return beside;
+  if (c.ema_ns > 0) return c.ema_ns;
+  return beside > 0 ? beside : kDefaultCostNs;
+}
 
 // What a cost is kept for: a CUfunction or a CUgraphExec.
 using CostKey = const void*;
@@ -198,6 +260,8 @@ struct Sample {
   int slot = 0;
   int64_t charged_ns = 0;
   bool isolated = false;
+  bool shared = false;
+  bool windowed = false;  // taken in a window the co-tenants stood aside for
 };
 
 std::mutex g_cost_mu;
@@ -367,12 +431,14 @@ void JudgeHorizon(int slot) {
   int64_t launches = b.launches.exchange(0, std::memory_order_relaxed);
   int64_t attributed = cs->attributed_ns;
   uint64_t since = b.active_since_ns.load(std::memory_order_relaxed);
-  bool judged = launches > 0 && NowNs() - since >= kFeedLagNs;
+  int64_t obs_n = b.observed_n.exchange(0, std::memory_order_relaxed);
+  int64_t obs_ns = b.observed_ns.exchange(0, std::memory_order_relaxed);
+  // a horizon in which no sample finished (a long kernel is sampled every
+  // few launches) holds no evidence either
+  bool judged = launches > 0 && obs_n > 0 && NowNs() - since >= kFeedLagNs;
   // what the samples saw, scaled to every launch of the horizon (the
   // reference's observed busy time). Not self_ns: while blind, that holds
   // charges learned from the feed and would clear the flag by itself.
-  int64_t obs_n = b.observed_n.exchange(0, std::memory_order_relaxed);
-  int64_t obs_ns = b.observed_ns.exchange(0, std::memory_order_relaxed);
   int64_t seen = obs_n > 0 ? obs_ns * std::max(launches, obs_n) / obs_n : 0;
   // blind = self-observation far below reality: nothing observed despite
   // launches, or the feed attributing several times what we saw
@@ -480,6 +546,7 @@ void WatcherTick(uint64_t now, int64_t window_ns) {
     cs->used_sum += used;
     cs->external |= external;
     cs->others |= others;
+    b.shared.store(others, std::memory_order_relaxed);
     if (++cs->ticks >= kHorizonTicks) JudgeHorizon(slot);
   }
 }
@@ -616,7 +683,9 @@ void DrainLocked() {
               elapsed(&ms, s.start, s.end) == CUDA_SUCCESS;
     int64_t dur = (int64_t)(ms * 1e6);
     if (!s.key) {
-      if (ok) AdoptProbe(s.slot, dur);
+      // beside a co-tenant, a span longer than an idle card's launch
+      // latency waited for the co-tenant's slice
+      if (ok && !(s.shared && dur > kIdleHostNs)) AdoptProbe(s.slot, dur);
     } else {
       FnCost& c = g_costs[s.key];
       c.inflight = false;
@@ -627,13 +696,24 @@ void DrainLocked() {
         }
         b.observed_ns.fetch_add(dur, std::memory_order_relaxed);
         b.observed_n.fetch_add(1, std::memory_order_relaxed);
-        c.ema_ns = c.ema_ns == 0
-                       ? dur
-                       : (int64_t)(kCostEmaAlpha * dur +
-                                   (1 - kCostEmaAlpha) * c.ema_ns);
+        Log(kLogDebug, "sample %p dur=%lld isolated=%d shared=%d windowed=%d "
+            "charged=%lld", s.key, (long long)dur, (int)s.isolated,
+            (int)s.shared, (int)s.windowed, (long long)s.charged_ns);
+        if (s.shared && !s.windowed) {
+          c.low_ns = (c.low_ns == 0 || dur < c.low_ns)
+                         ? dur
+                         : c.low_ns + (dur - c.low_ns) / 16;
+          if (c.clean_ns > 0)
+            c.agree = std::abs(dur - c.clean_ns) <= kDisagree * c.clean_ns;
+        } else {
+          int64_t& ema = s.windowed ? c.clean_ns : c.ema_ns;
+          ema = ema == 0 ? dur
+                         : (int64_t)(kCostEmaAlpha * dur +
+                                     (1 - kCostEmaAlpha) * ema);
+        }
         // a blind tenant's samples lie; the tick settles against the feed
         if (!b.blind.load(std::memory_order_relaxed))
-          Charge(s.slot, dur - s.charged_ns);
+          Charge(s.slot, (s.shared ? CostOf(c, true) : dur) - s.charged_ns);
       }
     }
     GiveEvents(s);
@@ -660,6 +740,7 @@ void ProbeLocked(int slot, CUstream stream, PFN_cuEventRecord record) {
   }
   Sample s;
   s.slot = slot;
+  s.shared = g_bucket[slot].shared.load(std::memory_order_relaxed);
   s.start = TakeEvent();
   s.end = TakeEvent();
   bool ok = s.start && s.end && record(s.start, stream) == CUDA_SUCCESS;
@@ -677,10 +758,186 @@ void ProbeLocked(int slot, CUstream stream, PFN_cuEventRecord record) {
     GiveEvents(s);
 }
 
+// The idle probe: an empty kernel, work for the compute engine, which a
+// co-tenant's time slice holds back (a memset may run on a copy engine
+// beside it).
+constexpr char kIdleKernelPtx[] =
+    ".version 6.0\n.target sm_50\n.address_size 64\n"
+    ".visible .entry vtpu_idle_probe()\n{\n\tret;\n}\n";
+CUfunction g_idle_fn[kMaxDevices] = {};
+bool g_idle_fn_off[kMaxDevices] = {};
+
+// The empty kernel, loaded into the calling thread's context at first use
+// (nullptr when that fails). Caller holds g_cost_mu.
+CUfunction IdleKernelLocked(int slot) {
+  if (!g_idle_fn[slot] && !g_idle_fn_off[slot]) {
+    auto load = VTPU_REAL_AS(PFN_cuModuleLoadData, "cuModuleLoadData");
+    auto get = VTPU_REAL_AS(PFN_cuModuleGetFunction, "cuModuleGetFunction");
+    CUmodule mod = nullptr;
+    if (!load || !get || load(&mod, kIdleKernelPtx) != CUDA_SUCCESS ||
+        get(&g_idle_fn[slot], mod, "vtpu_idle_probe") != CUDA_SUCCESS) {
+      g_idle_fn[slot] = nullptr;
+      g_idle_fn_off[slot] = true;
+      Log(kLogWarn, "device %d: the idle probe's kernel did not load; "
+          "co-tenant samples wait for no idle card", slot);
+    }
+  }
+  return g_idle_fn[slot];
+}
+
+// Launches the empty kernel on `stream` until two in a row finish within
+// kIdleHostNs of being launched, as the host sees it: the card is idle, no
+// co-tenant holds it. Under time-slicing a busy card runs the kernel only
+// at the co-tenant's slice's end, and the events around it would run in
+// the same slice, so the host's clock, not the events', tells the two
+// apart. One fast kernel may have been launched just before a slice ended
+// while the co-tenant still has work queued; the card then goes back to
+// the co-tenant, and the second kernel waits a slice. False when
+// `budget_ns` ran out or the kernel is unavailable.
+bool WaitIdleCard(int slot, CUstream stream, int64_t budget_ns) {
+  auto record = VTPU_REAL_AS(PFN_cuEventRecord, "cuEventRecord");
+  auto query = VTPU_REAL_AS(PFN_cuEventQuery, "cuEventQuery");
+  auto launch = VTPU_REAL(cuLaunchKernel);
+  if (!record || !query || !launch) return -1;
+  CUfunction fn;
+  CUevent done;
+  {
+    std::lock_guard<std::mutex> lock(g_cost_mu);
+    fn = IdleKernelLocked(slot);
+    done = TakeEvent();
+  }
+  uint64_t deadline = NowNs() + budget_ns;
+  int fast = 0;
+  while (fn && done && fast < 2) {
+    uint64_t t0 = NowNs();
+    if (launch(fn, 1, 1, 1, 1, 1, 1, 0, stream, nullptr, nullptr) !=
+            CUDA_SUCCESS ||
+        record(done, stream) != CUDA_SUCCESS)
+      break;
+    CUresult rc;
+    while ((rc = query(done)) == CUDA_ERROR_NOT_READY && NowNs() < deadline) {
+      struct timespec ts = {0, (long)kIdlePollNs};
+      nanosleep(&ts, nullptr);
+    }
+    if (rc != CUDA_SUCCESS) break;
+    fast = NowNs() - t0 <= (uint64_t)kIdleHostNs ? fast + 1 : 0;
+    if (fast < 2 && NowNs() >= deadline) break;
+  }
+  std::lock_guard<std::mutex> lock(g_cost_mu);
+  if (done) g_event_pool.push_back(done);
+  return fast == 2;
+}
+
+// A device's sampling window, shared by the tenants of the node in
+// <VTPU_LOCK_DIR>/vtpu_<host>.window: until when, and for which tenant,
+// the others hold their launches back, so that the kernel it samples then
+// runs alone. Not part of the JAX package's layouts.
+struct SampleWindow {
+  std::atomic<uint64_t> until_ns;
+  std::atomic<uint64_t> owner;
+};
+static_assert(sizeof(SampleWindow) == 16, "layout");
+
+SampleWindow* g_window[kMaxDevices] = {};
+std::once_flag g_window_once[kMaxDevices];
+
+SampleWindow* Window(int slot) {
+  std::call_once(g_window_once[slot], [slot] {
+    const char* dir = getenv("VTPU_LOCK_DIR");
+    if (!dir || !*dir) dir = "/tmp/.vtpu_lock";
+    mkdir(dir, 0777);
+    char path[512];
+    snprintf(path, sizeof(path), "%s/vtpu_%d.window", dir,
+             Dev(slot)->host_index);
+    int fd = open(path, O_CREAT | O_RDWR | O_CLOEXEC, 0666);
+    if (fd < 0) return;
+    struct stat st;
+    if (fstat(fd, &st) == 0 && st.st_size < (off_t)sizeof(SampleWindow) &&
+        ftruncate(fd, sizeof(SampleWindow)) != 0) {
+      close(fd);
+      return;
+    }
+    void* mem = mmap(nullptr, sizeof(SampleWindow), PROT_READ | PROT_WRITE,
+                     MAP_SHARED, fd, 0);
+    close(fd);
+    if (mem != MAP_FAILED) g_window[slot] = static_cast<SampleWindow*>(mem);
+  });
+  return g_window[slot];
+}
+
+// Whether a window another tenant set is one a tenant of this card would
+// open: no longer than kSampleWindowMaxNs from `now`, its owner on the card
+// in the ledger. Any other window (a dead tenant's, a planted one) is void.
+bool WindowValid(int slot, uint64_t until, uint64_t owner, uint64_t now) {
+  return until - now <= (uint64_t)kSampleWindowMaxNs &&
+         TenantOnCard(slot, owner);
+}
+
+// Claims the window until `until`: expired, already ours, or void.
+bool OpenWindow(int slot, uint64_t until) {
+  SampleWindow* w = Window(slot);
+  if (!w) return false;
+  uint64_t cur = w->until_ns.load(std::memory_order_acquire);
+  uint64_t owner = w->owner.load(std::memory_order_relaxed);
+  uint64_t now = NowNs();
+  if (cur > now && owner != OwnerToken() && WindowValid(slot, cur, owner, now))
+    return false;
+  if (!w->until_ns.compare_exchange_strong(cur, until,
+                                           std::memory_order_acq_rel))
+    return false;
+  w->owner.store(OwnerToken(), std::memory_order_release);
+  return true;
+}
+
+// Moves our window's end (0 closes it).
+void SetWindow(int slot, uint64_t until) {
+  SampleWindow* w = Window(slot);
+  if (w && w->owner.load(std::memory_order_acquire) == OwnerToken())
+    w->until_ns.store(until, std::memory_order_release);
+}
+
+// Holds a launch while another tenant samples in a valid window, polling
+// every kIdlePollNs, since the window closes when its kernel ends.
+void StandAside(int slot) {
+  SampleWindow* w = Window(slot);
+  if (!w) return;
+  uint64_t start = NowNs(), valid_owner = 0;
+  for (;;) {
+    uint64_t until = w->until_ns.load(std::memory_order_acquire);
+    uint64_t owner = w->owner.load(std::memory_order_relaxed);
+    uint64_t now = NowNs();
+    if (until <= now || owner == OwnerToken() ||
+        now - start > (uint64_t)kSampleWindowMaxNs)
+      break;
+    if (owner != valid_owner) {
+      if (!WindowValid(slot, until, owner, now)) break;
+      valid_owner = owner;
+    }
+    struct timespec ts = {0, (long)std::min<uint64_t>(until - now,
+                                                      kIdlePollNs)};
+    nanosleep(&ts, nullptr);
+  }
+  if (valid_owner)
+    g_stand_aside_ns.fetch_add(NowNs() - start, std::memory_order_relaxed);
+}
+
+// Closes our window once the kernel sampled in it has ended (its end
+// event), or at `until` at the latest.
+void CloseWindowAfter(int slot, CUevent end, uint64_t until) {
+  auto query = VTPU_REAL_AS(PFN_cuEventQuery, "cuEventQuery");
+  while (end && query && query(end) == CUDA_ERROR_NOT_READY &&
+         NowNs() < until) {
+    struct timespec ts = {0, (long)kIdlePollNs};
+    nanosleep(&ts, nullptr);
+  }
+  SetWindow(slot, 0);
+}
+
 struct Ticket {
   bool sampled = false;
   Sample sample;
   CUstream stream = nullptr;
+  uint64_t window_until = 0;  // a windowed sample: when its window ends
 };
 
 // Whether a launch into `stream` is captured rather than run: the stream
@@ -711,38 +968,87 @@ void BeforeLaunch(CostKey key, CUstream stream, int slot, bool may_sample,
   DeviceBucket& b = g_bucket[slot];
   uint64_t now = NowNs();
   int64_t cost;
-  bool sample, probe;
+  bool sample, probe, shared, gate = false;
   {
     std::lock_guard<std::mutex> lock(g_cost_mu);
     DrainLocked();
     FnCost& c = g_costs[key];
-    cost = c.ema_ns > 0 ? c.ema_ns : kDefaultCostNs;
+    shared = b.shared.load(std::memory_order_relaxed);
+    cost = CostOf(c, shared);
     if (b.blind.load(std::memory_order_relaxed))
       cost = std::max(cost, b.blind_cost_ns.load(std::memory_order_relaxed));
     c.launches++;
     sample = may_sample && !c.inflight && g_pending.size() < kMaxPending &&
-             (c.launches <= kAlwaysSampleFirst || c.launches % kSampleEvery == 0);
+             (c.launches <= kAlwaysSampleFirst ||
+              c.launches % kSampleEvery == 0 || cost >= kSampleAllNs);
     if (sample) c.inflight = true;
+    // under co-tenancy a long kernel's first sample, and then every
+    // kGateEvery-th while its spans disagree with its windowed cost (else
+    // every kGateRefresh-th), is taken in a window of its own
+    if (sample && shared && cost >= kSampleAllNs &&
+        (c.clean_ns == 0 ||
+         c.launches % (c.agree ? kGateRefresh : kGateEvery) == 0)) {
+      gate = c.gate_backoff == 0;
+      if (!gate) c.gate_backoff--;
+    }
     uint64_t since = now - b.last_probe_ns.load(std::memory_order_relaxed);
-    probe = may_sample && !g_probe_off[slot] && ObsOverrideNs() < 0 &&
+    // a kernel with no cost yet is sampled, not displaced by the probe
+    probe = may_sample &&
+            (c.ema_ns > 0 || c.low_ns > 0 || c.clean_ns > 0) &&
+            !g_probe_off[slot] &&
+            ObsOverrideNs() < 0 &&
             since >= (b.obs_samples.load(std::memory_order_relaxed) <
                               kProbeConverged
                           ? kProbeFastNs
                           : kProbeSlowNs);
   }
   RateLimit(slot, cost);
+  // not only while shared: the tick may not have seen the co-tenant yet
+  StandAside(slot);
   BumpActivity(slot);
   if (!sample && !probe) return;
   auto record = VTPU_REAL_AS(PFN_cuEventRecord, "cuEventRecord");
   auto query = VTPU_REAL_AS(PFN_cuStreamQuery, "cuStreamQuery");
   bool ok = record && query;
+  bool windowed = false;
+  if (gate && ok) {
+    // the co-tenants hold their launches in our window; once their kernels
+    // have drained (an idle card), ours runs alone, and AfterLaunch closes
+    // the window when it ends. Failing that, the launch goes unsampled and
+    // the next chances are skipped.
+    bool opened = OpenWindow(slot, NowNs() + kSampleWindowMaxNs);
+    windowed = opened && WaitIdleCard(slot, stream,
+                                      std::min(2 * cost,
+                                               kSampleWindowMaxNs / 2));
+    if (windowed) {
+      t->window_until =
+          NowNs() + std::min(cost + cost / 4, kSampleWindowMaxNs);
+      SetWindow(slot, t->window_until);
+    } else if (opened) {
+      SetWindow(slot, 0);
+    }
+    std::lock_guard<std::mutex> lock(g_cost_mu);
+    FnCost& c = g_costs[key];
+    if (!windowed) {
+      c.inflight = false;
+      // another tenant's window is no reason to wait; a busy card is
+      if (opened) c.gate_backoff = kGateBackoff;
+      sample = false;
+    }
+  }
+  if (!sample && !probe) return;
   // idle: nothing of this tenant pending on the stream
   bool idle = ok && query(stream) == CUDA_SUCCESS;
   std::lock_guard<std::mutex> lock(g_cost_mu);
   if (probe && idle) {
     b.last_probe_ns.store(NowNs(), std::memory_order_relaxed);
     ProbeLocked(slot, stream, record);
-    ok = false;  // this launch goes unsampled behind the probe
+    // this launch goes unsampled behind the probe, or in a window sampled
+    // behind it
+    if (windowed)
+      idle = false;
+    else
+      ok = false;
   }
   if (!sample) return;
   Sample s;
@@ -750,6 +1056,8 @@ void BeforeLaunch(CostKey key, CUstream stream, int slot, bool may_sample,
   s.slot = slot;
   s.charged_ns = cost;
   s.isolated = idle;
+  s.shared = shared;
+  s.windowed = windowed;
   if (ok) {
     s.start = TakeEvent();
     s.end = TakeEvent();
@@ -758,6 +1066,7 @@ void BeforeLaunch(CostKey key, CUstream stream, int slot, bool may_sample,
   if (!ok) {
     GiveEvents(s);
     g_costs[key].inflight = false;
+    if (windowed) SetWindow(slot, 0);
     return;
   }
   t->sampled = true;
@@ -768,14 +1077,22 @@ void BeforeLaunch(CostKey key, CUstream stream, int slot, bool may_sample,
 void AfterLaunch(CUresult rc, Ticket* t) {
   if (!t->sampled) return;
   auto record = VTPU_REAL_AS(PFN_cuEventRecord, "cuEventRecord");
-  std::lock_guard<std::mutex> lock(g_cost_mu);
-  if (rc == CUDA_SUCCESS && record(t->sample.end, t->stream) == CUDA_SUCCESS) {
-    g_pending.push_back(t->sample);
-    g_sampled.fetch_add(1, std::memory_order_relaxed);
-    return;
+  CUevent end = nullptr;
+  {
+    std::lock_guard<std::mutex> lock(g_cost_mu);
+    if (rc == CUDA_SUCCESS &&
+        record(t->sample.end, t->stream) == CUDA_SUCCESS) {
+      g_pending.push_back(t->sample);
+      g_sampled.fetch_add(1, std::memory_order_relaxed);
+      g_windows.fetch_add(t->sample.windowed, std::memory_order_relaxed);
+      end = t->sample.end;
+    } else {
+      GiveEvents(t->sample);
+      g_costs[t->sample.key].inflight = false;
+    }
   }
-  GiveEvents(t->sample);
-  g_costs[t->sample.key].inflight = false;
+  if (t->sample.windowed)
+    CloseWindowAfter(t->sample.slot, end, t->window_until);
 }
 
 template <typename Launch>
@@ -947,6 +1264,16 @@ VTPU_EXPORT int64_t vtpu_charged_ns_total() {
 
 VTPU_EXPORT uint64_t vtpu_throttle_wait_ns_total() {
   return g_throttle_wait_ns.load(std::memory_order_relaxed);
+}
+
+// Samples taken in a sampling window of this tenant's own, and the time
+// its launches stood aside for other tenants' windows.
+VTPU_EXPORT uint64_t vtpu_windows_total() {
+  return g_windows.load(std::memory_order_relaxed);
+}
+
+VTPU_EXPORT uint64_t vtpu_stand_aside_ns_total() {
+  return g_stand_aside_ns.load(std::memory_order_relaxed);
 }
 
 // The probe's estimate of an isolated sample's overhead on device 0.

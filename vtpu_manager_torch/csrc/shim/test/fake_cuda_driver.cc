@@ -20,6 +20,13 @@
 //                           at offset 0) for a test playing the watcher
 //   FAKE_LYING_EVENTS=1     events complete when recorded: the process
 //                           cannot see its own device time
+//   FAKE_TIMESLICE_US=n     with FAKE_SHARED_STATE: the card time-slices
+//                           between processes, as two CUDA contexts without
+//                           MPS do. While several processes have work
+//                           queued, execution alternates between them in
+//                           slices of n microseconds (round robin); a
+//                           kernel's events then bracket the co-tenants'
+//                           slices too. Alone, a process runs as in FIFO.
 //
 // Stream capture follows the driver's rules as far as the interposer meets
 // them: a launch into a capturing stream becomes a node of the graph and
@@ -28,6 +35,8 @@
 // does touching the legacy stream or querying an event while a global-mode
 // capture is underway; cuStreamEndCapture then fails. A stream's device is
 // bits 12-15 of its handle (cuStreamGetCtx), for multi-device launches.
+// cuModuleLoadData and cuModuleGetFunction give, for any image and name, a
+// kernel that runs no time (the interposer's idle probe loads one).
 
 #include <fcntl.h>
 #include <stdio.h>
@@ -51,6 +60,7 @@ namespace {
 struct FakeEvent {
   uint64_t at_ns = 0;
   bool recorded = false;
+  uint64_t seq = 0;  // sliced card: the item it waits for (0 = stamped)
 };
 
 std::mutex g_mu;
@@ -96,12 +106,36 @@ uint64_t TotalMem() { return EnvU64("FAKE_TOTAL_MEM", 16ull << 30); }
 uint64_t LatencyNs() { return EnvU64("FAKE_SUBMIT_LATENCY_US", 0) * 1000; }
 bool LyingEvents() { return EnvU64("FAKE_LYING_EVENTS", 0) != 0; }
 
+// The time-sliced card's per-process queue: work items by sequence
+// number, each with its execution time, the time it may start (submission
+// latency) and, once run, when it finished.
+constexpr int kSliceProcs = 8;
+constexpr uint64_t kSliceRing = 256;
+
+struct SliceProc {
+  int32_t pid;  // 0 = free
+  int32_t pad_;
+  uint64_t next_seq;      // items submitted
+  uint64_t done_seq;      // items finished
+  uint64_t head_left_ns;  // what the oldest unfinished item has left to run
+  uint64_t exec_ns[kSliceRing];
+  uint64_t ready_ns[kSliceRing];
+  uint64_t done_at_ns[kSliceRing];
+};
+
 struct SharedChip {
   uint64_t busy_ns;
   uint64_t free_at_ns;
+  // time-slicing: the card is simulated up to sim_ns, slice owner current
+  uint64_t sim_ns;
+  int32_t current;
+  int32_t pad_;
+  uint64_t slice_end_ns;
+  SliceProc procs[kSliceProcs];
 };
 SharedChip* g_shared = nullptr;
 int g_shared_lock_fd = -1;
+int g_slice_slot = -1;  // this process's queue on the sliced card
 
 void InitSharedChip() {
   const char* path = getenv("FAKE_SHARED_STATE");
@@ -122,6 +156,131 @@ void InitSharedChip() {
   g_shared = static_cast<SharedChip*>(mem);
 }
 
+uint64_t SliceNs() { return EnvU64("FAKE_TIMESLICE_US", 0) * 1000; }
+
+bool Sliced() {
+  static std::once_flag once;
+  std::call_once(once, InitSharedChip);
+  return g_shared && SliceNs() > 0;
+}
+
+// Holds the shared card's flock for a scope.
+struct ChipLock {
+  ChipLock() { flock(g_shared_lock_fd, LOCK_EX); }
+  ~ChipLock() { flock(g_shared_lock_fd, LOCK_UN); }
+};
+
+uint64_t Pending(const SliceProc& p) { return p.next_seq - p.done_seq; }
+
+// Whether a process has work that may run at `t`.
+bool Runnable(const SliceProc& p, uint64_t t) {
+  return p.pid != 0 && Pending(p) > 0 &&
+         p.ready_ns[(p.done_seq + 1) % kSliceRing] <= t;
+}
+
+// Runs the sliced card's simulation up to `now`: the slice's owner runs
+// its oldest item until the item ends (then its next one) or the slice
+// ends; then the next process with runnable work takes a slice. Caller
+// holds the chip lock.
+void AdvanceLocked(uint64_t now) {
+  SharedChip& c = *g_shared;
+  if (c.sim_ns == 0) c.sim_ns = now;
+  while (c.sim_ns < now) {
+    uint64_t t = c.sim_ns;
+    bool keep = c.current >= 0 && Runnable(c.procs[c.current], t) &&
+                t < c.slice_end_ns;
+    if (!keep) {
+      int pick = -1;
+      for (int i = 1; i <= kSliceProcs; i++) {
+        int cand = ((c.current < 0 ? -1 : c.current) + i + kSliceProcs) %
+                   kSliceProcs;
+        if (Runnable(c.procs[cand], t)) {
+          pick = cand;
+          break;
+        }
+      }
+      if (pick < 0) {
+        // idle until the earliest submitted item may start
+        uint64_t next = now;
+        for (const SliceProc& p : c.procs)
+          if (p.pid != 0 && Pending(p) > 0)
+            next = std::min(next, p.ready_ns[(p.done_seq + 1) % kSliceRing]);
+        c.current = -1;
+        c.sim_ns = std::max(next, t);
+        continue;
+      }
+      c.current = pick;
+      c.slice_end_ns = t + SliceNs();
+    }
+    SliceProc& p = c.procs[c.current];
+    uint64_t run = std::min({p.head_left_ns, c.slice_end_ns - t, now - t});
+    p.head_left_ns -= run;
+    c.sim_ns = t + run;
+    c.busy_ns += run;
+    if (p.head_left_ns == 0) {
+      p.done_seq++;
+      p.done_at_ns[p.done_seq % kSliceRing] = c.sim_ns;
+      if (Pending(p) > 0)
+        p.head_left_ns = p.exec_ns[(p.done_seq + 1) % kSliceRing];
+    }
+  }
+}
+
+// This process's queue on the sliced card, claimed at first use. Caller
+// holds the chip lock.
+SliceProc& OwnSliceLocked() {
+  if (g_slice_slot < 0) {
+    int pid = (int)getpid();
+    for (int i = 0; i < kSliceProcs && g_slice_slot < 0; i++)
+      if (g_shared->procs[i].pid == 0) {
+        memset(&g_shared->procs[i], 0, sizeof(SliceProc));
+        g_shared->procs[i].pid = pid;
+        g_slice_slot = i;
+      }
+    if (g_slice_slot < 0) {
+      fprintf(stderr, "fake driver: more than %d processes on the sliced "
+              "card\n", kSliceProcs);
+      abort();
+    }
+  }
+  return g_shared->procs[g_slice_slot];
+}
+
+CUresult SubmitSliced(uint64_t exec_ns) {
+  for (;;) {
+    {
+      ChipLock lock;
+      uint64_t now = NowNs();
+      AdvanceLocked(now);
+      SliceProc& p = OwnSliceLocked();
+      if (Pending(p) < kSliceRing) {
+        uint64_t seq = ++p.next_seq;
+        p.exec_ns[seq % kSliceRing] = exec_ns;
+        p.ready_ns[seq % kSliceRing] =
+            Pending(p) == 1 ? now + LatencyNs() : now;
+        if (Pending(p) == 1) p.head_left_ns = exec_ns;
+        return CUDA_SUCCESS;
+      }
+    }
+    usleep(100);  // the queue is full: wait for the card
+  }
+}
+
+bool SeqDoneSliced(uint64_t seq, uint64_t* at_ns) {
+  ChipLock lock;
+  AdvanceLocked(NowNs());
+  SliceProc& p = OwnSliceLocked();
+  if (p.done_seq < seq) return false;
+  *at_ns = p.done_at_ns[seq % kSliceRing];
+  return true;
+}
+
+bool IdleSliced() {
+  ChipLock lock;
+  AdvanceLocked(NowNs());
+  return Pending(OwnSliceLocked()) == 0;
+}
+
 // Sleeps to just short of `t`, then spins: a host wake-up late by a
 // scheduler tick would read as device time the interposer never metered.
 void SleepUntil(uint64_t t) {
@@ -140,8 +299,7 @@ void SleepUntil(uint64_t t) {
 // Queues `exec_ns` of work: on an idle device it starts after the
 // submission latency, else when the device frees up.
 CUresult Submit(uint64_t exec_ns) {
-  static std::once_flag once;
-  std::call_once(once, InitSharedChip);
+  if (Sliced()) return SubmitSliced(exec_ns);
   std::lock_guard<std::mutex> lock(g_mu);
   if (g_shared) flock(g_shared_lock_fd, LOCK_EX);
   uint64_t now = NowNs();
@@ -168,7 +326,12 @@ bool ImplicitLocked(CUstream stream) {
          g_capture.mode == CU_STREAM_CAPTURE_MODE_GLOBAL;
 }
 
-CUresult Launch(CUstream stream, uint64_t nodes = 1) {
+// The function cuModuleGetFunction gives for any name: a kernel that runs
+// no time (the interposer's idle probe loads such a module).
+CUfunction const kEmptyKernel = reinterpret_cast<CUfunction>(0xE0);
+
+CUresult Launch(CUstream stream, uint64_t nodes = 1,
+                uint64_t exec_ns = ExecNs()) {
   {
     std::lock_guard<std::mutex> lock(g_mu);
     if (ImplicitLocked(stream)) {
@@ -181,7 +344,7 @@ CUresult Launch(CUstream stream, uint64_t nodes = 1) {
     }
     g_launches++;
   }
-  return Submit(nodes * ExecNs());
+  return Submit(nodes * exec_ns);
 }
 
 // Allocations the fake does not tell apart from cuMemAlloc_v2.
@@ -272,10 +435,24 @@ FAKE_EXPORT CUresult cuCtxPopCurrent_v2(CUcontext* ctx) {
   return CUDA_SUCCESS;
 }
 
-FAKE_EXPORT CUresult cuLaunchKernel(CUfunction, unsigned, unsigned, unsigned,
+FAKE_EXPORT CUresult cuLaunchKernel(CUfunction f, unsigned, unsigned,
                                     unsigned, unsigned, unsigned, unsigned,
-                                    CUstream stream, void**, void**) {
-  return Launch(stream);
+                                    unsigned, CUstream stream, void**,
+                                    void**) {
+  return Launch(stream, 1, f == kEmptyKernel ? 0 : ExecNs());
+}
+
+FAKE_EXPORT CUresult cuModuleLoadData(CUmodule* module, const void* image) {
+  if (!module || !image) return CUDA_ERROR_INVALID_VALUE;
+  *module = reinterpret_cast<CUmodule>(0xD0);
+  return CUDA_SUCCESS;
+}
+
+FAKE_EXPORT CUresult cuModuleGetFunction(CUfunction* f, CUmodule module,
+                                         const char*) {
+  if (!f || !module) return CUDA_ERROR_INVALID_VALUE;
+  *f = kEmptyKernel;
+  return CUDA_SUCCESS;
 }
 
 FAKE_EXPORT CUresult cuLaunchKernel_ptsz(CUfunction, unsigned, unsigned,
@@ -389,6 +566,10 @@ FAKE_EXPORT CUresult cuGraphLaunch_ptsz(CUgraphExec exec, CUstream stream) {
 }
 
 FAKE_EXPORT CUresult cuStreamSynchronize(CUstream) {
+  if (Sliced()) {
+    while (!IdleSliced()) usleep(50);
+    return CUDA_SUCCESS;
+  }
   uint64_t t;
   {
     std::lock_guard<std::mutex> lock(g_mu);
@@ -407,6 +588,7 @@ FAKE_EXPORT CUresult cuStreamQuery(CUstream stream) {
     return CapturedLocked(stream) ? CUDA_ERROR_STREAM_CAPTURE_UNSUPPORTED
                                   : CUDA_ERROR_STREAM_CAPTURE_IMPLICIT;
   }
+  if (Sliced()) return IdleSliced() ? CUDA_SUCCESS : CUDA_ERROR_NOT_READY;
   return NowNs() >= g_free_at_ns ? CUDA_SUCCESS : CUDA_ERROR_NOT_READY;
 }
 
@@ -450,9 +632,30 @@ FAKE_EXPORT CUresult cuEventRecord(CUevent ev, CUstream stream) {
     return CUDA_ERROR_STREAM_CAPTURE_UNSUPPORTED;
   }
   auto* e = reinterpret_cast<FakeEvent*>(ev);
-  e->at_ns = LyingEvents() ? NowNs() : std::max(NowNs(), g_free_at_ns);
   e->recorded = true;
+  e->seq = 0;
+  if (Sliced() && !LyingEvents()) {
+    // stamped when the process's work queued so far has run
+    ChipLock chip;
+    uint64_t now = NowNs();
+    AdvanceLocked(now);
+    SliceProc& p = OwnSliceLocked();
+    e->at_ns = now;
+    if (Pending(p) > 0) e->seq = p.next_seq;
+    return CUDA_SUCCESS;
+  }
+  e->at_ns = LyingEvents() ? NowNs() : std::max(NowNs(), g_free_at_ns);
   return CUDA_SUCCESS;
+}
+
+// Whether the event has its time stamp; a sliced card's pending event
+// takes its item's finish time once that has run.
+bool EventDone(FakeEvent* e) {
+  if (e->seq != 0) {
+    if (!SeqDoneSliced(e->seq, &e->at_ns)) return false;
+    e->seq = 0;
+  }
+  return NowNs() >= e->at_ns;
 }
 
 FAKE_EXPORT CUresult cuEventQuery(CUevent ev) {
@@ -464,14 +667,16 @@ FAKE_EXPORT CUresult cuEventQuery(CUevent ev) {
       return CUDA_ERROR_STREAM_CAPTURE_UNSUPPORTED;
     }
   }
-  auto* e = reinterpret_cast<FakeEvent*>(ev);
-  return NowNs() >= e->at_ns ? CUDA_SUCCESS : CUDA_ERROR_NOT_READY;
+  return EventDone(reinterpret_cast<FakeEvent*>(ev)) ? CUDA_SUCCESS
+                                                     : CUDA_ERROR_NOT_READY;
 }
 
 FAKE_EXPORT CUresult cuEventElapsedTime(float* ms, CUevent a, CUevent b) {
   auto* ea = reinterpret_cast<FakeEvent*>(a);
   auto* eb = reinterpret_cast<FakeEvent*>(b);
   if (!ea->recorded || !eb->recorded) return CUDA_ERROR_INVALID_VALUE;
+  if ((ea->seq && !EventDone(ea)) || (eb->seq && !EventDone(eb)))
+    return CUDA_ERROR_NOT_READY;
   *ms = (float)((double)(eb->at_ns - ea->at_ns) / 1e6);
   return CUDA_SUCCESS;
 }
@@ -639,6 +844,8 @@ FAKE_EXPORT void* fake_real_address(const char* name) {
       {"cuArrayDestroy", (void*)&cuArrayDestroy},
       {"cuMipmappedArrayDestroy", (void*)&cuMipmappedArrayDestroy},
       {"cuLaunchKernel", (void*)&cuLaunchKernel},
+      {"cuModuleLoadData", (void*)&cuModuleLoadData},
+      {"cuModuleGetFunction", (void*)&cuModuleGetFunction},
       {"cuLaunchKernel_ptsz", (void*)&cuLaunchKernel_ptsz},
       {"cuLaunchKernelEx", (void*)&cuLaunchKernelEx},
       {"cuLaunchKernelEx_ptsz", (void*)&cuLaunchKernelEx_ptsz},

@@ -21,12 +21,17 @@ writes (`<base_dir>/ld.so.preload`, mounted read-only at
 `/etc/ld.so.preload`, naming the interposer under the driver mount), and
 forwards to the card's driver at `VTPU_REAL_CUDA_LIBRARY_PATH`.
 
-Gates: HonorPreAllocatedDeviceIDs (`preferred_allocation_available`) and
-StepTelemetry (`step_telemetry_enabled`). The JAX package's other gated
-fields (compile cache, quota market, memory over-commit, link share, comm
-telemetry), its trace spans and failpoints are not ported; the config
-fields they drive are written as the JAX package writes them with the
-gates off.
+Gates: HonorPreAllocatedDeviceIDs (`preferred_allocation_available`),
+StepTelemetry (`step_telemetry_enabled`) and CompileCache
+(`compile_cache_enabled`, `vnum.py:436-449, 471-482, 525-536`): the node's
+compile cache dir `<base_dir>/compilecache` is made first, and only when
+it exists does the config name it (`compile_cache_dir`), is it mounted
+read-write at the same container path for every tenant, and do
+`VTPU_COMPILE_CACHE` / `VTPU_COMPILE_CACHE_DIR` arm the runtime client.
+The JAX package's other gated fields (the cluster compile cache, quota
+market, memory over-commit, link share, comm telemetry), its trace spans
+and failpoints are not ported; the config fields they drive are written
+as the JAX package writes them with the gates off.
 
 The node's shared directories (locks, memory ledger, watcher feed) default
 to the node's fixed paths and are arguments, so a run from a checkout can
@@ -123,6 +128,7 @@ class VnumPlugin(DevicePluginServicer):
     pre_start_required = True
     preferred_allocation_available = False   # gated: HonorPreAllocatedDeviceIDs
     step_telemetry_enabled = False           # gated: StepTelemetry
+    compile_cache_enabled = False            # gated: CompileCache
 
     def __init__(self, manager: DeviceManager, client: KubeClient,
                  node_name: str, node_config: NodeConfig | None = None,
@@ -344,6 +350,9 @@ class VnumPlugin(DevicePluginServicer):
                 return chip
         return None
 
+    def compile_cache_host_dir(self) -> str:
+        return os.path.join(self.base_dir, consts.COMPILE_CACHE_SUBDIR)
+
     def _container_dir(self, pod_uid: str, cont: str) -> str:
         return os.path.join(self.base_dir, f"{pod_uid}_{cont}")
 
@@ -406,11 +415,24 @@ class VnumPlugin(DevicePluginServicer):
             return resp
         cont_dir = self._container_dir(uid, cont)
         config_host = os.path.join(cont_dir, "config")
+        # the cache dir first: the config field, the mount and the env all
+        # follow from whether it exists
+        cc_host = self.compile_cache_host_dir()
+        cc_ok = False
+        if self.compile_cache_enabled:
+            try:
+                os.makedirs(cc_host, exist_ok=True)
+                cc_ok = True
+            except OSError as e:
+                log.warning("compile cache dir %s unavailable (%s); tenant "
+                            "%s/%s compiles uncached", cc_host, e, uid, cont)
         os.makedirs(config_host, exist_ok=True)
         vc.write_config(os.path.join(config_host, "vtpu.config"), vc.VtpuConfig(
             pod_uid=uid, pod_name=meta.get("name", ""),
             pod_namespace=meta.get("namespace", ""), container_name=cont,
-            compat_mode=compat, devices=devices))
+            compat_mode=compat,
+            compile_cache_dir=consts.COMPILE_CACHE_DIR if cc_ok else "",
+            devices=devices))
         # mounts: the container's config, the interposer, the node's locks,
         # ledger, step ring and watcher feed, and the preload file
         resp.mounts.append(api.Mount(
@@ -423,6 +445,13 @@ class VnumPlugin(DevicePluginServicer):
                            (consts.VMEM_DIR, self.vmem_dir)):
             resp.mounts.append(api.Mount(container_path=path, host_path=host,
                                          read_only=False))
+        if cc_ok:
+            # one cache for every tenant of the node: sharing is the point
+            resp.mounts.append(api.Mount(
+                container_path=consts.COMPILE_CACHE_DIR, host_path=cc_host,
+                read_only=False))
+            resp.envs[consts.ENV_COMPILE_CACHE] = "true"
+            resp.envs[consts.ENV_COMPILE_CACHE_DIR] = consts.COMPILE_CACHE_DIR
         if self.step_telemetry_enabled:
             # the one writable surface under the container's config dir:
             # the tenant writes its step ring there, the node reads it by

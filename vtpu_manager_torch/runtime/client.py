@@ -1,11 +1,19 @@
-"""The tenant's runtime client: what it is held to, how to hold it, and
-its step telemetry.
+"""The tenant's runtime client: what it is held to, how to hold it, its
+step telemetry and its compile cache.
 
 Ports `vtpu_manager/runtime/client.py` (`EffectiveLimits:43`,
-`_env_limits:67`, `effective_limits:95`, `install:113`, and the step
-telemetry of `:206-379`). The limits come from the container's
-`vtpu.config` first and the environment second, the order the interposer
-reads them in (`csrc/shim/loader.cc`).
+`_env_limits:67`, `effective_limits:95`, `install:113`, the compile
+cache's arming `_arm_jax_compile_cache:134`, the step telemetry of
+`:206-379` and `compile_cache:377-438`). The limits come from the
+container's `vtpu.config` first and the environment second, the order the
+interposer reads them in (`csrc/shim/loader.cc`).
+
+When the device plugin armed the node compile cache
+(`VTPU_COMPILE_CACHE=true`), `install` points Inductor's and Triton's own
+cache directories under the mount unless the tenant set them, so a tenant
+that never calls this client still reuses what its neighbours compiled;
+`compile_cache()` is the store itself, for a tenant that shares its
+compile explicitly (`workloads/compiled_step.py`).
 
 The JAX client could swap the PJRT plugin path inside the running process
 before JAX loaded it. A CUDA driver interposer is loaded by the dynamic
@@ -89,6 +97,9 @@ def install(shim_path: str | None = None,
     set it on os.environ, which reaches only processes started afterwards,
     every one of them, compilers included: prefer passing the returned
     mapping to the tenant's own subprocess."""
+    # the cache needs no interposer: a container's dynamic linker loads
+    # that from /etc/ld.so.preload whether or not this finds it
+    _arm_torch_compile_cache()
     shim = shim_path or os.environ.get(consts.ENV_SHIM_PATH) or os.path.join(
         consts.DRIVER_DIR, consts.CONTROL_LIBRARY_NAME)
     if not os.path.exists(shim):
@@ -102,6 +113,24 @@ def install(shim_path: str | None = None,
     if apply:
         os.environ.update(env)
     return env
+
+
+def _compile_cache_root() -> str:
+    return os.environ.get(consts.ENV_COMPILE_CACHE_DIR) or \
+        consts.COMPILE_CACHE_DIR
+
+
+def _arm_torch_compile_cache() -> None:
+    """With the cache armed, Inductor's and Triton's cache directories
+    default to `inductor/` and `triton/` under the mount; a directory the
+    tenant or its operator set stays."""
+    if os.environ.get(consts.ENV_COMPILE_CACHE) != "true":
+        return
+    root = _compile_cache_root()
+    os.environ.setdefault(consts.ENV_INDUCTOR_CACHE_DIR,
+                          os.path.join(root, "inductor"))
+    os.environ.setdefault(consts.ENV_TRITON_CACHE_DIR,
+                          os.path.join(root, "triton"))
 
 
 def _interposer_counter(symbol: str):
@@ -196,3 +225,52 @@ def _reset_step_telemetry() -> None:
         _step_telemetry.close()
     _step_telemetry = None
     _step_telemetry_checked = False
+
+
+_compile_cache = None
+_compile_cache_checked = False
+
+
+def compile_cache():
+    """The tenant's node compile cache (`compilecache.CompileCache` on the
+    mount), or None when the device plugin did not arm CompileCache for
+    this container. After the first call this is one global load and a
+    branch: no environment read, no import, no file. A broken mount means
+    compiling uncached, never a failed tenant.
+
+        cc = compile_cache()
+        if cc is not None:
+            payload, outcome = cc.get_or_compile(key, compile_fn)
+
+    The cluster tier (`VTPU_CLUSTER_CACHE`) is not ported: with it set,
+    this logs so and serves the node tier."""
+    global _compile_cache, _compile_cache_checked
+    if _compile_cache_checked:
+        return _compile_cache
+    _compile_cache_checked = True
+    if os.environ.get(consts.ENV_COMPILE_CACHE) != "true":
+        return None
+    from vtpu_manager_torch.compilecache import CompileCache
+    root = _compile_cache_root()
+    if os.environ.get(consts.ENV_CLUSTER_CACHE) == "true":
+        logging.getLogger(__name__).warning(
+            "the cluster compile cache is not ported; using the node cache "
+            "at %s", root)
+    try:
+        _compile_cache = CompileCache(root)
+    except OSError as e:
+        logging.getLogger(__name__).warning(
+            "compile cache unavailable at %s (%s); compiling uncached",
+            root, e)
+        _compile_cache = None
+    return _compile_cache
+
+
+def _reset_compile_cache() -> None:
+    """For tests: drop the cached client, so the next compile_cache() reads
+    the environment again."""
+    global _compile_cache, _compile_cache_checked
+    if _compile_cache is not None:
+        _compile_cache.close()
+    _compile_cache = None
+    _compile_cache_checked = False

@@ -177,3 +177,16 @@ ENV_OBS_EXCESS_TABLE = "VTPU_OBS_EXCESS_TABLE"
 # on /traces and the compile cache whose counters close every scrape.
 TRACE_DIR = f"{MANAGER_BASE_DIR}/trace"
 COMPILE_CACHE_SUBDIR = "compilecache"
+COMPILE_CACHE_DIR = f"{MANAGER_BASE_DIR}/{COMPILE_CACHE_SUBDIR}"
+
+# --- The compile cache's tenant variables -----------------------------------
+# The JAX package's (`util/consts.py:467-468`), so one plugin arms both
+# kinds of tenant; the cluster tier's `VTPU_CLUSTER_CACHE` (`:474`) is
+# named so a tenant can say it does not serve it.
+ENV_COMPILE_CACHE = "VTPU_COMPILE_CACHE"    # "true": node compile cache armed
+ENV_COMPILE_CACHE_DIR = "VTPU_COMPILE_CACHE_DIR"  # in-container cache dir
+ENV_CLUSTER_CACHE = "VTPU_CLUSTER_CACHE"
+# Inductor's and Triton's own cache directories, which the runtime client
+# points under the mount when the cache is armed
+ENV_INDUCTOR_CACHE_DIR = "TORCHINDUCTOR_CACHE_DIR"
+ENV_TRITON_CACHE_DIR = "TRITON_CACHE_DIR"

@@ -17,6 +17,7 @@ STEP_TELEMETRY = "StepTelemetry"        # per-tenant step rings
 NRI_SUPPORT = "NRISupport"              # DRA: the NRI runtime hook
 CORE_PLUGIN = "CorePlugin"              # advertise the vtpu-cores resource
 MEMORY_PLUGIN = "MemoryPlugin"          # advertise the vtpu-memory resource
+COMPILE_CACHE = "CompileCache"          # the node compile cache
 
 _KNOWN = {
     TC_WATCHER: False,
@@ -26,6 +27,7 @@ _KNOWN = {
     NRI_SUPPORT: False,
     CORE_PLUGIN: False,
     MEMORY_PLUGIN: False,
+    COMPILE_CACHE: False,
 }
 
 

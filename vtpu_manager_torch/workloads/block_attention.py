@@ -9,7 +9,9 @@ for sm_90a loaded over ctypes; its plain version is
 `attention_block` takes what the JAX function takes, in the same layout,
 and returns the same (o unnormalised fp32, m, l) triple. A tensor on the
 CPU goes to the plain version; a tensor on the card launches the kernel or
-raises. `LAUNCHES` counts the kernel's launches and nothing else.
+raises. `attn_block_op` is the same function as a custom operator
+(`torch.ops.vtpu.attn_block`), which `torch.compile` keeps whole in its
+graph. `LAUNCHES` counts the kernel's launches and nothing else.
 """
 
 from __future__ import annotations
@@ -99,6 +101,27 @@ def attention_block(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"attn_block launch failed: cudaError_t {err}")
     LAUNCHES["attn_block"] += 1
     return o, m, l
+
+
+@torch.library.custom_op("vtpu::attn_block", mutates_args=())
+def attn_block_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  bias: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`attention_block` as an operator a compiled graph calls as it is
+    (`torch.ops.vtpu.attn_block`): Dynamo traces it through the fake below
+    with no graph break, and the compiled code calls back here, so the
+    rule stays: the plain version for CPU tensors, the kernel or an error
+    on the card."""
+    return attention_block(q, k, v, bias)
+
+
+@attn_block_op.register_fake
+def _attn_block_fake(q, k, v, bias):
+    _check(q, k, v, bias)
+    b, h, sq, d = q.shape
+    return (q.new_empty((b, h, sq, d), dtype=torch.float32),
+            q.new_empty((b, h, sq), dtype=torch.float32),
+            q.new_empty((b, h, sq), dtype=torch.float32))
 
 
 def make_block_fn():
