@@ -110,7 +110,21 @@ result line:
    alone, `warm` faster to its first step than `off`, the exporter's
    counters equal to the replicas', the kernel launched in every replica
    and counted by the interposer. One `COMPILE_CACHE {json}` line per
-   check.
+   check;
+11. tracing (`vtpu_manager_torch/bench_trace.py`): a pod's
+   allocation-path timeline. The device plugin, with the Tracing gate at
+   sampling rate 0.5 and CompileCache, allocates a sampled pod S and an
+   unsampled pod U (25 % / 8 GiB, contexts minted as the webhook would);
+   S's response carries its trace id and the node trace dir, U's only its
+   verdict; tenants started from the responses run the compiled step
+   through the store (S a cold compile); the DRA driver prepares a claim
+   reserved for each; with tracing off a third pod gets no trace env. The
+   port's exporter serves S's timeline on /traces (every stage from
+   Allocate to the first step, in causal order, no drop), not U's;
+   its `vtpu_trace_*` counts equal the spools and the vtrace CLI gives the
+   same timeline. Reported beside the card's name and power limit: the
+   time from Allocate to the first step's outputs, and Allocate's time
+   with tracing off and on. One `TRACING {json}` line per check.
 
 The last three lines are the nvidia-smi line, the kernels JSON and the
 result JSON.
@@ -560,6 +574,25 @@ def compile_cache(torch, shim: str) -> dict:
             "counters": results["shared"]["counters"]}
 
 
+def tracing(torch, shim: str, card: str) -> dict:
+    from vtpu_manager_torch import bench_trace as bt
+
+    results = run_checks("tracing", bt.Phase, torch, shim, bt.CHECKS)
+    tenants, exporter = results["tenants"], results["exporter"]
+    timed = results["allocate_time"]
+    launches = sum(tenants[k]["step_launches"] for k in ("s", "u"))
+    if launches == 0:
+        raise AssertionError("the traced tenants never launched attn_block")
+    report = {"card": card,
+              "allocate_to_first_step_s": exporter["to_first_step_s"],
+              "allocate_ms": {"off": timed["median_off_ms"],
+                              "on": timed["median_on_ms"]},
+              "stage_ms": exporter["stage_ms"]}
+    log("TRACING report " + json.dumps(report))
+    return {**report, "attn_block_launches": launches,
+            "ttfs_s": {k: tenants[k]["ttfs_s"] for k in ("s", "u")}}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -628,6 +661,8 @@ def main() -> int:
     summary["monitor"] = phase("monitor", monitor, torch, str(paths["shim"]))
     summary["compile_cache"] = phase("compile_cache", compile_cache, torch,
                                      str(paths["shim"]))
+    summary["tracing"] = phase("tracing", tracing, torch, str(paths["shim"]),
+                               smi)
     log("SUMMARY " + json.dumps(summary, default=str))
     if failures or record is None:
         print(f"chip_smoke: failed phases: {failures}", file=sys.stderr)

@@ -213,8 +213,9 @@ def test_container_env_resolves_the_mounts(tmp_path, monkeypatch):
     resp, chip = _allocated(tmp_path)
     env = bench_allocate.container_env(resp)
     cont = tmp_path / "mgr" / "uid-pod-x_main"
-    assert env[consts.ENV_LD_PRELOAD] == str(
+    assert env[consts.ENV_LD_PRELOAD] == env[consts.ENV_SHIM_PATH] == str(
         tmp_path / "driver" / consts.CONTROL_LIBRARY_NAME)
+    assert consts.ENV_TRACE_DIR not in env
     assert env["CUDA_VISIBLE_DEVICES"] == chip.uuid
     assert env[consts.ENV_CONFIG_PATH] == str(cont / "config" /
                                               "vtpu.config")
@@ -322,10 +323,6 @@ def test_kubelet_plugin_serves_dra_and_registration(tmp_path):
 
 
 @pytest.mark.parametrize("args,message", [
-    (["--feature-gates", "StepTelemetry=true,Tracing=true"],
-     "feature gate Tracing: tracing is not ported yet"),
-    (["--trace-sampling-rate", "0.5"], "tracing is not ported yet"),
-    (["--trace-spool-dir", "spool"], "tracing is not ported yet"),
     (["--id-store", "ids.json"],
      "--id-store: the device-id store (a GPU needs none) is not ported yet"),
     (["--feature-gates", "ClusterCompileCache=true"],
@@ -339,6 +336,76 @@ def test_kubelet_plugin_refuses_what_is_not_ported(tmp_path, args, message):
     assert res.returncode == 2
     assert message in res.stdout + res.stderr
     assert not (tmp_path / "plugins").exists()
+
+
+def _serve_until(cmd: list[str], marker: str) -> str:
+    """Starts an agent, reads its log until `marker`, stops it with
+    SIGTERM (exit 0) and returns the log."""
+    proc = subprocess.Popen(cmd, cwd=REPO, env=_env(),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    try:
+        lines = []
+        while not lines or marker not in lines[-1]:
+            line = proc.stdout.readline()
+            assert line, "".join(lines)        # exited before serving
+            lines.append(line)
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=30) == 0
+        return "".join(lines)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+# the tracing cases the kubelet plugin refused before slice 10: the gate
+# and both flags are taken (the flags alone, as in the JAX command, trace
+# nothing). The spool dir is always the test's own: a tracing agent writes
+# its meta line at its first flush.
+@pytest.mark.parametrize("args,message", [
+    (["--feature-gates", "StepTelemetry=true,Tracing=true",
+      "--trace-spool-dir", "{spool}"],
+     "tracing on: spans to {spool} at sampling rate 1"),
+    (["--trace-sampling-rate", "0.5"], None),
+    (["--trace-spool-dir", "{spool}"], None),
+    (["--feature-gates", "Tracing=true", "--trace-sampling-rate", "0.25",
+      "--trace-spool-dir", "{spool}"],
+     "tracing on: spans to {spool} at sampling rate 0.25"),
+])
+def test_kubelet_plugin_takes_tracing(tmp_path, args, message):
+    import shutil
+    import tempfile
+    spool = str(tmp_path / "spool")
+    registry = tempfile.mkdtemp(prefix="reg-")
+    try:
+        log = _serve_until(KUBELET_PLUGIN + kubelet_plugin_flags(
+            tmp_path, registry) + ["--fake-chips", "1"] + [
+                a.format(spool=spool) for a in args],
+            "DRA driver running on")
+    finally:
+        shutil.rmtree(registry, ignore_errors=True)
+    if message is None:
+        assert "tracing on" not in log, log
+        assert not os.path.exists(spool)
+    else:
+        assert message.format(spool=spool) in log, log
+        # the exit's flush: a meta line and no span
+        (name,) = [n for n in os.listdir(spool) if n.endswith(".jsonl")]
+        assert name.startswith("dra.")
+
+
+def test_device_plugin_takes_tracing(tmp_path):
+    log = _serve_until(ENTRY + private_flags(tmp_path) + [
+        "--fake-chips", "1", "--fake-client", "--feature-gates",
+        "Tracing=true", "--trace-sampling-rate", "0.5",
+        "--trace-spool-dir", str(tmp_path / "spool")],
+        "device plugin running on")
+    assert (f"tracing on: spans to {tmp_path / 'spool'} at sampling rate "
+            "0.5") in log, log
+    (name,) = [n for n in os.listdir(tmp_path / "spool")
+               if n.endswith(".jsonl")]
+    assert name.startswith("plugin.")
 
 
 DRA_BLOCKED_CODE = """

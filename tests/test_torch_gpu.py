@@ -391,3 +391,56 @@ def test_custom_op_in_a_compiled_step_launches_the_kernel(card, tmp_path,
     # fused tail may round differently from eager's kernels by a few steps
     assert (y.float() - ey.float()).abs().max().item() <= 3e-5
     torch._dynamo.reset()
+
+
+@pytest.mark.gpu
+def test_traced_tenant_spools_its_stages(card, tmp_path, monkeypatch):
+    """A tenant whose Allocate env carries a sampled trace id: install,
+    first execute and the compiled step through the node store (a miss)
+    spool `shim.install`, `shim.first_execute`, `shim.compile` and its
+    outcome, in that order, and the step launches the kernel once."""
+    from vtpu_manager_torch import trace
+    from vtpu_manager_torch.runtime import client as rt
+    from vtpu_manager_torch.trace import assemble
+    from vtpu_manager_torch.util import consts
+    from vtpu_manager_torch.workloads import compiled_step as cs
+    shim = tmp_path / "libvtpu-cuda-control.so"
+    shim.write_bytes(b"")
+    for var, value in ((consts.ENV_TRACE_ID, "tid-gpu"),
+                       (consts.ENV_TRACE_SAMPLED, "true"),
+                       (consts.ENV_POD_UID, "uid-gpu"),
+                       (consts.ENV_TRACE_DIR, str(tmp_path / "spool")),
+                       (consts.ENV_COMPILE_CACHE, "true"),
+                       (consts.ENV_COMPILE_CACHE_DIR, str(tmp_path / "cc")),
+                       (consts.ENV_INDUCTOR_CACHE_DIR,
+                        str(tmp_path / "inductor")),
+                       (consts.ENV_TRITON_CACHE_DIR,
+                        str(tmp_path / "triton"))):
+        monkeypatch.setenv(var, value)
+    monkeypatch.setattr(rt, "_first_execute_marked", False)
+    trace.reset()
+    rt._reset_compile_cache()
+    torch._dynamo.reset()
+    try:
+        assert rt.install(shim_path=str(shim)) is not None
+        inputs = cs.make_inputs(dim=1024, device="cuda")
+        cache = rt.compile_cache()
+        rt.mark_first_execute()
+        before = ba.LAUNCHES["attn_block"]
+        _, outcome, _ = cs.first_step(inputs, cache, cs.entry_key(inputs))
+        torch.cuda.synchronize()
+        launches = ba.LAUNCHES["attn_block"] - before
+        trace.flush()
+        spans, drops = assemble.read_spools(str(tmp_path / "spool"))
+    finally:
+        trace.reset()
+        rt._reset_compile_cache()
+        torch._dynamo.reset()
+    assert (outcome, launches, sum(drops.values())) == ("miss", 1, 0)
+    ordered = sorted(spans, key=lambda s: s.start_s)
+    assert [s.stage for s in ordered] == [
+        "shim.install", "shim.first_execute", "shim.compile",
+        "shim.compile_outcome"]
+    assert {(s.trace_id, s.pod_uid, s.service) for s in spans} == {
+        ("tid-gpu", "uid-gpu", "tenant")}
+    assert ordered[3].attrs["outcome"] == "miss"

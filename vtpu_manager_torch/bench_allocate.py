@@ -15,7 +15,9 @@ NVML running as in the `co_tenancy` phase:
   path rewritten to the mount's host path, the node paths (config, ring,
   locks, ledger, feed) pointed at the host side of their mounts,
   LD_PRELOAD read from the host file mounted at /etc/ld.so.preload, and
-  CUDA_VISIBLE_DEVICES set to NVIDIA_VISIBLE_DEVICES's UUIDs. No
+  CUDA_VISIBLE_DEVICES set to NVIDIA_VISIBLE_DEVICES's UUIDs,
+  VTPU_SHIM_PATH at the interposer under the driver mount, and
+  VTPU_TRACE_DIR at the node trace dir when it is mounted. No
   VTPU_*_LIMIT variable, and no config file but the plugin's.
 
 Checks, each a record with an `ok` verdict:
@@ -115,6 +117,14 @@ def container_env(resp) -> dict:
         with open(preload) as f:
             env[consts.ENV_LD_PRELOAD] = ":".join(
                 host_path(resp, line.strip()) for line in f if line.strip())
+    # the interposer where the driver mount puts it (runtime.client.install
+    # looks for it there)
+    env[consts.ENV_SHIM_PATH] = host_path(resp, os.path.join(
+        consts.DRIVER_DIR, consts.CONTROL_LIBRARY_NAME))
+    for m in resp.mounts:
+        if m.container_path == consts.TRACE_DIR:
+            # the node trace dir, where a traced tenant finds it mounted
+            env[consts.ENV_TRACE_DIR] = m.host_path
     env["CUDA_VISIBLE_DEVICES"] = resp.envs[consts.ENV_NVIDIA_VISIBLE_DEVICES]
     env["PYTHONPATH"] = os.pathsep.join(
         p for p in (str(build.REPO), os.environ.get("PYTHONPATH")) if p)

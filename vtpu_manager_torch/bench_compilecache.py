@@ -12,8 +12,10 @@ is a subprocess started from its Allocate response alone
 `runtime.client.install()`, imports Dynamo and Inductor, makes the inputs
 of `workloads/compiled_step.py` (the 8192² bf16 quota step with an
 Inductor tail and one `vtpu::attn_block` call at (8, 16, 512, 128) fp32)
-and says READY; on its scenario's go file it reaches its first step, and
-its time to first step runs from the go file to the step's outputs. The
+and says READY; on its scenario's go file it marks its first execute
+(`runtime.client.mark_first_execute`, a traced tenant's
+`shim.first_execute`) and reaches its first step, and its time to first
+step runs from the go file to the step's outputs. The
 replicas of every scenario start together with the phase and wait; the
 three of a scenario go together:
 
@@ -307,6 +309,7 @@ CHECKS = ("allocate", "off", "cold", "warm", "env", "shared")
 
 
 def _tenant(args) -> None:
+    from vtpu_manager_torch import trace
     from vtpu_manager_torch.runtime import client as rt
     rt.install()
     import torch
@@ -327,8 +330,10 @@ def _tenant(args) -> None:
     torch.cuda.synchronize()
     print("READY", flush=True)
     _wait_file(args.go_file)
+    rt.mark_first_execute()
     s0 = time.monotonic_ns()
     (y, a), outcome, ttfs = cs.first_step(inputs, cache, key)
+    first_step_wall = time.time()
     if tel is not None:
         tel.record(time.monotonic_ns() - s0, compiled=True)
     step_launches = attn.LAUNCHES["attn_block"]
@@ -358,7 +363,9 @@ def _tenant(args) -> None:
         "op_shim_launches": shim_delta,
         "ring_compiled": ring_compiled,
         "inductor_dir": os.environ.get(consts.ENV_INDUCTOR_CACHE_DIR),
-        "stats": None if cache is None else cache.stats.as_dict()}),
+        "stats": None if cache is None else cache.stats.as_dict(),
+        "first_step_wall": first_step_wall,
+        "traced": trace.is_enabled()}),
         flush=True)
 
 

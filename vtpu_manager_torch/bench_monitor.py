@@ -156,6 +156,7 @@ class Exporter:
         env["VTPU_MAP_STARTUP_GRACE_S"] = "0"
         env["PYTHONPATH"] = os.pathsep.join(
             p for p in (str(REPO), os.environ.get("PYTHONPATH")) if p)
+        self.env = env
         self.proc = subprocess.Popen(
             [sys.executable, "-m", "vtpu_manager_torch.cmd.device_monitor",
              "--host", "127.0.0.1", "--port", "0", "--node-name", ba.NODE,

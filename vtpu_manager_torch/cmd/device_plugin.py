@@ -3,6 +3,8 @@
     python -m vtpu_manager_torch.cmd.device_plugin --node-name n1 \\
         [--fake-client] [--fake-chips 2] [--feature-gates StepTelemetry=true]
         [--feature-gates CompileCache=true --compile-cache-budget-mb 4096]
+        [--feature-gates Tracing=true --trace-sampling-rate 0.5
+         --trace-spool-dir <dir>]
 
 The port of the JAX package's `cmd/device_plugin.py:108-290`, the parts
 ported so far: discovery (NVML, or `--fake-chips N` synthetic H100s), the
@@ -14,7 +16,11 @@ and vtpu-memory reporters (CorePlugin, MemoryPlugin), the memory ledger
 step rings' pressure annotation (StepTelemetry) and the node compile
 cache (CompileCache: Allocate mounts `<base-dir>/compilecache` into every
 tenant, and this agent evicts it to `--compile-cache-budget-mb` every
-`--compile-cache-evict-interval` seconds).
+`--compile-cache-evict-interval` seconds), and allocation-path tracing
+(Tracing: Allocate's spans spool to `--trace-spool-dir`, for the pods a
+`--trace-sampling-rate` share of which the admission mint sampled, and a
+traced pod's tenant gets the trace env and, when sampled, the node trace
+dir `/etc/vtpu-manager/trace` mounted read-write).
 
 The API server is reached with the pod's service account
 (`client.kube.InClusterClient`: KUBERNETES_SERVICE_HOST and _PORT, the
@@ -24,8 +30,8 @@ an in-memory client instead. Without API access and without
 
 Flags keep their JAX names. A flag of a part not ported yet is refused. A
 run that is not root points `--base-dir`, `--vmem-path`,
-`--lock-dir`, `--watcher-dir`, `--driver-dir` and `--plugin-dir` at a
-directory of its own.
+`--lock-dir`, `--watcher-dir`, `--driver-dir`, `--plugin-dir` and, with
+Tracing, `--trace-spool-dir` at a directory of its own.
 """
 
 from __future__ import annotations
@@ -42,8 +48,6 @@ from vtpu_manager_torch.client.kube import (SERVICE_ACCOUNT_DIR,
 # JAX flags of parts not ported yet: refused when given
 NOT_PORTED = {
     "--registry-socket": "ClientMode's registry socket",
-    "--trace-sampling-rate": "tracing",
-    "--trace-spool-dir": "tracing",
     "--lease-namespace": "the reschedule controller",
     "--cache-advertise-endpoint": "the cluster compile cache",
     "--cache-ad-max-pairs": "the cluster compile cache",
@@ -85,6 +89,12 @@ def parse_args(argv: list[str] | None) -> argparse.Namespace:
                     help="the API token and CA (the API server is "
                     "KUBERNETES_SERVICE_HOST:KUBERNETES_SERVICE_PORT)")
     ap.add_argument("--mesh-domain", default="")
+    ap.add_argument("--trace-sampling-rate", type=float, default=1.0,
+                    help="Tracing: the share of traced pods whose "
+                    "node-side spans are recorded")
+    ap.add_argument("--trace-spool-dir", default=None,
+                    help="Tracing: the span spool dir (default: the node "
+                    "trace dir)")
     ap.add_argument("--compile-cache-budget-mb", type=int, default=4096,
                     help="CompileCache: the node compile cache's LRU byte "
                     "budget; this agent runs the evictor, so tenants never "
@@ -160,6 +170,12 @@ def main(argv: list[str] | None = None) -> int:
     except ValueError as e:
         log.error("bad --feature-gates: %s", e)
         return 2
+    if gates.enabled(fg.TRACING):
+        from vtpu_manager_torch import trace
+        trace.configure("plugin", spool_dir=args.trace_spool_dir,
+                        sampling_rate=args.trace_sampling_rate)
+        log.info("tracing on: spans to %s at sampling rate %g",
+                 trace.recorder().spool_dir, trace.sampling_rate())
     if not args.node_name:
         log.error("--node-name or NODE_NAME required")
         return 2

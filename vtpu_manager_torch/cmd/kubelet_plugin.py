@@ -4,6 +4,8 @@ DynamicResourceAllocation, in place of the device plugin.
     python -m vtpu_manager_torch.cmd.kubelet_plugin --node-name n1 \\
         [--fake-chips 2] [--node-config node.json] \\
         [--nri-socket /var/run/nri/nri.sock | --feature-gates NRISupport=true]
+        [--feature-gates Tracing=true --trace-sampling-rate 0.5
+         --trace-spool-dir <dir>]
 
 The port of the JAX package's `cmd/kubelet_plugin.py:20-243`: discovery
 (NVML, or `--fake-chips N` synthetic H100s), the node config, the DRA
@@ -22,12 +24,15 @@ published. With `--nri-socket` (or the NRISupport gate, which names the
 runtime's default socket) the plugin also registers the NRI runtime hook,
 which refuses a container that names a claim its pod does not own; when
 the socket cannot be reached it goes on without the hook, and /readyz
-says so.
+says so. With the Tracing gate, Prepare records the `dra.prepare` and
+`dra.cdi` spans of the claims reserved for pods whose uid the sampling
+rate picks (the admission mint's verdict, computed again from the uid),
+spooled to `--trace-spool-dir`.
 
-Flags and gates of parts not ported (tracing, the device-id store) are
-refused. A run that is not root points `--plugin-dir`, `--registry-dir`,
-`--base-dir`, `--cdi-dir`, `--vmem-path`, `--lock-dir`, `--watcher-dir`
-and `--driver-dir` at a directory of its own.
+The flag of a part not ported (the device-id store) is refused. A run
+that is not root points `--plugin-dir`, `--registry-dir`, `--base-dir`,
+`--cdi-dir`, `--vmem-path`, `--lock-dir`, `--watcher-dir`, `--driver-dir`
+and, with Tracing, `--trace-spool-dir` at a directory of its own.
 """
 
 from __future__ import annotations
@@ -43,13 +48,10 @@ from vtpu_manager_torch.client.kube import (SERVICE_ACCOUNT_DIR,
 
 # JAX flags of parts not ported yet: refused when given
 NOT_PORTED = {
-    "--trace-sampling-rate": "tracing",
-    "--trace-spool-dir": "tracing",
     # a GPU's id is its NVML UUID; a store's synthetic ids would reach
     # NVIDIA_VISIBLE_DEVICES, which the container runtime cannot resolve
     "--id-store": "the device-id store (a GPU needs none)",
 }
-NOT_PORTED_GATES = {"Tracing": "tracing"}
 
 
 def parse_args(argv: list[str] | None) -> argparse.Namespace:
@@ -92,6 +94,12 @@ def parse_args(argv: list[str] | None) -> argparse.Namespace:
     ap.add_argument("--nri-socket", default=None,
                     help="the runtime's NRI socket: register the runtime "
                     "hook there")
+    ap.add_argument("--trace-sampling-rate", type=float, default=1.0,
+                    help="Tracing: the share of traced pods whose DRA "
+                    "spans are recorded")
+    ap.add_argument("--trace-spool-dir", default=None,
+                    help="Tracing: the span spool dir (default: the node "
+                    "trace dir)")
     for flag in NOT_PORTED:
         ap.add_argument(flag, default=None)
     ap.add_argument("-v", "--verbose", action="count", default=0)
@@ -99,11 +107,6 @@ def parse_args(argv: list[str] | None) -> argparse.Namespace:
     for flag, part in NOT_PORTED.items():
         if getattr(args, flag[2:].replace("-", "_")) is not None:
             ap.error(f"{flag}: {part} is not ported yet")
-    for spec in args.feature_gates.split(","):
-        name = spec.partition("=")[0].strip()
-        if name in NOT_PORTED_GATES:
-            ap.error(f"feature gate {name}: {NOT_PORTED_GATES[name]} is not "
-                     "ported yet")
     return args
 
 
@@ -140,6 +143,12 @@ def main(argv: list[str] | None = None) -> int:
     except ValueError as e:
         log.error("bad --feature-gates: %s", e)
         return 2
+    if gates.enabled(fg.TRACING):
+        from vtpu_manager_torch import trace
+        trace.configure("dra", spool_dir=args.trace_spool_dir,
+                        sampling_rate=args.trace_sampling_rate)
+        log.info("tracing on: spans to %s at sampling rate %g",
+                 trace.recorder().spool_dir, trace.sampling_rate())
     if not args.node_name:
         log.error("--node-name or NODE_NAME required")
         return 2

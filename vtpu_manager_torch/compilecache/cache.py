@@ -30,8 +30,10 @@ bytes are still the ones it wrote.
 
 Counters never fail an operation: a stats write that fails is dropped,
 and a put that fails after a compile serves the compiled payload
-uncached. What the JAX store adds around these (its trace spans, its
-failpoints and the cluster tier's peer fetch) is not ported.
+uncached. `get_or_compile` is the `shim.compile` span of a traced tenant,
+followed by its `shim.compile_outcome` event (`cache.py:433-446`). What
+the JAX store adds besides (its failpoints and the cluster tier's peer
+fetch) is not ported.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ import secrets
 import struct
 import time
 
+from vtpu_manager_torch import trace
 from vtpu_manager_torch.util import stalecodec
 from vtpu_manager_torch.util.flock import FileLock, LockTimeout
 
@@ -362,12 +365,24 @@ class CompileCache:
                 pass
 
     def get_or_compile(self, key: str, compile_fn,
-                       timeout_s: float = 600.0) -> tuple[bytes, str]:
+                       timeout_s: float = 600.0,
+                       ctx=None) -> tuple[bytes, str]:
         """(payload, outcome): `hit` (the entry was there), `miss` (this
         process compiled and stored), `wait` (another client compiled
         while this one waited on its lease) or `timeout` (the holder
         outlived `timeout_s`: compiled here, not stored). Each call counts
-        one hit or one miss, and a wait besides."""
+        one hit or one miss, and a wait besides. With a sampled trace
+        context `ctx` the call is the `shim.compile` span, and its outcome
+        the `shim.compile_outcome` event after it."""
+        with trace.span(ctx, "shim.compile", key=key[:16]):
+            payload, outcome = self._get_or_compile(key, compile_fn,
+                                                    timeout_s)
+        trace.event(ctx, "shim.compile_outcome", outcome=outcome,
+                    key=key[:16])
+        return payload, outcome
+
+    def _get_or_compile(self, key: str, compile_fn,
+                        timeout_s: float) -> tuple[bytes, str]:
         payload = self._lookup(key)
         if payload is not None:
             self.stats.hits += 1

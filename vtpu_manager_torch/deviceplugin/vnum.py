@@ -28,10 +28,16 @@ compile cache dir `<base_dir>/compilecache` is made first, and only when
 it exists does the config name it (`compile_cache_dir`), is it mounted
 read-write at the same container path for every tenant, and do
 `VTPU_COMPILE_CACHE` / `VTPU_COMPILE_CACHE_DIR` arm the runtime client.
-The JAX package's other gated fields (the cluster compile cache, quota
-market, memory over-commit, link share, comm telemetry), its trace spans
-and failpoints are not ported; the config fields they drive are written
-as the JAX package writes them with the gates off.
+Tracing (`vnum.py:256-258, 424-431, 462, 511-523`): once
+`trace.configure` ran, Allocate records the `plugin.allocate` span and,
+inside it, `plugin.config`, for a pod whose annotations carry a trace id;
+the response carries `VTPU_TRACE_ID` and `VTPU_TRACE_SAMPLED` for such a
+pod, and for a sampled one also the node trace dir `consts.TRACE_DIR`,
+mounted read-write at the same path, where the tenant spools its own
+spans. The JAX package's other gated fields (the cluster compile cache,
+quota market, memory over-commit, link share, comm telemetry) and its
+failpoints are not ported; the config fields they drive are written as
+the JAX package writes them with the gates off.
 
 The node's shared directories (locks, memory ledger, watcher feed) default
 to the node's fixed paths and are arguments, so a run from a checkout can
@@ -48,6 +54,7 @@ import threading
 import time
 from collections import Counter
 
+from vtpu_manager_torch import trace
 from vtpu_manager_torch.client.kube import KubeClient, KubeError
 from vtpu_manager_torch.config import vtpu_config as vc
 from vtpu_manager_torch.config.node_config import NodeConfig
@@ -301,16 +308,19 @@ class VnumPlugin(DevicePluginServicer):
         meta = pod.get("metadata") or {}
         uid = meta.get("uid", "")
         try:
-            response = self._response_for(pod, cont, claims)
-            self._record_devices(uid, cont, dev_ids, claims)
-            _POLICY.run(
-                lambda: self.client.patch_pod_annotations(
-                    meta.get("namespace", "default"), meta.get("name", ""), {
-                        consts.real_allocated_annotation():
-                            self._claims_annotation(pod, cont, claims),
-                        consts.allocation_status_annotation():
-                            consts.ALLOC_STATUS_SUCCEED}),
-                op="plugin.allocate_patch")
+            with trace.span(trace.context_for_pod(pod), "plugin.allocate",
+                            container=cont, devices=len(dev_ids)):
+                response = self._response_for(pod, cont, claims)
+                self._record_devices(uid, cont, dev_ids, claims)
+                _POLICY.run(
+                    lambda: self.client.patch_pod_annotations(
+                        meta.get("namespace", "default"),
+                        meta.get("name", ""), {
+                            consts.real_allocated_annotation():
+                                self._claims_annotation(pod, cont, claims),
+                            consts.allocation_status_annotation():
+                                consts.ALLOC_STATUS_SUCCEED}),
+                    op="plugin.allocate_patch")
             with self._served_lock:
                 self._served.add((uid, cont))
             return response
@@ -410,6 +420,13 @@ class VnumPlugin(DevicePluginServicer):
         resp.envs[consts.ENV_POD_NAMESPACE] = meta.get("namespace", "")
         resp.envs[consts.ENV_POD_UID] = uid
         resp.envs[consts.ENV_CONTAINER_NAME] = cont
+        # the admission-minted context, and its sampling decision, reach
+        # the tenant only through its environment
+        ctx = trace.context_for_pod(pod) if pod is not None else None
+        if ctx is not None and ctx.trace_id:
+            resp.envs[consts.ENV_TRACE_ID] = ctx.trace_id
+            resp.envs[consts.ENV_TRACE_SAMPLED] = \
+                "true" if ctx.sampled else "false"
 
         if pod is None:
             return resp
@@ -426,13 +443,17 @@ class VnumPlugin(DevicePluginServicer):
             except OSError as e:
                 log.warning("compile cache dir %s unavailable (%s); tenant "
                             "%s/%s compiles uncached", cc_host, e, uid, cont)
-        os.makedirs(config_host, exist_ok=True)
-        vc.write_config(os.path.join(config_host, "vtpu.config"), vc.VtpuConfig(
-            pod_uid=uid, pod_name=meta.get("name", ""),
-            pod_namespace=meta.get("namespace", ""), container_name=cont,
-            compat_mode=compat,
-            compile_cache_dir=consts.COMPILE_CACHE_DIR if cc_ok else "",
-            devices=devices))
+        with trace.span(ctx, "plugin.config", container=cont,
+                        devices=len(devices)):
+            os.makedirs(config_host, exist_ok=True)
+            vc.write_config(os.path.join(config_host, "vtpu.config"),
+                            vc.VtpuConfig(
+                                pod_uid=uid, pod_name=meta.get("name", ""),
+                                pod_namespace=meta.get("namespace", ""),
+                                container_name=cont, compat_mode=compat,
+                                compile_cache_dir=consts.COMPILE_CACHE_DIR
+                                if cc_ok else "",
+                                devices=devices))
         # mounts: the container's config, the interposer, the node's locks,
         # ledger, step ring and watcher feed, and the preload file
         resp.mounts.append(api.Mount(
@@ -445,6 +466,18 @@ class VnumPlugin(DevicePluginServicer):
                            (consts.VMEM_DIR, self.vmem_dir)):
             resp.mounts.append(api.Mount(container_path=path, host_path=host,
                                          read_only=False))
+        if ctx is not None and ctx.sampled:
+            # the tenant's own spans spool into the node trace dir, at the
+            # same path on both sides (the JAX plugin's mount)
+            try:
+                os.makedirs(consts.TRACE_DIR, exist_ok=True)
+                resp.mounts.append(api.Mount(
+                    container_path=consts.TRACE_DIR,
+                    host_path=consts.TRACE_DIR, read_only=False))
+            except OSError as e:
+                log.warning("trace dir %s unavailable (%s); tenant spans "
+                            "for %s/%s will not spool", consts.TRACE_DIR, e,
+                            uid, cont)
         if cc_ok:
             # one cache for every tenant of the node: sharing is the point
             resp.mounts.append(api.Mount(

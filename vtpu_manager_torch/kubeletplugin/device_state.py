@@ -19,8 +19,10 @@ by them, so every process of one claim shares the claim's cap. The JAX
 package sets neither, and each process of a claim there is a tenant of
 its own with a cap of its own.
 
-Not ported: trace spans and failpoints; `obs_excess_table` is a parameter
-that the entry point leaves None (no calibration yet).
+Writing the CDI spec is the `dra.cdi` span (`device_state.py:309-311`),
+joined to the pod's timeline by `trace.context_for_claim`. Not ported:
+failpoints; `obs_excess_table` is a parameter that the entry point leaves
+None (no calibration yet).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import logging
 import os
 import shutil
 
+from vtpu_manager_torch import trace
 from vtpu_manager_torch.claimresolve.resolve import resolve_claim_partitions
 from vtpu_manager_torch.config import vtpu_config as vc
 from vtpu_manager_torch.config.node_config import NodeConfig
@@ -318,7 +321,9 @@ class DeviceState:
                                             client_mode=client_mode)
                 cdi_names = list(dict.fromkeys(d["cdi"] for d in devices))
             preload_file(self.base_dir)
-            cdi.write_spec(spec, uid, self.cdi_dir)
+            with trace.span(trace.context_for_claim(claim), "dra.cdi",
+                            claim=uid, devices=len(cdi_names)):
+                cdi.write_spec(spec, uid, self.cdi_dir)
 
             before = dict(self.checkpoint.claims)
             self.checkpoint.claims[uid] = PreparedClaim(

@@ -6,7 +6,9 @@ names the claims of a pod; the driver fetches each from the API server
 (`ClaimSource`), prepares it through `DeviceState` and answers, per
 claim, the CDI device ids kubelet hands the container runtime, grouped by
 the request each device satisfies, or the claim's error. One bad claim
-fails its own entry, never the batch.
+fails its own entry, never the batch. With tracing on, each claim's
+Prepare is the `dra.prepare` span (`driver.py:149-153`), joined to the
+timeline of the pod the claim is reserved for.
 
 The driver speaks the plain messages of `api/messages.py`; `serve()`
 converts to and from the generated `dra_pb2` messages at the socket and
@@ -19,6 +21,7 @@ from __future__ import annotations
 import logging
 import os
 
+from vtpu_manager_torch import trace
 from vtpu_manager_torch.client.kube import KubeClient, KubeError
 from vtpu_manager_torch.kubeletplugin.api import messages as api
 from vtpu_manager_torch.kubeletplugin.device_state import (DeviceState,
@@ -139,7 +142,11 @@ class DraDriver:
                                f"{claim_ref.name} not found")
                 continue
             try:
-                cdi_ids = self.state.prepare_claim(claim)
+                # claims carry no trace annotation: joined by the uid of
+                # the pod they are reserved for (trace/context.py)
+                with trace.span(trace.context_for_claim(claim),
+                                "dra.prepare", claim=claim_ref.uid):
+                    cdi_ids = self.state.prepare_claim(claim)
             except Exception as e:  # noqa: BLE001 - fails this entry only
                 if not isinstance(e, PrepareError):
                     log.exception("prepare %s failed unexpectedly",

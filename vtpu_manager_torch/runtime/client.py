@@ -2,9 +2,10 @@
 step telemetry and its compile cache.
 
 Ports `vtpu_manager/runtime/client.py` (`EffectiveLimits:43`,
-`_env_limits:67`, `effective_limits:95`, `install:113`, the compile
-cache's arming `_arm_jax_compile_cache:134`, the step telemetry of
-`:206-379` and `compile_cache:377-438`). The limits come from the
+`_ensure_tenant_trace:49`, `_env_limits:67`, `effective_limits:95`,
+`install:113`, the compile cache's arming `_arm_jax_compile_cache:134`,
+the step telemetry of `:206-379`, `compile_cache:377-438` and
+`mark_first_execute:444`). The limits come from the
 container's `vtpu.config` first and the environment second, the order the
 interposer reads them in (`csrc/shim/loader.cc`).
 
@@ -14,6 +15,13 @@ cache directories under the mount unless the tenant set them, so a tenant
 that never calls this client still reuses what its neighbours compiled;
 `compile_cache()` is the store itself, for a tenant that shares its
 compile explicitly (`workloads/compiled_step.py`).
+
+A tenant has no feature gates: the trace id its Allocate response carries
+(`VTPU_TRACE_ID`, with `VTPU_TRACE_SAMPLED=true`) turns its tracing on, and
+its spans spool to `VTPU_TRACE_DIR`, else the node trace dir the plugin
+mounted. `install` records the `shim.install` event and
+`mark_first_execute` the `shim.first_execute` event, which a tenant calls
+right before the first call of its step.
 
 The JAX client could swap the PJRT plugin path inside the running process
 before JAX loaded it. A CUDA driver interposer is loaded by the dynamic
@@ -29,6 +37,7 @@ import logging
 import os
 from dataclasses import dataclass
 
+from vtpu_manager_torch import trace
 from vtpu_manager_torch.config import vtpu_config as vc
 from vtpu_manager_torch.util import consts
 
@@ -38,6 +47,21 @@ class EffectiveLimits:
     devices: list[vc.DeviceConfig]
     compat_mode: int
     source: str              # "config-file" | "env" | "none"
+
+
+def _ensure_tenant_trace() -> None:
+    """Turns tracing on from the environment at first use. The trace id
+    is the gate (only pods admitted under Tracing carry one); an
+    unsampled tenant never configures: no recorder, no spool file."""
+    if trace.is_enabled():
+        return
+    if not os.environ.get(consts.ENV_TRACE_ID):
+        return
+    if os.environ.get(consts.ENV_TRACE_SAMPLED, "true") != "true":
+        return
+    trace.configure("tenant",
+                    spool_dir=os.environ.get(consts.ENV_TRACE_DIR)
+                    or consts.TRACE_DIR)
 
 
 def _env_limits() -> EffectiveLimits | None:
@@ -112,6 +136,8 @@ def install(shim_path: str | None = None,
         env[consts.ENV_REAL_CUDA_LIBRARY_PATH] = real
     if apply:
         os.environ.update(env)
+    _ensure_tenant_trace()
+    trace.event(trace.context_from_env(), "shim.install", shim=shim)
     return env
 
 
@@ -240,7 +266,8 @@ def compile_cache():
 
         cc = compile_cache()
         if cc is not None:
-            payload, outcome = cc.get_or_compile(key, compile_fn)
+            payload, outcome = cc.get_or_compile(
+                key, compile_fn, ctx=trace.context_from_env())
 
     The cluster tier (`VTPU_CLUSTER_CACHE`) is not ported: with it set,
     this logs so and serves the node tier."""
@@ -274,3 +301,19 @@ def _reset_compile_cache() -> None:
         _compile_cache.close()
     _compile_cache = None
     _compile_cache_checked = False
+
+
+_first_execute_marked = False
+
+
+def mark_first_execute() -> None:
+    """Records the tenant's first-execute moment, once: the timeline's
+    last stage. The interposer cannot see a step begin, so the tenant
+    calls this right before the first call of its step."""
+    global _first_execute_marked
+    if _first_execute_marked:
+        return
+    _first_execute_marked = True
+    _ensure_tenant_trace()
+    trace.event(trace.context_from_env(), "shim.first_execute",
+                pid=os.getpid())

@@ -129,6 +129,18 @@ def node_pressure_annotation() -> str:
     return _ann("node-pressure")
 
 
+def trace_id_annotation() -> str:
+    """The trace id minted at admission and carried through every stage of
+    a pod's allocation path: the join key across processes."""
+    return _ann("trace-id")
+
+
+def trace_sampled_annotation() -> str:
+    """The sampling decision ("true"/"false"), made once at admission so
+    every later stage records or skips alike."""
+    return _ann("trace-sampled")
+
+
 ALLOC_STATUS_SUCCEED = "succeed"
 ALLOC_STATUS_FAILED = "failed"
 
@@ -140,7 +152,9 @@ ENV_POD_NAME = "VTPU_POD_NAME"
 ENV_POD_NAMESPACE = "VTPU_POD_NAMESPACE"
 ENV_STEP_TELEMETRY = "VTPU_STEP_TELEMETRY"  # "true": step ring armed
 ENV_STEP_RING_PATH = "VTPU_STEP_RING_PATH"  # tenant-side ring file path
-ENV_TRACE_ID = "VTPU_TRACE_ID"
+ENV_TRACE_ID = "VTPU_TRACE_ID"              # the pod's trace id
+ENV_TRACE_SAMPLED = "VTPU_TRACE_SAMPLED"    # "true"/"false"
+ENV_TRACE_DIR = "VTPU_TRACE_DIR"            # a tenant's spool dir, if set
 
 # the other compatibility modes (bitmask, with COMPAT_HOST above)
 COMPAT_CGROUP = 0x02
@@ -174,7 +188,8 @@ ENV_OBS_EXCESS_TABLE = "VTPU_OBS_EXCESS_TABLE"
 
 # --- The node exporter's names ----------------------------------------------
 # The JAX package's (`util/consts.py:525, 538`): the span spools it serves
-# on /traces and the compile cache whose counters close every scrape.
+# on /traces (which the device plugin also mounts into a traced tenant) and
+# the compile cache whose counters close every scrape.
 TRACE_DIR = f"{MANAGER_BASE_DIR}/trace"
 COMPILE_CACHE_SUBDIR = "compilecache"
 COMPILE_CACHE_DIR = f"{MANAGER_BASE_DIR}/{COMPILE_CACHE_SUBDIR}"

@@ -18,6 +18,7 @@ NRI_SUPPORT = "NRISupport"              # DRA: the NRI runtime hook
 CORE_PLUGIN = "CorePlugin"              # advertise the vtpu-cores resource
 MEMORY_PLUGIN = "MemoryPlugin"          # advertise the vtpu-memory resource
 COMPILE_CACHE = "CompileCache"          # the node compile cache
+TRACING = "Tracing"                     # allocation-path spans
 
 _KNOWN = {
     TC_WATCHER: False,
@@ -28,6 +29,7 @@ _KNOWN = {
     CORE_PLUGIN: False,
     MEMORY_PLUGIN: False,
     COMPILE_CACHE: False,
+    TRACING: False,
 }
 
 

@@ -19,7 +19,9 @@ whose output is normalised in the same graph.
 cache it compiles alone (`uncached`); with one it goes through
 `cache.get_or_compile(key, ...)`. On a miss this process compiles, and
 the artifacts it saved become the entry; on a hit, or after waiting for
-another tenant's compile, it loads the entry before its first call.
+another tenant's compile, it loads the entry before its first call. A
+traced tenant's store call is its `shim.compile` span, outside the
+compiled region.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import time
 
 import torch
 
+from vtpu_manager_torch import trace
 from vtpu_manager_torch.compilecache import keys
 from vtpu_manager_torch.workloads.block_attention import attn_block_op
 
@@ -116,7 +119,8 @@ def first_step(inputs: tuple[torch.Tensor, ...], cache=None,
                                "there is nothing to share")
         return saved[0]
 
-    payload, outcome = cache.get_or_compile(key, compile_fn)
+    payload, outcome = cache.get_or_compile(key, compile_fn,
+                                            ctx=trace.context_from_env())
     if "out" not in ran:
         torch.compiler.load_cache_artifacts(payload)
         ran["out"] = compiled(*inputs)
