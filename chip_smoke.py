@@ -124,7 +124,25 @@ result line:
    its `vtpu_trace_*` counts equal the spools and the vtrace CLI gives the
    same timeline. Reported beside the card's name and power limit: the
    time from Allocate to the first step's outputs, and Allocate's time
-   with tracing off and on. One `TRACING {json}` line per check.
+   with tracing off and on. One `TRACING {json}` line per check;
+12. resilience (`vtpu_manager_torch/bench_resilience.py`): the node
+   survives its own faults and attributes a CLIENT-mode tenant. With the
+   failpoint registry armed as FaultInjection arms it, the device
+   plugin's Allocate crashes on a torn `vtpu.config`
+   (`plugin.config_write=partial-write(count=1)`) and its retry writes it
+   whole, and a tenant started from the retried response holds its cap;
+   the DRA driver's Prepare crashes on a torn CDI spec
+   (`dra.cdi_write=partial-write(count=1)`), the claim is not
+   checkpointed, and a restarted DeviceState prepares it whole; the
+   plugin's `/metrics` counts the two fires as the registry does, and
+   nothing with the registry off. A pod allocated under `compat_mode:
+   client` runs two processes (the quota step and one `vtpu::attn_block`
+   launch per step each); each interposer starts the device client, which
+   registers over the node registry's socket (a stand-in cgroup, the card
+   machine having no kubelet); `pids.config` holds both pids, each
+   interposer reads it, the two processes share the one 8 GiB cap, the
+   pod's timeline holds both sides of each registration, and a spoofed
+   pod uid is refused. One `RESILIENCE {json}` line per check.
 
 The last three lines are the nvidia-smi line, the kernels JSON and the
 result JSON.
@@ -593,6 +611,23 @@ def tracing(torch, shim: str, card: str) -> dict:
             "ttfs_s": {k: tenants[k]["ttfs_s"] for k in ("s", "u")}}
 
 
+def resilience(torch, shim: str) -> dict:
+    from vtpu_manager_torch import bench_resilience as br
+
+    results = run_checks("resilience", br.Phase, torch, shim, br.CHECKS)
+    client = results["client_mode"]
+    launches = sum(r["attn_block_launches"] for r in client["steps"].values())
+    if launches == 0:
+        raise AssertionError("the CLIENT-mode tenant never launched "
+                             "attn_block")
+    return {"fires": results["metrics"]["scraped"],
+            "torn_bytes": {"config": results["torn_config"]["torn_bytes"],
+                           "cdi": results["torn_cdi"]["torn_bytes"]},
+            "pids": client["pids"], "attn_block_launches": launches,
+            "ms_per_step": {k: r["ms_per_step"]
+                            for k, r in client["steps"].items()}}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -663,6 +698,8 @@ def main() -> int:
                                      str(paths["shim"]))
     summary["tracing"] = phase("tracing", tracing, torch, str(paths["shim"]),
                                smi)
+    summary["resilience"] = phase("resilience", resilience, torch,
+                                  str(paths["shim"]))
     log("SUMMARY " + json.dumps(summary, default=str))
     if failures or record is None:
         print(f"chip_smoke: failed phases: {failures}", file=sys.stderr)

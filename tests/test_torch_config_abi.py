@@ -23,6 +23,8 @@ from vtpu_manager_torch import bench_quota, build
 from vtpu_manager_torch.config import tc_watcher as tc
 from vtpu_manager_torch.config import vmem
 from vtpu_manager_torch.config import vtpu_config as vc
+from vtpu_manager_torch.registry import server as registry
+from vtpu_manager_torch.util import consts
 
 REPO = build.REPO
 
@@ -316,6 +318,7 @@ STRUCTS = {
     "VmemEntry": ["pid", "host_index", "bytes", "last_update_ns",
                   "owner_token", "activity", "spilled"],
     "VmemFile": ["magic", "version", "max_entries", "entries"],
+    "PidsFileHeader": ["magic", "version", "count", "pad_"],
 }
 
 
@@ -336,6 +339,9 @@ def _layout_probe(tmp_path, header, namespace):
         ' "2.5"};',
         '  for (const char* x : v) printf("stale %llu\\n",'
         ' (unsigned long long)VmemStaleReapNsFromEnv(x));',
+        '  printf("kCompatHost %d\\n", (int)kCompatHost);',
+        '  printf("kCompatClient %d\\n", (int)kCompatClient);',
+        '  printf("kPidsMagic %u\\n", (unsigned)kPidsMagic);',
         "  return 0;", "}"]
     src = tmp_path / f"probe_{namespace}.cc"
     src.write_text("\n".join(lines))
@@ -364,3 +370,6 @@ def test_cxx_layouts_match_the_jax_header(tmp_path):
         assert int(got[f"VtpuConfig.{field}"]) == off
     assert int(got["fnv64"]) == vmem.fnv64("uid-abc/main")
     assert int(got["fnv32"]) == vc.fnv1a(b"uid-abc/main")
+    assert int(got["kCompatHost"]) == consts.COMPAT_HOST
+    assert int(got["kCompatClient"]) == consts.COMPAT_CLIENT
+    assert int(got["kPidsMagic"]) == registry.PIDS_MAGIC

@@ -382,3 +382,33 @@ def test_device_plugin_leaves_reporters_off_by_default(tmp_path):
             proc.kill()
             proc.wait()
         kubelet.stop(grace=0)
+
+
+def test_debug_stacks_behind_the_flag_and_the_token(tmp_path):
+    """`--debug-endpoints` (JAX `cmd/device_monitor.py:628-638`): every
+    thread's stack on /debug/stacks, behind the /metrics token."""
+    token = tmp_path / "token"
+    token.write_text(TOKEN + "\n")
+    node_dir(tmp_path)
+    exp = Exporter(tmp_path, "--debug-endpoints", "--metrics-token-file",
+                   str(token))
+    try:
+        assert exp.get("/debug/stacks")[0] == 401
+        status, body, ctype = exp.get("/debug/stacks", token=TOKEN)
+        assert status == 200 and ctype.startswith("text/plain")
+        assert "--- thread MainThread" in body
+        assert "vtpu-monitor-http" in body
+    finally:
+        assert exp.stop() == 0
+
+
+def test_fault_injection_arms_the_monitor(tmp_path, monkeypatch, caplog):
+    from vtpu_manager_torch.resilience import failpoints
+    monkeypatch.setenv("VTPU_FAILPOINTS", "kube.request=explode")
+    try:
+        assert dm.main(exporter_args(tmp_path, "--feature-gates",
+                                     "FaultInjection=true")) == 2
+        assert "bad failpoint spec" in caplog.text
+        assert not failpoints.is_enabled()
+    finally:
+        failpoints.disable()

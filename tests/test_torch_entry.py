@@ -107,8 +107,8 @@ def test_entry_registers_and_answers_allocate(tmp_path):
      "invalid feature gate value"),
     # no service account here: the in-cluster client has no API access
     (["--service-account-dir", "no-such-dir"], "no in-cluster API access"),
-    (["--fake-client", "--metrics-port", "9000"],
-     "--metrics-port: the resilience metrics endpoint is not ported yet"),
+    (["--fake-client", "--lease-namespace", "vtpu-system"],
+     "--lease-namespace: the reschedule controller is not ported yet"),
     (["--fake-client", "--spill-budget-gib", "8"],
      "memory over-commit is not ported yet"),
     (["--fake-client", "--id-store", "ids.json"],

@@ -312,6 +312,24 @@ def test_graph_replays_are_metered(card):
 
 
 @pytest.mark.gpu
+def test_another_threads_launches_leave_a_global_capture_valid(card):
+    """S1: one thread captures the quota step and an attention launch in
+    torch's default global mode while another launches a metered kernel
+    through the driver API on its own stream; the capture ends valid and
+    replays the eager outputs, and the interposer metered and sampled the
+    other thread's launches."""
+    from vtpu_manager_torch import bench_quota as bq
+    from vtpu_manager_torch import build
+    rec = bq.run_cross_capture(str(build.build_shim()))
+    assert rec is not None
+    assert rec["capture_error"] is None and "b_error" not in rec, rec
+    assert rec["b_failed_launches"] == 0, rec
+    assert rec["max_abs_err"] <= 1e-4, rec
+    assert rec["b_vtpu_launches_total"] > 0, rec
+    assert rec["b_vtpu_sampled_launches_total"] > 0, rec
+
+
+@pytest.mark.gpu
 def test_allocation_entries_are_capped(card):
     """Under a 64 MiB cap, 256 MiB through cuMemAllocManaged,
     cuMemAllocPitch_v2 and cuMemAllocFromPoolAsync is refused with

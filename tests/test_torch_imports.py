@@ -35,6 +35,14 @@ def test_source_imports_nothing_of_jax(path):
     assert not bad, f"{path} imports {bad}"
 
 
+# the node-resilience modules keep their own copies of the JAX package's
+# failpoints, registry and debug modules
+@pytest.mark.parametrize("rel", ["resilience/failpoints.py",
+                                 "registry/server.py", "util/debug.py"])
+def test_node_resilience_modules_are_among_the_checked(rel):
+    assert PKG / rel in _sources()
+
+
 def test_loading_every_module_loads_no_jax():
     modules = ["chip_smoke"] + [
         ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(

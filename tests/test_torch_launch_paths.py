@@ -3,7 +3,8 @@
 The interposer against the fake driver, as tests/test_torch_shim.py runs
 it: CUDA-graph replays (cuGraphLaunch) and cooperative launches are paced
 like cuLaunchKernel, a launch into a capturing stream is neither charged
-nor sampled and leaves the capture valid, and each allocating entry of the
+nor sampled and leaves the capture valid (as do another thread's metered
+launches during a global-mode capture), and each allocating entry of the
 driver API beyond cuMemAlloc_v2 is held to the memory cap, its free
 returning the credit.
 """
@@ -75,6 +76,26 @@ def test_capture_is_charged_nothing_and_replays_are(quota):
     # a metered tenant pays for each replay; an unmetered one pays nothing
     assert (c["charged_replays"] > 0) == (quota > 0), c
     assert c["multi_rc"] == 0 and c["multi_launches"] == 2, c
+
+
+@pytest.mark.parametrize("quota", [50, 0])
+def test_another_threads_launches_leave_a_global_capture_valid(quota):
+    """S1: while the main thread captures in the global mode, a second
+    thread's metered launches on another stream are drained with event
+    queries; the interposer makes them in the relaxed capture mode, so the
+    capture ends valid (before the repair: cuStreamEndCapture 901)."""
+    n = 24
+    res = bench_quota.run_fake_harness(
+        "--capture", VTPU_CORE_LIMIT=quota, MANAGER_VISIBLE_DEVICES="0,1",
+        FAKE_EXEC_US=500, SHIM_TEST_CAPTURE=9, SHIM_TEST_CROSS=n)
+    assert res["rc"] == 0, res["stderr"]
+    c = _fields(res["stdout"], "CROSS")
+    assert c["begin_rc"] == 0 and c["captured_rc"] == 0, c
+    assert c["end_rc"] == 0, c
+    assert c["failed"] == 0 and c["counted"] == n, c
+    # the second thread's samples were drained during the capture: one
+    # kernel has one sample in flight, so each new one followed a drain
+    assert (c["sampled"] >= 2) == (quota > 0), c
 
 
 @pytest.mark.parametrize("entry", ENTRIES)

@@ -109,8 +109,11 @@ def test_unequal_quotas_bias_the_card(world, watcher):
 
 
 def test_three_tenants_quota_ordering(world, watcher):
+    # 300 steps: q60's and q25's walls about 1.0 and 2.4 s apart by their
+    # quotas, far past a loaded host's start-up stalls (150 steps once
+    # left them 2 ms apart under -n 6)
     out = run_together(world, [("uid-hi", 60), ("uid-mid", 25),
-                               ("uid-lo", 10)], iters=150)
+                               ("uid-lo", 10)], iters=300)
     walls = {uid: o["wall_ms"] for uid, o in out.items()}
     assert walls["uid-hi"] < walls["uid-mid"] < walls["uid-lo"], walls
     assert walls["uid-hi"] >= 350, walls

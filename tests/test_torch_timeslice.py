@@ -70,9 +70,11 @@ def plant_window(lock_dir: str, until_ns: int, owner: int) -> None:
 
 def run_pair(tmp_path, shim: str, fake: str, slice_us: int,
              window: tuple[int, int] | None = None,
-             exec_us: int = EXEC_US) -> dict:
+             exec_us: int = EXEC_US, unmetered: int | None = None) -> dict:
     """The q50 + q25 pair, the same seconds of work in kernels of
-    `exec_us`; `window` (until_ns, owner) is planted first."""
+    `exec_us`; `window` (until_ns, owner) is planted first. The tenant of
+    quota `unmetered` runs without the interposer (no ledger entry, no
+    throttle, no counters)."""
     iters = {q: n * EXEC_US // exec_us for q, n in ITERS.items()}
     world = bench_quota.World(str(tmp_path / "node"))
     if window is not None:
@@ -93,6 +95,9 @@ def run_pair(tmp_path, shim: str, fake: str, slice_us: int,
                         "FAKE_EXEC_US": str(exec_us),
                         "FAKE_TIMESLICE_US": str(slice_us),
                         "SHIM_TEST_ITERS": str(n)})
+            if quota == unmetered:
+                env.pop("LD_PRELOAD")
+                env["SHIM_PATH"] = fake
             procs[quota] = subprocess.Popen(
                 [str(build.build_shim_test()), "--throttle-only"], env=env,
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
@@ -104,9 +109,10 @@ def run_pair(tmp_path, shim: str, fake: str, slice_us: int,
     finally:
         watcher.stop()
     for quota, o in out.items():
-        own_ns = o["vtpu_launches_total"] * exec_us * 1000
         o["share"] = 100.0 * iters[quota] * exec_us / 1000 / o["wall_ms"]
-        o["charge_rel"] = o["vtpu_charged_ns_total"] / own_ns - 1.0
+        if quota != unmetered:
+            own_ns = o["vtpu_launches_total"] * exec_us * 1000
+            o["charge_rel"] = o["vtpu_charged_ns_total"] / own_ns - 1.0
     return out
 
 
@@ -145,3 +151,17 @@ def test_short_kernels_beside_a_co_tenant_are_charged_their_own_time(
         assert o["vtpu_windows_total"] == 0, out
         assert abs(o["share"] - quota) <= QUOTA_BAND, out
         assert abs(o["charge_rel"]) <= CHARGE_REL, out
+
+
+if __name__ == "__main__":
+    # S2 (ROADMAP Queue 3): the pair with q25 run without the interposer,
+    # beside the pair as the tests run it; prints q50's share and charge
+    import pathlib
+    import tempfile
+    for label, unmetered in (("both metered", None), ("q25 unmetered", 25)):
+        with tempfile.TemporaryDirectory() as d:
+            o = run_pair(pathlib.Path(d), str(build.build_shim()),
+                         str(build.build_fake_driver()), SLICE_US,
+                         unmetered=unmetered)[50]
+        print(f"S2 {label}: q50 share {o['share']:.2f} charge_rel "
+              f"{o['charge_rel']:+.4f} windows {o['vtpu_windows_total']}")

@@ -321,7 +321,8 @@ CAPTURE_COUNTERS = ("vtpu_launches_total", "vtpu_sampled_launches_total",
 def tenant_config(path: str, pod_uid: str, *, cap: int = 0,
                   real_memory: int = 0, hard_core: int = 0,
                   soft_core: int | None = None, container: str = "main",
-                  uuid: str = "", host_index: int = 0) -> vc.VtpuConfig:
+                  uuid: str = "", host_index: int = 0,
+                  compat_mode: int = consts.COMPAT_HOST) -> vc.VtpuConfig:
     """Writes a tenant's `vtpu.config` with the port's writer, one device,
     its fields as the device plugin sets them (`vnum.py:370-399`): a
     compute limit is hard unless `soft_core` (balance mode) is above it."""
@@ -330,7 +331,7 @@ def tenant_config(path: str, pod_uid: str, *, cap: int = 0,
               vc.CORE_LIMIT_SOFT if soft > hard_core else vc.CORE_LIMIT_HARD)
     cfg = vc.VtpuConfig(
         pod_uid=pod_uid, pod_name=pod_uid, pod_namespace="default",
-        container_name=container, compat_mode=consts.COMPAT_HOST,
+        container_name=container, compat_mode=compat_mode,
         devices=[vc.DeviceConfig(
             uuid=uuid, total_memory=cap, real_memory=real_memory,
             hard_core=hard_core, soft_core=soft, core_limit=policy,
@@ -503,6 +504,111 @@ def _wait_file(path: str | None, timeout_s: float = 300.0) -> None:
         if time.monotonic() > deadline:
             raise TimeoutError(f"{path} never appeared")
         time.sleep(0.005)
+
+
+def run_cross_capture(shim: str | None, launches: str = "raw",
+                      quota: int = 50, steps: int = 40,
+                      timeout: int = 300) -> dict | None:
+    """S1 on the card (`_cross_capture_worker`) in a tenant under the
+    interposer at `quota` (`shim` None: without it)."""
+    args = ["-m", "vtpu_manager_torch.bench_quota", "--cross-capture-worker",
+            "--cross-launches", launches, "--steps", str(steps)]
+    return _run_tenant(args, tenant_env(shim, quota), "WORKER", timeout)
+
+
+def _cross_capture_worker(args) -> None:
+    """Thread A captures the quota step and one attention launch into a
+    torch.cuda.CUDAGraph in torch's default (global) capture mode; while
+    the capture is open, thread B launches on a stream of its own, which
+    the interposer meters (samples recorded and drained with event
+    queries): `args.steps` launches of an empty kernel through the driver
+    API (`raw`: nothing but the launch, loaded before the capture), or
+    `args.steps` eager quota steps (`torch`). The capture must end valid
+    and its replay give the eager outputs."""
+    import threading
+
+    import torch
+
+    from vtpu_manager_torch.bench_steps import _quota_input, _quota_step
+    from vtpu_manager_torch.workloads import block_attention as ba
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn((8, 16, 512, 128), generator=gen, device=dev)
+               for _ in range(3))
+    bias = torch.zeros((512, 512), device=dev)
+    x = _quota_input(args.dim, dev)
+    xb = _quota_input(args.dim, dev)
+    side_a, side_b = torch.cuda.Stream(), torch.cuda.Stream()
+    # warm-ups, so that nothing is allocated or initialised during the
+    # capture: B on its own stream, A on a side stream as capture needs
+    with torch.cuda.stream(side_b):
+        for _ in range(3):
+            _quota_step(xb)
+    side_a.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side_a):
+        for _ in range(3):
+            eager_y, _ = _quota_step(x)
+            eager_o = ba.attention_block(q, k, v, bias)
+    torch.cuda.synchronize()
+    cu = _libcuda()
+    vp = ctypes.c_void_p
+    module, fn = vp(), vp()
+    if cu.cuModuleLoadData(ctypes.byref(module), NOOP_PTX) != 0 or \
+            cu.cuModuleGetFunction(ctypes.byref(fn), module,
+                                   b"vtpu_noop") != 0:
+        raise RuntimeError("the empty kernel did not load")
+    launch = cu.cuLaunchKernel
+    launch.argtypes = [vp] + [ctypes.c_uint] * 7 + [vp, vp, vp]
+    stream_b = vp(side_b.cuda_stream)
+    capturing, b_done = threading.Event(), threading.Event()
+    b_rec: dict = {}
+
+    def thread_b() -> None:
+        try:
+            capturing.wait(60)
+            before = _shim_counters()
+            rcs = []
+            for _ in range(args.steps):
+                if args.cross_launches == "raw":
+                    rcs.append(launch(fn, 1, 1, 1, 32, 1, 1, 0, stream_b,
+                                      None, None))
+                    time.sleep(0.001)   # the sample ends before the next
+                else:
+                    with torch.cuda.stream(side_b):
+                        _quota_step(xb)
+            b_rec["b_failed_launches"] = sum(rc != 0 for rc in rcs)
+            after = _shim_counters()
+            b_rec.update({f"b_{k}": after[k] - before[k] for k in (
+                "vtpu_launches_total", "vtpu_sampled_launches_total",
+                "vtpu_captured_launches_total") if k in after})
+        except Exception as e:  # noqa: BLE001 - reported in the record
+            b_rec["b_error"] = repr(e)
+        finally:
+            b_done.set()
+
+    t = threading.Thread(target=thread_b)
+    t.start()
+    graph = torch.cuda.CUDAGraph()
+    error = None
+    try:
+        with torch.cuda.graph(graph):
+            capturing.set()
+            y, _ = _quota_step(x)
+            o = ba.attention_block(q, k, v, bias)
+            b_done.wait(120)   # the capture stays open while B launches
+    except Exception as e:  # noqa: BLE001 - the verdict under test
+        error = repr(e)
+    capturing.set()
+    t.join(timeout=120)
+    out = {"capture_error": error, "launches": args.cross_launches, **b_rec}
+    if error is None:
+        for _ in range(3):
+            graph.replay()
+        torch.cuda.synchronize()
+        out["max_abs_err"] = max(
+            (y.float() - eager_y.float()).abs().max().item(),
+            max((a - b).abs().max().item() for a, b in zip(o, eager_o)))
+    print("WORKER " + json.dumps({**out, **_shim_counters()}), flush=True)
 
 
 def _worker(args) -> None:
@@ -773,6 +879,9 @@ def main(argv=None) -> None:
     ap.add_argument("--device-times", type=int, default=0,
                     help="after the loop, the step's device time "
                     "(bench_steps.step_device_times, this many loop steps)")
+    ap.add_argument("--cross-capture-worker", action="store_true")
+    ap.add_argument("--cross-launches", default="raw",
+                    choices=("raw", "torch"))
     ap.add_argument("--hold-worker", action="store_true")
     ap.add_argument("--alloc-gib", default="")
     ap.add_argument("--retry-s", type=float, default=0.0)
@@ -780,6 +889,8 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     if args.worker:
         _worker(args)
+    elif args.cross_capture_worker:
+        _cross_capture_worker(args)
     elif args.hold_worker:
         _hold_worker(args)
     elif args.hbm_worker:

@@ -7,7 +7,9 @@ the DRA kubelet plugin use. Thread-safe; every
 read returns a copy. Every change appends an ADDED / MODIFIED / DELETED
 event under one increasing resourceVersion; `watch_pods` / `watch_nodes`
 return the events after a version and a trailing BOOKMARK, and raise
-KubeError(410) for a version older than what is retained.
+KubeError(410) for a version older than what is retained. Each verb fires
+the JAX fake's failpoint (`kube.request` with `op=<verb>`, `kube.watch`
+with `op=<kind>`), so a spec armed with a `match` selects the same calls.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import threading
 from collections import deque
 
 from vtpu_manager_torch.client.kube import KubeError
+from vtpu_manager_torch.resilience import failpoints
 
 WATCH_RETENTION = 100_000      # events kept per kind
 
@@ -54,6 +57,7 @@ class FakeKubeClient:
                 self._compacted_rv[kind] = self._rv
 
     def _watch(self, kind: str, resource_version: str) -> list[dict]:
+        failpoints.fire("kube.watch", op=kind)
         try:
             after = int(resource_version or 0)
         except ValueError as e:
@@ -99,6 +103,7 @@ class FakeKubeClient:
     # -- KubeClient -----------------------------------------------------------
 
     def get_node(self, name: str) -> dict:
+        failpoints.fire("kube.request", op="get_node")
         with self._lock:
             if name not in self.nodes:
                 raise KubeError(404, f"node {name} not found")
@@ -114,6 +119,7 @@ class FakeKubeClient:
                 anns[k] = v
 
     def patch_node_annotations(self, name: str, annotations: dict) -> dict:
+        failpoints.fire("kube.request", op="patch_node_annotations")
         with self._lock:
             node = self.nodes.get(name)
             if node is None:
@@ -129,6 +135,7 @@ class FakeKubeClient:
         if field_selector not in (None, "", "spec.nodeName!="):
             raise NotImplementedError(
                 f"unsupported field_selector {field_selector!r}")
+        failpoints.fire("kube.request", op="list_pods")
         with self._lock:
             out = []
             for (ns, _), pod in self.pods.items():
@@ -143,6 +150,7 @@ class FakeKubeClient:
             return out
 
     def get_pod(self, namespace: str, name: str) -> dict:
+        failpoints.fire("kube.request", op="get_pod")
         with self._lock:
             pod = self.pods.get((namespace, name))
             if pod is None:
@@ -151,6 +159,7 @@ class FakeKubeClient:
 
     def patch_pod_annotations(self, namespace: str, name: str,
                               annotations: dict) -> dict:
+        failpoints.fire("kube.request", op="patch_pod_annotations")
         with self._lock:
             pod = self.pods.get((namespace, name))
             if pod is None:

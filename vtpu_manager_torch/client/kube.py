@@ -12,8 +12,9 @@ JSON shape, so a component takes any client with these methods:
 `InClusterClient` is REST over the pod's service account with `urllib`
 and `ssl` (the card machine has no Kubernetes package). Its requests are
 the JAX client's, byte for byte: method, path, query, headers and JSON
-body. The JAX client's failure-injection hook (`failpoints.fire`) is not
-ported. An HTTP error becomes `KubeError(status)`, with the server's
+body, and each request and watch fires the JAX client's failpoints
+(`kube.request` with `method` and `path`, `kube.watch` with `path`). An
+HTTP error becomes `KubeError(status)`, with the server's
 Retry-After; a transport failure (refused, reset, DNS, timeout) becomes
 `KubeError(0)`, the class a retry policy retries by definition.
 """
@@ -27,6 +28,8 @@ import ssl
 import urllib.error
 import urllib.request
 from typing import Iterable, Protocol
+
+from vtpu_manager_torch.resilience import failpoints
 
 log = logging.getLogger(__name__)
 
@@ -104,6 +107,7 @@ class InClusterClient:
 
     def _request(self, method: str, path: str, body: dict | None = None,
                  content_type: str = "application/json") -> dict:
+        failpoints.fire("kube.request", method=method, path=path)
         data = json.dumps(body).encode() if body is not None else None
         req = urllib.request.Request(self.base + path, data=data,
                                      method=method)
@@ -168,6 +172,7 @@ class InClusterClient:
         them and returns when it closes the stream (timeoutSeconds). A
         compacted resourceVersion raises KubeError(410), whether the server
         says so by the HTTP status or by an in-stream ERROR event."""
+        failpoints.fire("kube.watch", path=path)
         query = (f"?watch=true&allowWatchBookmarks=true"
                  f"&resourceVersion={resource_version}"
                  f"&timeoutSeconds={max(1, int(timeout_s))}")

@@ -13,7 +13,13 @@ no aiohttp, grpc or protobuf):
   spools), then this process's retry and breaker counters;
 - `/traces`: the spools assembled into per-pod timelines, or one pod's
   timeline and critical path with `?pod=<uid or trace id>`;
-- `/healthz`: `ok`.
+- `/healthz`: `ok`;
+- `/debug/stacks` with `--debug-endpoints`: every thread's stack
+  (`util/debug.format_stacks`), behind the same token as `/metrics`.
+
+FaultInjection arms the failpoint registry from `VTPU_FAILPOINTS` (seed
+`VTPU_FAILPOINTS_SEED`), as the JAX monitor does; a malformed spec exits
+2.
 
 With `--metrics-token-file`, `/metrics` and `/traces` want
 `Authorization: Bearer <token>`; the file is read again on every request
@@ -46,7 +52,6 @@ from urllib.parse import parse_qs, urlsplit
 NOT_PORTED_FLAGS = {
     "--explain-dir": "the decision-explain spools (DecisionExplain)",
     "--fake-client": "the cluster fan-ins (/utilization, /explain)",
-    "--debug-endpoints": "the debug endpoints (/debug/stacks)",
 }
 # JAX gates of planes not ported yet: refused when set true
 NOT_PORTED_GATES = {
@@ -60,7 +65,6 @@ NOT_PORTED_GATES = {
     "HBMOvercommit": "memory over-commit (the spill series)",
     "CommTelemetry": "the comm telemetry series",
     "HealthPlane": "the health plane",
-    "FaultInjection": "fault injection",
 }
 
 log = logging.getLogger("vtpu-device-monitor")
@@ -124,6 +128,7 @@ def make_handler(collector, args, read_token):
     from vtpu_manager_torch.trace import assemble
     from vtpu_manager_torch.trace.metrics import render_trace_metrics
     from vtpu_manager_torch.trace.recorder import reap_stale_spools
+    from vtpu_manager_torch.util.debug import format_stacks
 
     # one scrape at a time: the collector's folds keep state across
     # scrapes (ring cursors, peaks, the kubelet-view cache)
@@ -186,6 +191,13 @@ def make_handler(collector, args, read_token):
                     else:
                         pod = parse_qs(url.query).get("pod", [""])[0]
                         self._json(*traces_doc(pod))
+                elif url.path == "/debug/stacks" and args.debug_endpoints:
+                    # stacks disclose internals: opt-in, and behind the
+                    # token when one is configured
+                    if not self._authorized():
+                        self._send(401, "unauthorized\n", "text/plain")
+                    else:
+                        self._send(200, format_stacks(), "text/plain")
                 else:
                     self._send(404, "404: Not Found", "text/plain")
             except Exception:  # noqa: BLE001 - one request, not the server
@@ -215,11 +227,20 @@ def main(argv: list[str] | None = None) -> int:
         log.error("bad --feature-gates: %s", "; ".join(
             f"{g}: {NOT_PORTED_GATES[g]} is not ported yet" for g in refused))
         return 2
+    gates = fg.FeatureGates()
     try:
-        fg.FeatureGates().parse(spec)
+        gates.parse(spec)
     except ValueError as e:
         log.error("bad --feature-gates: %s", e)
         return 2
+    if gates.enabled(fg.FAULT_INJECTION):
+        from vtpu_manager_torch.resilience import failpoints
+        try:
+            failpoints.arm_from_env()
+        except ValueError as e:
+            log.error("bad failpoint spec: %s", e)
+            return 2
+        log.info("fault injection on: armed %s", failpoints.armed_sites())
 
     def read_token() -> str:
         with open(args.metrics_token_file) as f:

@@ -5,6 +5,8 @@
         [--feature-gates CompileCache=true --compile-cache-budget-mb 4096]
         [--feature-gates Tracing=true --trace-sampling-rate 0.5
          --trace-spool-dir <dir>]
+        [--feature-gates ClientMode=true --registry-socket <path>]
+        [--feature-gates FaultInjection=true] [--metrics-port 9395]
 
 The port of the JAX package's `cmd/device_plugin.py:108-290`, the parts
 ported so far: discovery (NVML, or `--fake-chips N` synthetic H100s), the
@@ -20,7 +22,15 @@ tenant, and this agent evicts it to `--compile-cache-budget-mb` every
 (Tracing: Allocate's spans spool to `--trace-spool-dir`, for the pods a
 `--trace-sampling-rate` share of which the admission mint sampled, and a
 traced pod's tenant gets the trace env and, when sampled, the node trace
-dir `/etc/vtpu-manager/trace` mounted read-write).
+dir `/etc/vtpu-manager/trace` mounted read-write), the node registry
+(ClientMode: tenants' device clients register their pids over
+`--registry-socket`, default the path tenants mount; a socket that cannot
+be served logs a warning and the plugin runs without client mode, as the
+JAX plugin does) and fault injection (FaultInjection: the failpoint
+registry armed from `VTPU_FAILPOINTS`, seed `VTPU_FAILPOINTS_SEED`; a
+malformed spec exits 2). `--metrics-port` serves this process's
+resilience counters (retries, breakers, failpoint fires) on `/metrics`
+and answers 404 on any other path; 0, the default, serves nothing.
 
 The API server is reached with the pod's service account
 (`client.kube.InClusterClient`: KUBERNETES_SERVICE_HOST and _PORT, the
@@ -30,8 +40,9 @@ an in-memory client instead. Without API access and without
 
 Flags keep their JAX names. A flag of a part not ported yet is refused. A
 run that is not root points `--base-dir`, `--vmem-path`,
-`--lock-dir`, `--watcher-dir`, `--driver-dir`, `--plugin-dir` and, with
-Tracing, `--trace-spool-dir` at a directory of its own.
+`--lock-dir`, `--watcher-dir`, `--driver-dir`, `--plugin-dir`, with
+Tracing `--trace-spool-dir` and with ClientMode `--registry-socket` at a
+directory of its own.
 """
 
 from __future__ import annotations
@@ -47,12 +58,10 @@ from vtpu_manager_torch.client.kube import (SERVICE_ACCOUNT_DIR,
 
 # JAX flags of parts not ported yet: refused when given
 NOT_PORTED = {
-    "--registry-socket": "ClientMode's registry socket",
     "--lease-namespace": "the reschedule controller",
     "--cache-advertise-endpoint": "the cluster compile cache",
     "--cache-ad-max-pairs": "the cluster compile cache",
     "--spill-budget-gib": "memory over-commit",
-    "--metrics-port": "the resilience metrics endpoint",
     # a GPU's id is its NVML UUID; a store's synthetic ids would reach
     # NVIDIA_VISIBLE_DEVICES, which the container runtime cannot resolve
     "--id-store": "the device-id store (a GPU needs none)",
@@ -72,6 +81,12 @@ def parse_args(argv: list[str] | None) -> argparse.Namespace:
     ap.add_argument("--feature-gates", default="")
     ap.add_argument("--plugin-dir", default="/var/lib/kubelet/device-plugins")
     ap.add_argument("--base-dir", default=consts.MANAGER_BASE_DIR)
+    ap.add_argument("--registry-socket", default=consts.REGISTRY_SOCKET,
+                    help="ClientMode: the registry socket (default: the "
+                    "path tenants mount)")
+    ap.add_argument("--metrics-port", type=int, default=0,
+                    help="serve this process's resilience counters on "
+                    "/metrics (0: off)")
     ap.add_argument("--vmem-path", default=consts.VMEM_NODE_CONFIG,
                     help="the memory ledger; its directory is what tenants "
                     "mount")
@@ -112,6 +127,39 @@ def parse_args(argv: list[str] | None) -> argparse.Namespace:
         if getattr(args, flag[2:].replace("-", "_")) is not None:
             ap.error(f"{flag}: {part} is not ported yet")
     return args
+
+
+def serve_metrics(port: int, host: str = "0.0.0.0"):
+    """This process's resilience counters on `/metrics` (JAX
+    `cmd/device_plugin.py:397-452`), 404 on any other path, served from a
+    daemon thread; the caller shuts the returned server down. The JAX
+    endpoint's link-load, health and fragmentation parts render nothing
+    with their gates off, and their planes are not ported."""
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    from vtpu_manager_torch.resilience.policy import render_resilience_metrics
+
+    class Handler(BaseHTTPRequestHandler):
+        def do_GET(self) -> None:  # noqa: N802 - http.server's name
+            if self.path != "/metrics":
+                self.send_response(404)
+                self.end_headers()
+                return
+            body = (render_resilience_metrics() + "\n").encode()
+            self.send_response(200)
+            self.send_header("Content-Type", "text/plain")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, *a) -> None:
+            pass
+
+    server = ThreadingHTTPServer((host, port), Handler)
+    server.daemon_threads = True
+    threading.Thread(target=server.serve_forever, daemon=True,
+                     name="vtpu-plugin-metrics").start()
+    return server
 
 
 def start_cache_evictor(root: str, budget_bytes: int, interval_s: float,
@@ -176,6 +224,16 @@ def main(argv: list[str] | None = None) -> int:
                         sampling_rate=args.trace_sampling_rate)
         log.info("tracing on: spans to %s at sampling rate %g",
                  trace.recorder().spool_dir, trace.sampling_rate())
+    if gates.enabled(fg.FAULT_INJECTION):
+        # chaos and staging only; with the gate off every site is one
+        # dict lookup
+        from vtpu_manager_torch.resilience import failpoints
+        try:
+            failpoints.arm_from_env()
+        except ValueError as e:
+            log.error("bad failpoint spec: %s", e)
+            return 2
+        log.info("fault injection on: armed %s", failpoints.armed_sites())
     if not args.node_name:
         log.error("--node-name or NODE_NAME required")
         return 2
@@ -277,6 +335,25 @@ def main(argv: list[str] | None = None) -> int:
         pressure.start()
         log.info("step-telemetry pressure publisher running")
 
+    registry = None
+    if gates.enabled(fg.CLIENT_MODE):
+        # tenants' device clients register their pids here (SO_PEERCRED
+        # and the cgroup check attest them)
+        from vtpu_manager_torch.registry.server import RegistryServer
+        registry = RegistryServer(socket_path=args.registry_socket,
+                                  base_dir=args.base_dir)
+        try:
+            registry.start()
+        except OSError as e:
+            log.warning("registry socket unavailable (%s); client-mode "
+                        "pid attribution disabled", e)
+            registry = None
+    metrics = None
+    if args.metrics_port:
+        metrics = serve_metrics(args.metrics_port)
+        log.info("resilience metrics on :%d/metrics",
+                 metrics.server_address[1])
+
     if gates.enabled(fg.COMPILE_CACHE):
         start_cache_evictor(vnum.compile_cache_host_dir(),
                             args.compile_cache_budget_mb << 20,
@@ -292,6 +369,11 @@ def main(argv: list[str] | None = None) -> int:
         pressure.stop()
     for server in servers:
         server.stop()
+    if metrics is not None:
+        metrics.shutdown()
+        metrics.server_close()
+    if registry is not None:
+        registry.stop()
     manager.stop()
     return 0
 

@@ -27,7 +27,9 @@ the socket cannot be reached it goes on without the hook, and /readyz
 says so. With the Tracing gate, Prepare records the `dra.prepare` and
 `dra.cdi` spans of the claims reserved for pods whose uid the sampling
 rate picks (the admission mint's verdict, computed again from the uid),
-spooled to `--trace-spool-dir`.
+spooled to `--trace-spool-dir`. With FaultInjection, the failpoint
+registry is armed from `VTPU_FAILPOINTS` (seed `VTPU_FAILPOINTS_SEED`);
+a malformed spec exits 2.
 
 The flag of a part not ported (the device-id store) is refused. A run
 that is not root points `--plugin-dir`, `--registry-dir`, `--base-dir`,
@@ -149,6 +151,14 @@ def main(argv: list[str] | None = None) -> int:
                         sampling_rate=args.trace_sampling_rate)
         log.info("tracing on: spans to %s at sampling rate %g",
                  trace.recorder().spool_dir, trace.sampling_rate())
+    if gates.enabled(fg.FAULT_INJECTION):
+        from vtpu_manager_torch.resilience import failpoints
+        try:
+            failpoints.arm_from_env()
+        except ValueError as e:
+            log.error("bad failpoint spec: %s", e)
+            return 2
+        log.info("fault injection on: armed %s", failpoints.armed_sites())
     if not args.node_name:
         log.error("--node-name or NODE_NAME required")
         return 2

@@ -31,9 +31,12 @@ bytes are still the ones it wrote.
 Counters never fail an operation: a stats write that fails is dropped,
 and a put that fails after a compile serves the compiled payload
 uncached. `get_or_compile` is the `shim.compile` span of a traced tenant,
-followed by its `shim.compile_outcome` event (`cache.py:433-446`). What
-the JAX store adds besides (its failpoints and the cluster tier's peer
-fetch) is not ported.
+followed by its `shim.compile_outcome` event (`cache.py:433-446`). The
+JAX store's failpoints fire where they fire there: `cache.write` after the
+temp entry is written, before the rename (a torn temp file never becomes
+an entry), and `cache.lease` once the lease is held, before the compile
+(a crash leaves the lease as a dead holder would). The cluster tier's peer
+fetch is not ported.
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ import struct
 import time
 
 from vtpu_manager_torch import trace
+from vtpu_manager_torch.resilience import failpoints
 from vtpu_manager_torch.util import stalecodec
 from vtpu_manager_torch.util.flock import FileLock, LockTimeout
 
@@ -256,6 +260,7 @@ class CompileCache:
             f.write(payload)
             f.flush()
             os.fsync(f.fileno())
+        failpoints.fire("cache.write", key=key, path=tmp)
         os.rename(tmp, self.entry_path(key))
 
     # -- one compile per key -------------------------------------------------
@@ -400,6 +405,7 @@ class CompileCache:
                         self.stats.hits += 1
                         self._flush_stats()
                         return payload, ("wait" if waited else "hit")
+                    failpoints.fire("cache.lease", key=key)
                     payload = compile_fn()
                     try:
                         self.put(key, payload)

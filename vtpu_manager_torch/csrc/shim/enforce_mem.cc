@@ -22,7 +22,10 @@
 // flock (VTPU_LOCK_DIR/vtpu_<host>.lock), so two processes allocating at
 // once cannot both pass:
 //   the cap:      own bytes + this tenant's other processes' bytes (same
-//                 owner token in the ledger) + the request <= the cap;
+//                 owner token in the ledger; an entry without a token is
+//                 one of them when CLIENT mode's registry-attested pid set,
+//                 pids.config, names its pid: enforce.cc:441-484, 513-514)
+//                 + the request <= the cap;
 //   the physical: every tenant's bytes on the device + the request <=
 //                 real_memory.
 // A refusal is CUDA_ERROR_OUT_OF_MEMORY before the driver sees the call
@@ -49,7 +52,9 @@
 
 #include <algorithm>
 #include <mutex>
+#include <string>
 #include <unordered_map>
+#include <unordered_set>
 
 #include "shim.h"
 
@@ -70,6 +75,29 @@ std::unordered_map<CUdeviceptr, Allocation> g_by_ptr;
 std::unordered_map<CUmemGenericAllocationHandle, Allocation> g_by_handle;
 std::unordered_map<uintptr_t, Allocation> g_by_array;  // arrays, mipmaps
 std::atomic<uint64_t> g_oom_rejected{0};
+
+// CLIENT mode's pid set and the identity (inode, mtime, size) of the
+// pids.config it was read from.
+std::mutex g_client_pids_mu;
+std::unordered_set<int> g_client_pids;
+struct FileStamp {
+  ino_t ino = 0;
+  int64_t mtime_ns = -1;
+  off_t size = -1;
+  bool operator==(const FileStamp& o) const {
+    return ino == o.ino && mtime_ns == o.mtime_ns && size == o.size;
+  }
+};
+FileStamp g_client_pids_stamp;
+
+// pids.config beside the container's vtpu.config (enforce.cc:441).
+std::string ClientPidsPath() {
+  const char* cfg = getenv("VTPU_CONFIG_PATH");
+  std::string dir = cfg && *cfg ? cfg : "/etc/vtpu-manager/config/vtpu.config";
+  size_t slash = dir.rfind('/');
+  if (slash == std::string::npos) return "pids.config";
+  return dir.substr(0, slash) + "/pids.config";
+}
 
 int64_t Used(int slot) {
   std::lock_guard<std::mutex> lock(g_mu);
@@ -340,8 +368,60 @@ uint64_t OwnerToken() {
   return t;
 }
 
+// Reads pids.config again when its inode, mtime or size changed
+// (enforce.cc:449; the reference compares the mtime in seconds, which a
+// rewrite within the same second would not change). A file that does not
+// decode is remembered and the set stays as it was.
+void RefreshClientPids() {
+  if (!(Cfg().compat_mode & kCompatClient)) return;
+  std::string path = ClientPidsPath();
+  struct stat st;
+  if (stat(path.c_str(), &st) != 0) return;
+  FileStamp stamp{st.st_ino,
+                  (int64_t)st.st_mtim.tv_sec * 1000000000 + st.st_mtim.tv_nsec,
+                  st.st_size};
+  {
+    std::lock_guard<std::mutex> lock(g_client_pids_mu);
+    if (stamp == g_client_pids_stamp) return;
+    g_client_pids_stamp = stamp;
+  }
+  int fd = open(path.c_str(), O_RDONLY | O_CLOEXEC);
+  if (fd < 0) return;
+  PidsFileHeader header;
+  std::unordered_set<int> pids;
+  bool ok = read(fd, &header, sizeof(header)) == (ssize_t)sizeof(header) &&
+            header.magic == kPidsMagic && header.version == 1 &&
+            header.count >= 0 && header.count < 65536;
+  for (int i = 0; ok && i < header.count; i++) {
+    int32_t pid;
+    ok = read(fd, &pid, sizeof(pid)) == (ssize_t)sizeof(pid);
+    pids.insert(pid);
+  }
+  close(fd);
+  if (!ok) {
+    Log(kLogWarn, "client pid set %s does not decode; keeping the last",
+        path.c_str());
+    return;
+  }
+  size_t n = pids.size();
+  {
+    std::lock_guard<std::mutex> lock(g_client_pids_mu);
+    g_client_pids.swap(pids);
+  }
+  Log(kLogInfo, "client pid set refreshed (%zu pids)", n);
+}
+
+bool PidIsSelf(int pid) {
+  if (pid == (int)getpid()) return true;
+  if (!(Cfg().compat_mode & kCompatClient)) return false;
+  std::lock_guard<std::mutex> lock(g_client_pids_mu);
+  return g_client_pids.count(pid) > 0;
+}
+
 LedgerBytes ScanLedgerBytes(int slot) {
   LedgerBytes out;
+  // a process that only allocates starts no watcher to refresh the set
+  RefreshClientPids();
   const DeviceLimits* d = Dev(slot);
   MapLedgerOnce();
   if (!g_vmem || !d) return out;
@@ -352,7 +432,10 @@ LedgerBytes ScanLedgerBytes(int slot) {
     const VmemEntry& e = g_vmem->entries[i];
     int pid = __atomic_load_n(&e.pid, __ATOMIC_ACQUIRE);
     if (pid == 0 || e.host_index != d->host_index) continue;
-    bool self_tenant = e.owner_token == token;
+    // tenant identity is the token; an entry without one falls back to
+    // the registry-attested pid set (enforce.cc:513-514)
+    bool self_tenant =
+        e.owner_token != 0 ? e.owner_token == token : PidIsSelf(pid);
     if (self_tenant && pid == me) continue;  // g_used covers this process
     // a foreign namespace's pid cannot be probed: count the entry unless
     // it is both dead here and stale

@@ -20,12 +20,15 @@
 // the stream's capture status is asked first, and a capturing stream's
 // launch is neither charged nor sampled, and nothing else is done on its
 // behalf: recording an event on, or querying, a capturing stream
-// invalidates the capture, and in the global capture mode so do the sample
-// drain's event queries and any use of the legacy stream (which
-// cuStreamIsCapturing then reports as an error, taken as capturing). A
-// launch from another thread into another stream during a global-mode
-// capture still drains samples; the interposer does not track captures
-// across threads.
+// invalidates the capture, and in the global capture mode so does any use
+// of the legacy stream (which cuStreamIsCapturing then reports as an
+// error, taken as capturing). A launch from another thread into another
+// stream may meet a global-mode capture it cannot see, where the sample
+// drain's event queries would invalidate that capture (an unsafe call from
+// a thread in the global mode); so everything the interposer does on a
+// launch's behalf runs with the thread in the relaxed capture mode
+// (cuThreadExchangeStreamCaptureMode), and the caller's mode is restored
+// before the launch returns.
 //
 // Cost. A TPU program is one executable with a measured duration; a GPU
 // step is many kernels. Each CUfunction (and each CUgraphExec) keeps an
@@ -367,7 +370,9 @@ int MeasuredUtil(int slot, int64_t window_ns, int64_t self_ns, bool* external,
       for (int i = 0; i < nproc; i++) {
         const TcProcUtil& p = rec.procs[i];
         if (p.pid == 0) continue;
-        if (p.owner_token != token) {
+        // a resident without a token is ours when the registry-attested
+        // pid set names it (enforce.cc:1444-1446)
+        if (p.owner_token == 0 ? !PidIsSelf(p.pid) : p.owner_token != token) {
           other++;
           continue;
         }
@@ -549,6 +554,7 @@ void WatcherTick(uint64_t now, int64_t window_ns) {
     b.shared.store(others, std::memory_order_relaxed);
     if (++cs->ticks >= kHorizonTicks) JudgeHorizon(slot);
   }
+  RefreshClientPids();  // enforce.cc:1664
 }
 
 void* WatcherMain(void*) {
@@ -933,6 +939,27 @@ void CloseWindowAfter(int slot, CUevent end, uint64_t until) {
   SetWindow(slot, 0);
 }
 
+// The calling thread in the relaxed capture mode for the guard's lifetime,
+// its own mode restored after: the interposer's event queries then never
+// invalidate another thread's global-mode capture.
+class RelaxedCaptureMode {
+ public:
+  RelaxedCaptureMode()
+      : exchange_(VTPU_REAL_AS(PFN_cuThreadExchangeStreamCaptureMode,
+                               "cuThreadExchangeStreamCaptureMode")) {
+    if (exchange_ && exchange_(&mode_) != CUDA_SUCCESS) exchange_ = nullptr;
+  }
+  ~RelaxedCaptureMode() {
+    if (exchange_) exchange_(&mode_);
+  }
+  RelaxedCaptureMode(const RelaxedCaptureMode&) = delete;
+  RelaxedCaptureMode& operator=(const RelaxedCaptureMode&) = delete;
+
+ private:
+  PFN_cuThreadExchangeStreamCaptureMode exchange_;
+  CUstreamCaptureMode mode_ = CU_STREAM_CAPTURE_MODE_RELAXED;
+};
+
 struct Ticket {
   bool sampled = false;
   Sample sample;
@@ -964,6 +991,7 @@ void BeforeLaunch(CostKey key, CUstream stream, int slot, bool may_sample,
     g_captured.fetch_add(1, std::memory_order_relaxed);
     return;
   }
+  RelaxedCaptureMode relaxed;
   StartWatcherOnce();
   DeviceBucket& b = g_bucket[slot];
   uint64_t now = NowNs();
@@ -1076,6 +1104,7 @@ void BeforeLaunch(CostKey key, CUstream stream, int slot, bool may_sample,
 
 void AfterLaunch(CUresult rc, Ticket* t) {
   if (!t->sampled) return;
+  RelaxedCaptureMode relaxed;
   auto record = VTPU_REAL_AS(PFN_cuEventRecord, "cuEventRecord");
   CUevent end = nullptr;
   {

@@ -26,12 +26,15 @@
 #include <stdio.h>
 #include <stdlib.h>
 #include <string.h>
+#include <spawn.h>
 #include <sys/mman.h>
 #include <sys/stat.h>
+#include <sys/wait.h>
 #include <time.h>
 #include <unistd.h>
 
 #include <mutex>
+#include <string>
 
 #include "shim.h"
 
@@ -124,6 +127,7 @@ bool LoadConfigFile(const char* path, Config* out) {
                                    offsetof(VtpuConfig, checksum)) &&
             cfg->device_count >= 0 && cfg->device_count <= kMaxDeviceCount;
   if (ok) {
+    out->compat_mode = cfg->compat_mode;
     out->device_count = cfg->device_count < kMaxDevices ? cfg->device_count
                                                         : kMaxDevices;
     for (int i = 0; i < out->device_count; i++)
@@ -142,6 +146,8 @@ bool SynthesizeFromEnv(Config* out) {
   bool any = getenv("VTPU_MEM_LIMIT") || getenv("VTPU_MEM_LIMIT_0") ||
              getenv("VTPU_CORE_LIMIT") || getenv("VTPU_CORE_LIMIT_0");
   if (!any) return false;
+  const char* compat = getenv("MANAGER_COMPATIBILITY_MODE");
+  out->compat_mode = compat && *compat ? atoi(compat) : kCompatHost;
   int hosts[kMaxDevices] = {};
   int count = 0;
   const char* visible = getenv("MANAGER_VISIBLE_DEVICES");
@@ -186,6 +192,38 @@ Config LoadConfig() {
   if (!path || !*path) path = kDefaultConfigPath;
   if (!LoadConfigFile(path, &c)) SynthesizeFromEnv(&c);
   return c;
+}
+
+// CLIENT compat mode: announces this container to the node registry, so
+// the node can attest its pids into pids.config (library/src/loader.cc:301
+// SpawnDeviceClient). The device client is VTPU_DEVICE_CLIENT_CMD, else
+// the port's runtime client as a module (a tenant image without the
+// package names its own command). It runs in the background of a shell
+// that exits at once, so init reaps it and the tenant keeps no zombie;
+// posix_spawn runs no fork handlers in a process whose threads may hold
+// locks. Logs with fprintf: it runs while the config is being loaded.
+void SpawnDeviceClient(int log_level) {
+  const char* cmd = getenv("VTPU_DEVICE_CLIENT_CMD");
+  if (!cmd || !*cmd) cmd = "python3 -m vtpu_manager_torch.runtime.client";
+  std::string line = std::string("(") + cmd + ") </dev/null &";
+  char* argv[] = {const_cast<char*>("sh"), const_cast<char*>("-c"),
+                  const_cast<char*>(line.c_str()), nullptr};
+  posix_spawnattr_t attr;
+  posix_spawnattr_init(&attr);
+  posix_spawnattr_setflags(&attr, POSIX_SPAWN_SETSID);
+  pid_t pid = 0;
+  int rc = posix_spawn(&pid, "/bin/sh", nullptr, &attr, argv, environ);
+  posix_spawnattr_destroy(&attr);
+  int status = -1;
+  if (rc == 0) waitpid(pid, &status, 0);
+  if (rc == 0 && WIFEXITED(status) && WEXITSTATUS(status) == 0) {
+    if (log_level >= kLogInfo)
+      fprintf(stderr, "[vtpu-cuda INFO] device-client spawned: %s\n", cmd);
+  } else {
+    fprintf(stderr,
+            "[vtpu-cuda ERROR] device-client spawn FAILED (rc=%d status=%d): "
+            "%s\n", rc, status, cmd);
+  }
 }
 
 struct Route {
@@ -276,6 +314,8 @@ const Config& Cfg() {
                 (long long)d.mem_limit, (long long)d.real_memory, d.hard_core,
                 d.soft_core, d.core_limit);
     }
+    if (!c.disabled && c.device_count > 0 && (c.compat_mode & kCompatClient))
+      SpawnDeviceClient(c.log_level);
     return c;
   }();
   return cfg;

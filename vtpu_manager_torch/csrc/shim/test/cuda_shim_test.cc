@@ -19,7 +19,12 @@
 //                    launch during that capture, the graph replayed, and one
 //                    multi-device cooperative launch over two devices; prints
 //                    CAPTURE name=value ... (what the interposer charged and
-//                    counted across each part, and the capture's result)
+//                    counted across each part, and the capture's result);
+//                    then a global-mode capture of the main thread while a
+//                    second thread launches SHIM_TEST_CROSS metered kernels
+//                    on another stream, its samples drained as they finish
+//                    (CROSS name=value ...: the capture's result and what
+//                    the second thread's launches were counted and sampled)
 //   --entry-caps     SHIM_TEST_ENTRY (pitch, managed, pool, pool_ptsz, array,
 //                    array3d, mipmap) under VTPU_MEM_LIMIT_0: SHIM_TEST_BIG
 //                    bytes refused, SHIM_TEST_SMALL granted, the capped view
@@ -28,7 +33,9 @@
 //                    bytes) and keeps what it got, prints a VERDICT per size
 //                    and HELD, then holds it until SHIM_TEST_HOLD_FILE exists
 //                    (a second process of the same tenant, a co-tenant, or
-//                    a SIGKILL meets it there)
+//                    a SIGKILL meets it there); with SHIM_TEST_STEP_FILE,
+//                    size i > 0 first waits for <SHIM_TEST_STEP_FILE>.<i>
+//                    (the test changes the node in between)
 //   --stress         threads allocating, freeing and launching at once: the
 //                    cap holds at every moment, the ledger drains to zero
 //                    and every launch is counted
@@ -99,6 +106,7 @@ using MipmapDestroyFn = CUresult (*)(CUmipmappedArray);
 // device from bits 12-15 of its handle), and one on device 1.
 CUstream const kStream = reinterpret_cast<CUstream>(0x10);
 CUstream const kStreamDev1 = reinterpret_cast<CUstream>(0x1010);
+CUstream const kStream2 = reinterpret_cast<CUstream>(0x20);
 
 void* g_driver = nullptr;
 GetProcV2 g_get_proc = nullptr;
@@ -312,14 +320,23 @@ int Alloc() {
     return 2;
   }
   const char* raw = getenv("SHIM_TEST_ALLOCS");
+  const char* step = getenv("SHIM_TEST_STEP_FILE");
   std::vector<CUdeviceptr> held;
   int i = 0;
   for (const char* p = raw ? raw : ""; *p; i++) {
+    if (step && i > 0) {
+      std::string go = std::string(step) + "." + std::to_string(i);
+      struct stat st;
+      for (int waited = 0; stat(go.c_str(), &st) != 0 && waited < 60000;
+           waited += 10)
+        usleep(10000);
+    }
     char* end = nullptr;
     size_t bytes = strtoull(p, &end, 10);
     CUdeviceptr ptr = 0;
     CUresult rc = alloc(&ptr, bytes);
     printf("VERDICT alloc%d %d\n", i, rc);
+    fflush(stdout);
     if (rc == CUDA_SUCCESS) held.push_back(ptr);
     p = (*end == ',') ? end + 1 : end;
   }
@@ -490,6 +507,38 @@ int Capture() {
          (long long)(Driver("fake_graph_launches_total") - fake_graphs0),
          (long long)(charged3 - charged2), multi_rc,
          (long long)(launches3 - launches2));
+  // another thread's metered launches during this thread's global-mode
+  // capture: the interposer's event queries must not invalidate it
+  const char* raw_cross = getenv("SHIM_TEST_CROSS");
+  int cross = raw_cross ? atoi(raw_cross) : 24;
+  int exec_us = getenv("FAKE_EXEC_US") ? atoi(getenv("FAKE_EXEC_US")) : 100;
+  sync(kStream);
+  sync(kStream2);
+  int64_t launches4 = Counter("vtpu_launches_total");
+  int64_t sampled4 = Counter("vtpu_sampled_launches_total");
+  CUresult cross_begin_rc = begin(kStream, CU_STREAM_CAPTURE_MODE_GLOBAL);
+  CUresult cross_captured_rc =
+      launch(fn, 1, 1, 1, 1, 1, 1, 0, kStream, nullptr, nullptr);
+  std::atomic<int> cross_failed{0};
+  std::thread other([&] {
+    for (int i = 0; i < cross; i++) {
+      if (launch(fn, 1, 1, 1, 1, 1, 1, 0, kStream2, nullptr, nullptr) !=
+          CUDA_SUCCESS)
+        cross_failed++;
+      usleep(2 * exec_us);  // the sample has finished by the next launch
+    }
+  });
+  other.join();
+  CUgraph cross_graph = nullptr;
+  CUresult cross_end_rc = end(kStream, &cross_graph);
+  int64_t launches5 = Counter("vtpu_launches_total");
+  int64_t sampled5 = Counter("vtpu_sampled_launches_total");
+  sync(kStream2);
+  printf("CROSS begin_rc=%d captured_rc=%d end_rc=%d launches=%d failed=%d "
+         "counted=%lld sampled=%lld\n",
+         cross_begin_rc, cross_captured_rc, cross_end_rc, cross,
+         cross_failed.load(), (long long)(launches5 - launches4 - 1),
+         (long long)(sampled5 - sampled4));
   PrintCounters();
   return 0;
 }

@@ -32,8 +32,12 @@
 // them: a launch into a capturing stream becomes a node of the graph and
 // runs nothing; a graph replay runs each node for FAKE_EXEC_US. Recording
 // an event on, or querying, a capturing stream invalidates its capture, as
-// does touching the legacy stream or querying an event while a global-mode
-// capture is underway; cuStreamEndCapture then fails. A stream's device is
+// does touching the legacy stream during a global-mode capture, or querying
+// an event from a thread whose capture mode prohibits it: a thread in the
+// global mode (the default) while any global-mode capture is underway, a
+// thread in the thread-local mode while its own capture is; a thread in the
+// relaxed mode (cuThreadExchangeStreamCaptureMode) never. cuStreamEndCapture
+// then fails. A stream's device is
 // bits 12-15 of its handle (cuStreamGetCtx), for multi-device launches.
 // cuModuleLoadData and cuModuleGetFunction give, for any image and name, a
 // kernel that runs no time (the interposer's idle probe loads one).
@@ -50,6 +54,7 @@
 #include <algorithm>
 #include <map>
 #include <mutex>
+#include <thread>
 
 #include "../cuda_subset.h"
 
@@ -83,8 +88,11 @@ struct FakeCapture {
   bool active = false;
   bool invalidated = false;
   uint64_t nodes = 0;
+  std::thread::id owner;  // the thread that began it
 };
 FakeCapture g_capture;
+// The calling thread's capture mode (cuThreadExchangeStreamCaptureMode).
+thread_local int t_capture_mode = CU_STREAM_CAPTURE_MODE_GLOBAL;
 
 struct FakeGraph {
   uint64_t nodes = 0;
@@ -326,6 +334,17 @@ bool ImplicitLocked(CUstream stream) {
          g_capture.mode == CU_STREAM_CAPTURE_MODE_GLOBAL;
 }
 
+// Whether the calling thread may not make a potentially unsafe call (an
+// event query) now, by its own capture mode. Caller holds g_mu.
+bool UnsafeProhibitedLocked() {
+  if (!g_capture.active || t_capture_mode == CU_STREAM_CAPTURE_MODE_RELAXED)
+    return false;
+  bool mine = g_capture.owner == std::this_thread::get_id() &&
+              g_capture.mode != CU_STREAM_CAPTURE_MODE_RELAXED;
+  if (t_capture_mode == CU_STREAM_CAPTURE_MODE_THREAD_LOCAL) return mine;
+  return mine || g_capture.mode == CU_STREAM_CAPTURE_MODE_GLOBAL;
+}
+
 // The function cuModuleGetFunction gives for any name: a kernel that runs
 // no time (the interposer's idle probe loads such a module).
 CUfunction const kEmptyKernel = reinterpret_cast<CUfunction>(0xE0);
@@ -511,7 +530,16 @@ FAKE_EXPORT CUresult cuStreamBeginCapture_v2(CUstream stream,
   std::lock_guard<std::mutex> lock(g_mu);
   if (stream == nullptr || g_capture.active)
     return CUDA_ERROR_STREAM_CAPTURE_UNSUPPORTED;
-  g_capture = FakeCapture{stream, mode, true, false, 0};
+  g_capture = FakeCapture{stream, mode, true, false, 0,
+                          std::this_thread::get_id()};
+  return CUDA_SUCCESS;
+}
+
+FAKE_EXPORT CUresult cuThreadExchangeStreamCaptureMode(
+    CUstreamCaptureMode* mode) {
+  int prev = t_capture_mode;
+  t_capture_mode = *mode;
+  *mode = (CUstreamCaptureMode)prev;
   return CUDA_SUCCESS;
 }
 
@@ -660,9 +688,9 @@ bool EventDone(FakeEvent* e) {
 
 FAKE_EXPORT CUresult cuEventQuery(CUevent ev) {
   {
-    // a potentially unsafe call while a global-mode capture is underway
+    // a potentially unsafe call the thread's capture mode prohibits
     std::lock_guard<std::mutex> lock(g_mu);
-    if (g_capture.active && g_capture.mode == CU_STREAM_CAPTURE_MODE_GLOBAL) {
+    if (UnsafeProhibitedLocked()) {
       g_capture.invalidated = true;
       return CUDA_ERROR_STREAM_CAPTURE_UNSUPPORTED;
     }
@@ -828,6 +856,8 @@ FAKE_EXPORT void* fake_real_address(const char* name) {
        (void*)&cuLaunchCooperativeKernelMultiDevice},
       {"cuStreamBeginCapture_v2", (void*)&cuStreamBeginCapture_v2},
       {"cuStreamEndCapture", (void*)&cuStreamEndCapture},
+      {"cuThreadExchangeStreamCaptureMode",
+       (void*)&cuThreadExchangeStreamCaptureMode},
       {"cuGraphInstantiateWithFlags", (void*)&cuGraphInstantiateWithFlags},
       {"cuGraphDestroy", (void*)&cuGraphDestroy},
       {"cuGraphExecDestroy", (void*)&cuGraphExecDestroy},

@@ -1,9 +1,10 @@
 // vtpu_abi.h — the node's shared file layouts, as the interposer reads them.
 //
-// The port's own copy of library/include/vtpu_config.h:21-266: the
+// The port's own copy of library/include/vtpu_config.h:21-309: the
 // per-container config file (vtpu.config, version 6), the node watcher's
-// utilization feed (tc_util.config, version 2) and the cross-process
-// memory ledger (vmem_node.config, version 3). The Python writers are
+// utilization feed (tc_util.config, version 2), the cross-process
+// memory ledger (vmem_node.config, version 3) and CLIENT mode's pid set
+// (pids.config, version 1). The Python writers are
 // vtpu_manager_torch/config/{vtpu_config,tc_watcher,vmem}.py;
 // tests/test_torch_config_abi.py compiles this header beside the JAX
 // package's and checks that every size and offset agrees.
@@ -33,7 +34,10 @@ enum CoreLimit : int32_t {
   kCoreLimitSoft = 2,  // balance policy: elastic hard_core..soft_core
 };
 
-enum CompatMode : int32_t { kCompatHost = 0x01 };
+enum CompatMode : int32_t {
+  kCompatHost = 0x01,
+  kCompatClient = 0x04,  // the registry-attested pid set (pids.config)
+};
 
 struct VtpuDevice {
   char uuid[kUuidLen];
@@ -178,6 +182,19 @@ struct VmemFile {
   VmemEntry entries[kVmemMaxEntries];
 };
 static_assert(sizeof(VmemFile) == 16 + 1024 * 48, "ABI");
+
+// pids.config: the node registry's attested pids of one container
+// (registry/server.py write_pids_config), in its config dir.
+constexpr uint32_t kPidsMagic = 0x53444950;  // "PIDS"
+
+struct PidsFileHeader {
+  uint32_t magic;
+  uint32_t version;
+  int32_t count;
+  int32_t pad_;
+  // followed by count little-endian int32 pids
+};
+static_assert(sizeof(PidsFileHeader) == 16, "ABI");
 
 // The dead-entry staleness window (VTPU_VMEM_STALE_S), clamped as the
 // Python ledger clamps it: unparsable, <= 0 or NaN is 120 s, huge values

@@ -35,9 +35,14 @@ the response carries `VTPU_TRACE_ID` and `VTPU_TRACE_SAMPLED` for such a
 pod, and for a sampled one also the node trace dir `consts.TRACE_DIR`,
 mounted read-write at the same path, where the tenant spools its own
 spans. The JAX package's other gated fields (the cluster compile cache,
-quota market, memory over-commit, link share, comm telemetry) and its
-failpoints are not ported; the config fields they drive are written as
-the JAX package writes them with the gates off.
+quota market, memory over-commit, link share, comm telemetry) are not
+ported; the config fields they drive are written as the JAX package
+writes them with the gates off. Allocate fires the JAX plugin's
+failpoints where it fires them: `plugin.allocate` inside the span, before
+the response is built; `plugin.config_write` right after `vtpu.config` is
+written (a partial-write tears it, and the crash fails the RPC: the
+kubelet's retried Allocate writes it whole again); and
+`plugin.record_devices` after the records file is written.
 
 The node's shared directories (locks, memory ledger, watcher feed) default
 to the node's fixed paths and are arguments, so a run from a checkout can
@@ -64,6 +69,7 @@ from vtpu_manager_torch.device.types import ChipSpec
 from vtpu_manager_torch.deviceplugin.api import messages as api
 from vtpu_manager_torch.deviceplugin.base import DevicePluginServicer
 from vtpu_manager_torch.manager.device_manager import DeviceManager
+from vtpu_manager_torch.resilience import failpoints
 from vtpu_manager_torch.resilience.policy import RetryPolicy
 from vtpu_manager_torch.util import consts
 
@@ -310,6 +316,8 @@ class VnumPlugin(DevicePluginServicer):
         try:
             with trace.span(trace.context_for_pod(pod), "plugin.allocate",
                             container=cont, devices=len(dev_ids)):
+                failpoints.fire("plugin.allocate", pod_uid=uid,
+                                container=cont)
                 response = self._response_for(pod, cont, claims)
                 self._record_devices(uid, cont, dev_ids, claims)
                 _POLICY.run(
@@ -446,14 +454,17 @@ class VnumPlugin(DevicePluginServicer):
         with trace.span(ctx, "plugin.config", container=cont,
                         devices=len(devices)):
             os.makedirs(config_host, exist_ok=True)
-            vc.write_config(os.path.join(config_host, "vtpu.config"),
-                            vc.VtpuConfig(
-                                pod_uid=uid, pod_name=meta.get("name", ""),
-                                pod_namespace=meta.get("namespace", ""),
-                                container_name=cont, compat_mode=compat,
-                                compile_cache_dir=consts.COMPILE_CACHE_DIR
-                                if cc_ok else "",
-                                devices=devices))
+            cfg_path = os.path.join(config_host, "vtpu.config")
+            vc.write_config(cfg_path, vc.VtpuConfig(
+                pod_uid=uid, pod_name=meta.get("name", ""),
+                pod_namespace=meta.get("namespace", ""),
+                container_name=cont, compat_mode=compat,
+                compile_cache_dir=consts.COMPILE_CACHE_DIR if cc_ok else "",
+                devices=devices))
+            # a partial-write tears the file just written: the state a
+            # crash mid-write leaves, which the retried Allocate rewrites
+            failpoints.fire("plugin.config_write", pod_uid=uid,
+                            path=cfg_path)
         # mounts: the container's config, the interposer, the node's locks,
         # ledger, step ring and watcher feed, and the preload file
         resp.mounts.append(api.Mount(
@@ -543,7 +554,9 @@ class VnumPlugin(DevicePluginServicer):
             "claims": [c.to_wire() for c in claims],
             "ts": time.time(),
         }
-        _write_atomic(self._records_path(), json.dumps(records))
+        path = self._records_path()
+        _write_atomic(path, json.dumps(records))
+        failpoints.fire("plugin.record_devices", pod_uid=pod_uid, path=path)
 
     def pre_start_container(self, request: api.PreStartContainerRequest
                             ) -> api.PreStartContainerResponse:

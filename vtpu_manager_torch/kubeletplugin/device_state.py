@@ -20,9 +20,13 @@ package sets neither, and each process of a claim there is a tenant of
 its own with a cap of its own.
 
 Writing the CDI spec is the `dra.cdi` span (`device_state.py:309-311`),
-joined to the pod's timeline by `trace.context_for_claim`. Not ported:
-failpoints; `obs_excess_table` is a parameter that the entry point leaves
-None (no calibration yet).
+joined to the pod's timeline by `trace.context_for_claim`. Prepare fires
+the JAX failpoints where they fire: `dra.prepare` after the idempotency
+check, before anything is written, and `dra.cdi_write` after the CDI spec
+lands and before the checkpoint, so a torn spec (partial-write) never
+backs a checkpointed claim and the retried Prepare writes it whole.
+`obs_excess_table` is a parameter that the entry point leaves None (no
+calibration yet).
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from vtpu_manager_torch.claimresolve.resolve import resolve_claim_partitions
 from vtpu_manager_torch.config import vtpu_config as vc
 from vtpu_manager_torch.config.node_config import NodeConfig
 from vtpu_manager_torch.device.types import ChipSpec
+from vtpu_manager_torch.resilience import failpoints
 from vtpu_manager_torch.deviceplugin.vnum import (COMPAT_BITS,
                                                   DEFAULT_REAL_LIBCUDA,
                                                   preload_file)
@@ -245,6 +250,8 @@ class DeviceState:
             existing = self.checkpoint.claims.get(uid)
             if existing is not None:
                 return list(existing.cdi_devices)
+            # nothing is on disk yet: a crash here leaves no trace
+            failpoints.fire("dra.prepare", claim=uid)
 
             allocation = ((claim.get("status") or {}).get("allocation")
                           or {})
@@ -324,6 +331,8 @@ class DeviceState:
             with trace.span(trace.context_for_claim(claim), "dra.cdi",
                             claim=uid, devices=len(cdi_names)):
                 cdi.write_spec(spec, uid, self.cdi_dir)
+            failpoints.fire("dra.cdi_write", claim=uid,
+                            path=cdi.spec_path(uid, self.cdi_dir))
 
             before = dict(self.checkpoint.claims)
             self.checkpoint.claims[uid] = PreparedClaim(

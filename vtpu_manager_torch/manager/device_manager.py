@@ -24,6 +24,7 @@ from vtpu_manager_torch.client.kube import KubeClient, KubeError
 from vtpu_manager_torch.config.node_config import NodeConfig, shape_chips
 from vtpu_manager_torch.device.types import (ChipSpec, MeshSpec,
                                              NodeDeviceRegistry)
+from vtpu_manager_torch.resilience import failpoints
 from vtpu_manager_torch.resilience.policy import RetryPolicy
 from vtpu_manager_torch.tpu.discovery import DiscoveryBackend, discover
 from vtpu_manager_torch.util import consts
@@ -172,6 +173,7 @@ class HealthWatcher:
 
     def check_once(self) -> None:
         for chip in list(self.manager.chips):
+            failpoints.fire("health.probe", chip=chip.uuid)
             ok: bool | None = False
             try:
                 ok = self.probe(chip)

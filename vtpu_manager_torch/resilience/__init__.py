@@ -1,2 +1,2 @@
-"""Retries for the node agent's API calls (see the JAX package's
-resilience/)."""
+"""Retries, breakers and fault injection for the node agents (see the JAX
+package's resilience/)."""

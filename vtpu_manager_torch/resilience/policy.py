@@ -8,9 +8,9 @@ and 422 mean the world changed, not the wire: they surface at once); a
 breaker that, after consecutive failed calls, rejects calls locally for a
 while instead of queueing doomed ones. `render_resilience_metrics` (the
 JAX package's `:245`) renders this process's counters; the node exporter
-appends it to /metrics, so it shows the exporter's own counters, not
-those of the plugins that retry. Its failpoint block is the JAX
-registry's output with nothing armed: fault injection is not ported.
+appends it to /metrics, and the device plugin serves it on its own
+`--metrics-port`, so each shows its own process's counters, the
+failpoint registry's (`failpoints.render_failpoint_metrics`) among them.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ from random import Random
 from typing import Callable
 
 from vtpu_manager_torch.client.kube import KubeError
+from vtpu_manager_torch.resilience import failpoints
 
 log = logging.getLogger(__name__)
 
@@ -211,14 +212,6 @@ class KubeResilience:
 
 # -- metrics -----------------------------------------------------------------
 
-def render_failpoint_metrics() -> str:
-    """The JAX registry's block with nothing armed (fault injection is not
-    ported, so nothing here ever fires)."""
-    return ("# TYPE vtpu_failpoint_fires_total counter\n"
-            "# TYPE vtpu_failpoint_evaluations_total counter\n"
-            "vtpu_failpoint_evaluations_total 0")
-
-
 def render_resilience_metrics() -> str:
     """This process's counters as Prometheus text, appended to the node
     exporter's /metrics; the same families and lines as the JAX
@@ -242,5 +235,5 @@ def render_resilience_metrics() -> str:
         if op == "reschedule.reconcile" and event == "failure")
     lines.append("# TYPE vtpu_reschedule_reconcile_failures_total counter\n"
                  f"vtpu_reschedule_reconcile_failures_total {total_failures}")
-    lines.append(render_failpoint_metrics())
+    lines.append(failpoints.render_failpoint_metrics())
     return "\n".join(lines)

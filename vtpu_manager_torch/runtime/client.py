@@ -5,7 +5,8 @@ Ports `vtpu_manager/runtime/client.py` (`EffectiveLimits:43`,
 `_ensure_tenant_trace:49`, `_env_limits:67`, `effective_limits:95`,
 `install:113`, the compile cache's arming `_arm_jax_compile_cache:134`,
 the step telemetry of `:206-379`, `compile_cache:377-438` and
-`mark_first_execute:444`). The limits come from the
+`mark_first_execute:444`, and CLIENT mode's `register_client:151` and
+`main:459`). The limits come from the
 container's `vtpu.config` first and the environment second, the order the
 interposer reads them in (`csrc/shim/loader.cc`).
 
@@ -23,6 +24,12 @@ mounted. `install` records the `shim.install` event and
 `mark_first_execute` the `shim.first_execute` event, which a tenant calls
 right before the first call of its step.
 
+In CLIENT compat mode the interposer starts this module as the tenant's
+device client (`python3 -m vtpu_manager_torch.runtime.client`, or
+`VTPU_DEVICE_CLIENT_CMD`): `main` registers the container with the node
+registry over `VTPU_REGISTRY_SOCKET`, the `shim.register` span of a
+traced tenant, so that the node writes the container's pid set.
+
 The JAX client could swap the PJRT plugin path inside the running process
 before JAX loaded it. A CUDA driver interposer is loaded by the dynamic
 linker, which reads LD_PRELOAD only at exec, so `install` returns the
@@ -33,8 +40,11 @@ only when asked (for the children it will start).
 from __future__ import annotations
 
 import ctypes
+import json
 import logging
 import os
+import socket
+import struct
 from dataclasses import dataclass
 
 from vtpu_manager_torch import trace
@@ -317,3 +327,50 @@ def mark_first_execute() -> None:
     _ensure_tenant_trace()
     trace.event(trace.context_from_env(), "shim.first_execute",
                 pid=os.getpid())
+
+
+def register_client(timeout_s: float = 5.0) -> bool:
+    """CLIENT mode: announces this container to the node registry, which
+    attests the caller's pid by SO_PEERCRED and writes the container's pid
+    set; this side only presents the pod identity Allocate set. True when
+    the registry accepted it."""
+    path = os.environ.get(consts.ENV_REGISTRY_SOCKET, consts.REGISTRY_SOCKET)
+    if not os.path.exists(path):
+        return False
+    payload = json.dumps({
+        "pod_name": os.environ.get(consts.ENV_POD_NAME, ""),
+        "pod_namespace": os.environ.get(consts.ENV_POD_NAMESPACE, ""),
+        "pod_uid": os.environ.get(consts.ENV_POD_UID, ""),
+        "container": os.environ.get(consts.ENV_CONTAINER_NAME, ""),
+        "register_uuid": os.environ.get(consts.ENV_REGISTER_UUID, ""),
+    }).encode()
+    # paired with the node's registry.register span, the difference is
+    # the socket's queueing
+    _ensure_tenant_trace()
+    with trace.span(trace.context_from_env(), "shim.register"):
+        try:
+            with socket.socket(socket.AF_UNIX, socket.SOCK_STREAM) as sock:
+                sock.settimeout(timeout_s)
+                sock.connect(path)
+                sock.sendall(struct.pack("<I", len(payload)) + payload)
+                raw = sock.recv(4)
+                if len(raw) < 4:
+                    return False
+                (status,) = struct.unpack("<i", raw)
+                return status == 0
+        except OSError:
+            return False
+
+
+def main() -> int:
+    """The device client the interposer starts in CLIENT mode; exit 0 when
+    the registration was accepted."""
+    import sys
+    ok = register_client()
+    print(f"vtpu device-client: registration "
+          f"{'succeeded' if ok else 'FAILED'}", file=sys.stderr)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -20,8 +20,8 @@ A spool that reaches `max_spool_bytes` is rotated to one
 untouched for a day are reaped by `reap_stale_spools`, which the exporter
 calls before each read.
 
-The JAX flush's `trace.spool_flush` failpoint is not ported (the port has
-no failpoints yet).
+A flush fires the `trace.spool_flush` failpoint before the spool's I/O
+(arm it with `exc=OSError` and the spans become drops).
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ import threading
 import time
 from dataclasses import dataclass, field
 
+from vtpu_manager_torch.resilience import failpoints
 from vtpu_manager_torch.util.flock import FileLock
 
 SPOOL_SUFFIX = ".jsonl"
@@ -137,6 +138,7 @@ class SpanRecorder:
              "drops": drops, "ts": round(time.time(), 3)},
             separators=(",", ":")))
         try:
+            failpoints.fire("trace.spool_flush", path=self.spool_path)
             os.makedirs(self.spool_dir, exist_ok=True)
             with FileLock(f"{self.spool_path}.flock"):
                 self._rotate_if_large()

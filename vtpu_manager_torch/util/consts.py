@@ -162,6 +162,12 @@ COMPAT_CLIENT = 0x04
 COMPAT_OPEN_KERNEL = 0x08
 
 REGISTRY_DIR = f"{MANAGER_BASE_DIR}/registry"
+# ClientMode: the node registry's socket, at the same path on the host and
+# in the container (the JAX package's `util/consts.py:490, 521`)
+REGISTRY_SOCKET = f"{REGISTRY_DIR}/socket.sock"
+ENV_REGISTRY_SOCKET = "VTPU_REGISTRY_SOCKET"  # the socket's override
+# the command the interposer runs as the device client in CLIENT mode
+ENV_DEVICE_CLIENT_CMD = "VTPU_DEVICE_CLIENT_CMD"
 # the step ring: <base>/<uid>_<cont>/telemetry/<name> on the host, the
 # subdir mounted read-write at MANAGER_BASE_DIR/telemetry in the container
 TELEMETRY_SUBDIR = "telemetry"

@@ -19,6 +19,8 @@ CORE_PLUGIN = "CorePlugin"              # advertise the vtpu-cores resource
 MEMORY_PLUGIN = "MemoryPlugin"          # advertise the vtpu-memory resource
 COMPILE_CACHE = "CompileCache"          # the node compile cache
 TRACING = "Tracing"                     # allocation-path spans
+FAULT_INJECTION = "FaultInjection"      # the failpoint registry
+CLIENT_MODE = "ClientMode"              # the registry socket's pid sets
 
 _KNOWN = {
     TC_WATCHER: False,
@@ -30,6 +32,8 @@ _KNOWN = {
     MEMORY_PLUGIN: False,
     COMPILE_CACHE: False,
     TRACING: False,
+    FAULT_INJECTION: False,
+    CLIENT_MODE: False,
 }
 
 

@@ -3,8 +3,9 @@
 The port's own copy of the JAX package's `util/flock.py:25-78`: flock(2)
 on a dedicated lock file (per open file description, so two opens in one
 process exclude each other), backoff from 1 ms doubling to 10 ms, and
-`LockTimeout` after `timeout_s` instead of a hang. The interposer takes
-the ledger's lock by the same protocol (`csrc/shim/enforce_mem.cc`).
+`LockTimeout` after `timeout_s` instead of a hang, and the
+`flock.acquire` failpoint at entry. The interposer takes the ledger's lock
+by the same protocol (`csrc/shim/enforce_mem.cc`).
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import fcntl
 import os
 import time
 
+from vtpu_manager_torch.resilience import failpoints
 from vtpu_manager_torch.util import consts
 
 
@@ -30,6 +32,9 @@ class FileLock:
         self._fd: int | None = None
 
     def acquire(self) -> None:
+        # latency models a wedged peer's contention; an error (arm with
+        # exc=LockTimeout) the timeout firing
+        failpoints.fire("flock.acquire", path=self.path)
         os.makedirs(os.path.dirname(self.path) or ".", exist_ok=True)
         fd = os.open(self.path, os.O_CREAT | os.O_RDWR, 0o666)
         deadline = time.monotonic() + self.timeout_s
