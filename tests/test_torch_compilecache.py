@@ -638,8 +638,9 @@ def test_feature_gate_default_is_jax():
     assert tfg.COMPILE_CACHE == jfg.COMPILE_CACHE
     assert tfg.FeatureGates().enabled(tfg.COMPILE_CACHE) == \
         jfg.FeatureGates().enabled(jfg.COMPILE_CACHE)
-    with pytest.raises(ValueError):
-        tfg.FeatureGates().parse("ClusterCompileCache=true")
+    assert tfg.CLUSTER_COMPILE_CACHE == jfg.CLUSTER_COMPILE_CACHE
+    assert tfg.FeatureGates().enabled(tfg.CLUSTER_COMPILE_CACHE) == \
+        jfg.FeatureGates().enabled(jfg.CLUSTER_COMPILE_CACHE)
 
 
 def test_flags_are_the_jax_flags():
@@ -651,9 +652,13 @@ def test_flags_are_the_jax_flags():
     defaults = dp.parse_args(["--node-name", "n1"])
     assert (defaults.compile_cache_budget_mb,
             defaults.compile_cache_evict_interval) == (4096, 60.0)
-    for flag in ("--cache-advertise-endpoint", "--cache-ad-max-pairs"):
-        with pytest.raises(SystemExit):
-            dp.parse_args(["--node-name", "n1", flag, "x"])
+    # the cluster tier's flags (JAX `cmd/device_plugin.py:70-84`)
+    args = dp.parse_args(["--node-name", "n1", "--cache-advertise-endpoint",
+                          "10.0.0.7:9394", "--cache-ad-max-pairs", "12"])
+    assert (args.cache_advertise_endpoint, args.cache_ad_max_pairs) == \
+        ("10.0.0.7:9394", 12)
+    assert (defaults.cache_advertise_endpoint,
+            defaults.cache_ad_max_pairs) == (None, None)
 
 
 def test_evictor_runs_to_the_budget(tmp_path):
@@ -711,6 +716,9 @@ class TestRuntimeClientGate:
 
     def test_cluster_tier_is_served_by_the_node_tier(self, tmp_path,
                                                      monkeypatch, caplog):
+        """The cluster tier is the node store with the peer fetch on its
+        miss path (JAX `runtime/client.py:407-420`)."""
+        from vtpu_manager_torch.clustercache import ClusterCompileCache
         from vtpu_manager_torch.compilecache import CompileCache
         from vtpu_manager_torch.runtime import client as rt
         monkeypatch.setenv(consts.ENV_COMPILE_CACHE, "true")
@@ -719,8 +727,11 @@ class TestRuntimeClientGate:
                            str(tmp_path / "cc"))
         rt._reset_compile_cache()
         try:
-            assert type(rt.compile_cache()) is CompileCache
-            assert "cluster compile cache is not ported" in caplog.text
+            cc = rt.compile_cache()
+            assert type(cc) is ClusterCompileCache
+            assert isinstance(cc, CompileCache)
+            assert cc.root == str(tmp_path / "cc")
+            assert "not ported" not in caplog.text
         finally:
             rt._reset_compile_cache()
 

@@ -101,7 +101,7 @@ def test_entry_registers_and_answers_allocate(tmp_path):
 
 
 @pytest.mark.parametrize("args,message", [
-    (["--fake-client", "--feature-gates", "ClusterCompileCache=true"],
+    (["--fake-client", "--feature-gates", "QuotaMarket=true"],
      "unknown feature gate"),
     (["--fake-client", "--feature-gates", "StepTelemetry=maybe"],
      "invalid feature gate value"),
@@ -325,7 +325,7 @@ def test_kubelet_plugin_serves_dra_and_registration(tmp_path):
 @pytest.mark.parametrize("args,message", [
     (["--id-store", "ids.json"],
      "--id-store: the device-id store (a GPU needs none) is not ported yet"),
-    (["--feature-gates", "ClusterCompileCache=true"],
+    (["--feature-gates", "QuotaMarket=true"],
      "unknown feature gate"),
 ])
 def test_kubelet_plugin_refuses_what_is_not_ported(tmp_path, args, message):

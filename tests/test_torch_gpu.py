@@ -13,6 +13,8 @@ each, about fp32 accuracy; tests/test_torch_tf32_split.py has the
 argument).
 """
 
+import os
+
 import pytest
 import torch
 
@@ -462,3 +464,81 @@ def test_traced_tenant_spools_its_stages(card, tmp_path, monkeypatch):
     assert {(s.trace_id, s.pod_uid, s.service) for s in spans} == {
         ("tid-gpu", "uid-gpu", "tenant")}
     assert ordered[3].attrs["outcome"] == "miss"
+
+
+@pytest.mark.gpu
+def test_cold_node_fetches_the_compiled_step_from_a_warm_peer(card, tmp_path,
+                                                               monkeypatch):
+    """The cluster tier on the card: node A's store compiles the compiled
+    step (a miss, and the fingerprint's marker); node B's store, empty,
+    with a `peers.json` naming A's serving read over HTTP, fetches the
+    entry (outcome `fetch`) and B's first step loads it with no Inductor
+    compile, launches the kernel once and gives A's outputs."""
+    import json
+    import threading
+    import time
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+    from urllib.parse import parse_qs, urlparse
+
+    from vtpu_manager_torch.clustercache import (ClusterCompileCache,
+                                                 advertise,
+                                                 read_entry_for_serving)
+    from vtpu_manager_torch.util import consts
+    from vtpu_manager_torch.workloads import compiled_step as cs
+
+    roots = {n: str(tmp_path / n / "cc") for n in ("a", "b")}
+
+    class Serve(BaseHTTPRequestHandler):
+        def do_GET(self):
+            key = parse_qs(urlparse(self.path).query).get("key", [""])[0]
+            raw = read_entry_for_serving(roots["a"], key)
+            if raw is None:
+                self.send_error(404)
+                return
+            self.send_response(200)
+            self.send_header("Content-Length", str(len(raw)))
+            self.end_headers()
+            self.wfile.write(raw)
+
+        def log_message(self, *a):
+            pass
+
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), Serve)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    monkeypatch.setenv(consts.ENV_PROGRAM_FINGERPRINT, "compiled-step-gpu")
+    inputs = cs.make_inputs(dim=1024, device="cuda")
+    key = cs.entry_key(inputs)
+    outs, outcomes, launches, misses = {}, {}, {}, {}
+    try:
+        for node in ("a", "b"):
+            for var in (consts.ENV_INDUCTOR_CACHE_DIR,
+                        consts.ENV_TRITON_CACHE_DIR):
+                monkeypatch.setenv(var, str(tmp_path / node / var.lower()))
+            if node == "b":
+                os.makedirs(roots["b"], exist_ok=True)
+                with open(os.path.join(roots["b"], consts.CACHE_PEERS_NAME),
+                          "w") as f:
+                    json.dump({"ts": time.time(), "peers": [{
+                        "node": "a", "endpoint":
+                            f"127.0.0.1:{srv.server_port}",
+                        "keys": {key: "compiled-step-gpu"}}]}, f)
+            torch._dynamo.reset()
+            cache = ClusterCompileCache(roots[node])
+            before = ba.LAUNCHES["attn_block"]
+            miss0 = cs.compile_counters()["fxgraph_cache_miss"]
+            outs[node], outcomes[node], _ = cs.first_step(inputs, cache, key)
+            torch.cuda.synchronize()
+            launches[node] = ba.LAUNCHES["attn_block"] - before
+            misses[node] = cs.compile_counters()["fxgraph_cache_miss"] - miss0
+            if node == "b":
+                assert cache.stats.peer_fetches == 1
+    finally:
+        srv.shutdown()
+        torch._dynamo.reset()
+    assert outcomes == {"a": "miss", "b": "fetch"}
+    assert launches == {"a": 1, "b": 1}
+    assert misses["a"] >= 1 and misses["b"] == 0
+    assert advertise.scan_warm_pairs(roots["a"]) == [("compiled-step-gpu",
+                                                      key)]
+    for x, y in zip(outs["a"], outs["b"]):
+        assert (x.float() - y.float()).abs().max().item() <= TOL

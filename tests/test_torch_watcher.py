@@ -19,8 +19,10 @@ from vtpu_manager.manager.watcher import FakeSampler as JFakeSampler
 from vtpu_manager.manager.watcher import TcWatcherDaemon as JDaemon
 from vtpu_manager_torch.config import vmem
 from vtpu_manager_torch.device.types import ChipSpec, MeshSpec
-from vtpu_manager_torch.manager.watcher import (FakeSampler, NvmlSampler,
-                                                TcWatcherDaemon)
+from vtpu_manager_torch.manager.watcher import (UTIL_UNKNOWN, FakeSampler,
+                                                NvmlSampler, ProcReading,
+                                                TcWatcherDaemon,
+                                                outside_processes)
 from vtpu_manager_torch.tpu import discovery
 
 
@@ -87,6 +89,124 @@ class TestAttribution:
         assert (rec.timestamp_ns, rec.device_util) == (5, 30)
         assert [(p.pid, p.mem_used, p.owner_token) for p in rec.procs] == \
             [(101, 3 << 20, 77)]
+
+
+class TestOutsideProcesses:
+    """A process on the card that the ledger does not hold (F4's repair)."""
+
+    def feed(self, daemon):
+        rec = daemon.tc_file.read_device(0)
+        return [(p.pid, p.util, p.mem_used, p.owner_token) for p in rec.procs]
+
+    def test_outside_process_becomes_a_tokenless_resident(self, daemon):
+        daemon.vmem.record(101, 0, 2**20, owner_token=1)
+        daemon.sampler.values[0] = 90
+        daemon.sampler.procs[0] = [ProcReading(101, 50, 3 << 20),
+                                   ProcReading(555, 40, 5 << 20)]
+        daemon.tick(now_ns=1)
+        # the resident shares what the outside process did not take
+        assert self.feed(daemon) == [(101, 50, 2**20, 1),
+                                     (555, 40, 5 << 20, 0)]
+
+    def test_split_among_residents_excludes_the_outside_share(self, daemon):
+        daemon.vmem.record(101, 0, 2**20, owner_token=1)
+        daemon.vmem.record(102, 0, 2**20, owner_token=2)
+        daemon.sampler.values[0] = 100
+        daemon.sampler.procs[0] = [ProcReading(101, 0, 0),
+                                   ProcReading(102, 0, 0),
+                                   ProcReading(700, 40, 0)]
+        daemon.tick(now_ns=1)
+        daemon.vmem.bump_activity(101, 0, n=30, owner_token=1)
+        daemon.vmem.bump_activity(102, 0, n=10, owner_token=2)
+        daemon.tick(now_ns=2)
+        assert self.feed(daemon) == [(101, 45, 2**20, 1), (102, 15, 2**20, 2),
+                                     (700, 40, 0, 0)]
+
+    def test_outside_shares_are_capped_at_the_device(self, daemon):
+        daemon.vmem.record(101, 0, 2**20, owner_token=1)
+        daemon.sampler.values[0] = 30
+        daemon.sampler.procs[0] = [ProcReading(101, 10, 0),
+                                   ProcReading(700, 25, 0),
+                                   ProcReading(701, 25, 0)]
+        daemon.tick(now_ns=1)
+        assert self.feed(daemon) == [(101, 0, 2**20, 1), (700, 25, 0, 0),
+                                     (701, 5, 0, 0)]
+
+    def test_a_process_of_unknown_use_is_written_as_such(self, daemon):
+        """NVML on the H100 machine lists the contexts (every pid 1) and
+        refuses their utilization: the process the ledger does not account
+        for enters the feed of unknown use, and the residents share the
+        whole card as without it."""
+        daemon.vmem.record(101, 0, 2**20, owner_token=1)
+        daemon.sampler.values[0] = 90
+        daemon.sampler.procs[0] = [ProcReading(1, UTIL_UNKNOWN, 0),
+                                   ProcReading(1, UTIL_UNKNOWN, 0)]
+        daemon.tick(now_ns=1)
+        assert self.feed(daemon) == [(101, 90, 2**20, 1),
+                                     (1, UTIL_UNKNOWN, 0, 0)]
+
+    def test_nvml_pids_that_match_no_ledger_pid(self, daemon):
+        """The plugin's DaemonSet runs without the host's pid namespace:
+        no NVML pid is a ledger pid, so count and memory decide. Two
+        residents of 1 and 2 GiB, three processes on the card: the two of
+        least memory at or above each resident's bytes are the residents
+        (a context adds its own memory), the 4 GiB one is outside."""
+        daemon.vmem.record(100, 0, 1 << 30, owner_token=1)
+        daemon.vmem.record(101, 0, 2 << 30, owner_token=2)
+        daemon.sampler.values[0] = 80
+        daemon.sampler.procs[0] = [ProcReading(9001, 30, (2 << 30) + (5 << 28)),
+                                   ProcReading(9000, 20, (1 << 30) + (1 << 29)),
+                                   ProcReading(9200, 20, 4 << 30)]
+        daemon.tick(now_ns=1)
+        assert self.feed(daemon) == [(100, 30, 1 << 30, 1),
+                                     (101, 30, 2 << 30, 2),
+                                     (9200, 20, 4 << 30, 0)]
+        # as many processes as residents: none is outside
+        daemon.sampler.procs[0] = daemon.sampler.procs[0][:2]
+        daemon.tick(now_ns=2)
+        assert [p[0] for p in self.feed(daemon)] == [100, 101]
+
+    @pytest.mark.parametrize("readings", [
+        None,                                           # no per-process data
+        [],                                             # NVML lists nobody
+        [ProcReading(101, 35, 0), ProcReading(102, 5, 0)],  # all in the ledger
+        [ProcReading(7001, 35, 2**21), ProcReading(7002, 5, 2**21)],  # other ns
+    ])
+    def test_every_process_in_the_ledger_leaves_the_feed_as_jax(
+            self, tmp_path, readings):
+        ledger_path = str(tmp_path / "vmem.config")
+        mine = TcWatcherDaemon([0], FakeSampler(),
+                               tc_path=str(tmp_path / "port.tc"),
+                               vmem_path=ledger_path)
+        theirs = JDaemon([0], JFakeSampler(),
+                         tc_path=str(tmp_path / "jax.tc"),
+                         vmem_path=ledger_path)
+        try:
+            mine.vmem.record(101, 0, 2**20, owner_token=1)
+            mine.vmem.record(102, 0, 2**20, owner_token=2)
+            if readings is not None:
+                mine.sampler.procs[0] = readings
+            for tick in range(1, 4):
+                mine.vmem.bump_activity(101, 0, n=tick, owner_token=1)
+                mine.sampler.values[0] = theirs.sampler.values[0] = 40
+                mine.tick(now_ns=tick)
+                theirs.tick(now_ns=tick)
+                with open(str(tmp_path / "port.tc"), "rb") as a, \
+                        open(str(tmp_path / "jax.tc"), "rb") as b:
+                    assert a.read() == b.read()
+        finally:
+            mine.stop()
+            theirs.stop()
+
+    def test_rule_prefers_pids_when_namespaces_agree(self):
+        residents = [vmem.VmemEntry(pid=10, host_index=0, bytes=5 << 30,
+                                    owner_token=1, activity=0,
+                                    last_update_ns=0)]
+        # one pid in common: the other process is outside whatever its
+        # memory says
+        out = outside_processes([ProcReading(10, 1, 0),
+                                 ProcReading(11, 1, 6 << 30)], residents)
+        assert out == [ProcReading(11, 1, 6 << 30)]
 
 
 class TestLedgerActivity:
@@ -230,6 +350,32 @@ class StubNvml:
         util._obj.gpu = self._card(handle)["util"]
         return self._rc("nvmlDeviceGetUtilizationRates")
 
+    def nvmlDeviceGetComputeRunningProcesses_v3(self, handle, count, infos):
+        procs = self._card(handle).get("procs", [])
+        if infos is None or count._obj.value < len(procs):
+            count._obj.value = len(procs)
+            return self._rc("nvmlDeviceGetComputeRunningProcesses_v3") or (
+                7 if procs else 0)
+        for i, (pid, mem) in enumerate(procs):
+            infos[i].pid, infos[i].usedGpuMemory = pid, mem
+        count._obj.value = len(procs)
+        return self._rc("nvmlDeviceGetComputeRunningProcesses_v3")
+
+    def nvmlDeviceGetProcessUtilization(self, handle, samples, count, since):
+        rows = [r for r in self._card(handle).get("samples", [])
+                if r[1] > since.value]
+        rc = self._rc("nvmlDeviceGetProcessUtilization")
+        if rc or not rows:
+            return rc or 6      # NVML_ERROR_NOT_FOUND: nothing newer
+        if samples is None or count._obj.value < len(rows):
+            count._obj.value = len(rows)
+            return 7            # NVML_ERROR_INSUFFICIENT_SIZE
+        for i, (pid, ts, sm) in enumerate(rows):
+            samples[i].pid, samples[i].timeStamp = pid, ts
+            samples[i].smUtil = sm
+        count._obj.value = len(rows)
+        return 0
+
 
 H100 = {"uuid": "GPU-5f1e2d3c-aaaa-bbbb-cccc-000000000001",
         "name": "NVIDIA H100 80GB HBM3", "memory": 85520809984,
@@ -273,6 +419,78 @@ def test_nvml_sampler_reads_utilization():
     stub.fail["nvmlDeviceGetUtilizationRates"] = 15
     with pytest.raises(discovery.NvmlError):
         sampler.sample(0)
+
+
+def test_nvml_sampler_reads_each_process(monkeypatch):
+    now_us = 1_700_000_000_000_000
+    monkeypatch.setattr("time.time_ns", lambda: now_us * 1000)
+    card = dict(H100, procs=[(4001, 6 << 30), (4002, 2**64 - 1), (4003, 1)],
+                samples=[(4001, now_us - 900_000, 20),
+                         (4001, now_us - 100_000, 35),
+                         (4002, now_us - 2_000_000, 60)])
+    stub = StubNvml([card])
+    sampler = NvmlSampler(discovery.Nvml(stub))
+    # each process's newest sample; one older than a second reads 0, as
+    # does a process with none; NVML's "not available" memory reads 0
+    assert sampler.processes(0) == [ProcReading(4001, 35, 6 << 30),
+                                    ProcReading(4002, 0, 0),
+                                    ProcReading(4003, 0, 1)]
+    # nothing newer: the newest sample stands
+    assert sampler.processes(0)[0] == ProcReading(4001, 35, 6 << 30)
+    card["samples"].append((4001, now_us - 50_000, 10))
+    assert sampler.processes(0)[0] == ProcReading(4001, 10, 6 << 30)
+
+
+@pytest.mark.parametrize("code", [2, 3])    # INVALID_ARGUMENT, NOT_SUPPORTED
+def test_nvml_sampler_without_per_process_data_reads_none(code):
+    """NVML refuses the process list for good: no reading, and it is asked
+    once."""
+    stub = StubNvml([dict(H100, procs=[(4001, 1)])],
+                    fail={"nvmlDeviceGetComputeRunningProcesses_v3": code})
+    sampler = NvmlSampler(discovery.Nvml(stub))
+    assert sampler.per_process
+    assert sampler.processes(0) is None
+    assert sampler.processes(0) is None
+    assert not sampler.per_process
+    # asked once, then never again; the device's reading still works
+    assert stub.calls.count("nvmlDeviceGetComputeRunningProcesses_v3") == 1
+    assert sampler.sample(0) == 37
+
+
+@pytest.mark.parametrize("code", [2, 3])
+def test_nvml_sampler_without_per_process_utilization_reads_unknown_use(code):
+    """NVML lists the card's processes and refuses their utilization for
+    good (as on the H100 machine, code 3): each process is read of unknown
+    use, and the utilization is asked once."""
+    stub = StubNvml([dict(H100, procs=[(1, 2**64 - 1), (1, 2**64 - 1)])],
+                    fail={"nvmlDeviceGetProcessUtilization": code})
+    sampler = NvmlSampler(discovery.Nvml(stub))
+    for _ in range(2):
+        assert sampler.processes(0) == [ProcReading(1, UTIL_UNKNOWN, 0)] * 2
+    assert sampler.per_process and not sampler.per_process_util
+    assert stub.calls.count("nvmlDeviceGetProcessUtilization") == 1
+
+
+def test_a_transient_nvml_error_costs_one_reading(monkeypatch):
+    """Any other failure (a busy driver, a reset) skips that tick's reading
+    and leaves per-process reading on."""
+    now_us = 1_700_000_000_000_000
+    monkeypatch.setattr("time.time_ns", lambda: now_us * 1000)
+    card = dict(H100, procs=[(4001, 6 << 30)],
+                samples=[(4001, now_us - 100_000, 35)])
+    stub = StubNvml([card])
+    sampler = NvmlSampler(discovery.Nvml(stub))
+    assert sampler.processes(0) == [ProcReading(4001, 35, 6 << 30)]
+    stub.fail["nvmlDeviceGetComputeRunningProcesses_v3"] = 999
+    assert sampler.processes(0) is None
+    del stub.fail["nvmlDeviceGetComputeRunningProcesses_v3"]
+    stub.fail["nvmlDeviceGetProcessUtilization"] = 15  # NVML_ERROR_UNKNOWN
+    # the newest sample stands
+    assert sampler.processes(0) == [ProcReading(4001, 35, 6 << 30)]
+    del stub.fail["nvmlDeviceGetProcessUtilization"]
+    assert sampler.per_process and sampler.per_process_util
+    card["samples"].append((4001, now_us - 50_000, 10))
+    assert sampler.processes(0) == [ProcReading(4001, 10, 6 << 30)]
 
 
 def test_nvml_sampler_without_nvml_raises(monkeypatch):

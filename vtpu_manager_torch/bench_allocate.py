@@ -72,8 +72,9 @@ PODS = {"pod-a": (50, 16, True, 0), "pod-b": (25, 8, True, 1),
         "pod-c": (0, 8, False, 2), "pod-d": (0, 8, True, 3)}
 
 
-def committed_pod(name: str, chip, cores: int, memory: int) -> dict:
-    """A pod as the JAX scheduler leaves it on the node: bound, with its
+def committed_pod(name: str, chip, cores: int, memory: int,
+                  node: str = NODE) -> dict:
+    """A pod as the JAX scheduler leaves it on `node`: bound, with its
     pre-allocation and the predicate-node annotation."""
     from vtpu_manager_torch.device.claims import DeviceClaim, PodDeviceClaims
     claims = PodDeviceClaims()
@@ -82,10 +83,10 @@ def committed_pod(name: str, chip, cores: int, memory: int) -> dict:
         "name": name, "namespace": "default", "uid": f"uid-{name}",
         "annotations": {
             consts.pre_allocated_annotation(): claims.encode(),
-            consts.predicate_node_annotation(): NODE,
+            consts.predicate_node_annotation(): node,
             consts.compute_policy_annotation():
                 consts.COMPUTE_POLICY_FIXED}},
-        "spec": {"nodeName": NODE, "containers": [{"name": "main"}]},
+        "spec": {"nodeName": node, "containers": [{"name": "main"}]},
         "status": {"phase": "Pending"}}
 
 
@@ -171,9 +172,11 @@ class RingTail:
 
 
 class Node:
-    """The node agent on the card, on a directory of its own."""
+    """The node agent on the card, on a directory of its own; a second
+    node on the same card takes a `name` of its own and may share the
+    first one's fake API `client`."""
 
-    def __init__(self, root: str, shim: str):
+    def __init__(self, root: str, shim: str, name: str = NODE, client=None):
         from vtpu_manager_torch.client.fake import FakeKubeClient
         from vtpu_manager_torch.config.node_config import NodeConfig
         from vtpu_manager_torch.config.vmem import VmemLedger
@@ -183,6 +186,7 @@ class Node:
                                                         TcWatcherDaemon)
         from vtpu_manager_torch.tpu.discovery import NvmlBackend
 
+        self.name = name
         self.root = Path(root)
         self.base_dir = str(self.root / "mgr")
         self.lock_dir = str(self.root / "locks")
@@ -194,10 +198,10 @@ class Node:
                                  os.path.basename(consts.VMEM_NODE_CONFIG))
         os.makedirs(self.vmem_dir, exist_ok=True)
         VmemLedger(vmem_path, create=True).close()
-        self.client = FakeKubeClient()
-        self.client.add_node({"metadata": {"name": NODE, "annotations": {}}})
+        self.client = client or FakeKubeClient()
+        self.client.add_node({"metadata": {"name": name, "annotations": {}}})
         self.manager = DeviceManager(
-            NODE, self.client, node_config=NodeConfig(device_split_count=SPLIT),
+            name, self.client, node_config=NodeConfig(device_split_count=SPLIT),
             backends=[NvmlBackend()])
         self.manager.init_devices()
         self.manager.register_node()
@@ -210,7 +214,7 @@ class Node:
 
     def plugin(self, step_telemetry: bool):
         from vtpu_manager_torch.deviceplugin.vnum import VnumPlugin
-        p = VnumPlugin(self.manager, self.client, NODE,
+        p = VnumPlugin(self.manager, self.client, self.name,
                        node_config=self.manager.node_config,
                        base_dir=self.base_dir, shim_host_dir=self.driver_dir,
                        lock_dir=self.lock_dir, vmem_dir=self.vmem_dir,

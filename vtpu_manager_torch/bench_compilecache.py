@@ -30,20 +30,36 @@ three of a scenario go together:
   of their own, load it: the store path alone;
 - `env`: the replicas do not call the store; `install()` left their
   directories under the mount, where `cold`'s compile wrote: the
-  transparent path alone.
+  transparent path alone;
+- `peer`: a second node B on the card (`bench_allocate.Node` named
+  `node-b`, one fake API client with the first node A), its device plugin
+  with CompileCache and ClusterCompileCache, its store empty. `cold`'s
+  pods had ClusterCompileCache too, and the pods declare the program
+  fingerprint (`VTPU_PROGRAM_FINGERPRINT`), so A's store holds the
+  entry's `fps/` marker. A's exporter and B's run as subprocesses with
+  the gate on and a token; A's advertiser publishes A's warm key with its
+  exporter's address, B's writes `peers.json` from it, and B's replicas,
+  in empty Inductor and Triton directories of their own and with the
+  exporters' token as `VTPU_CACHE_PEER_TOKEN`, fetch A's entry over
+  `/cache/entry` under B's lease.
 
 Checks, each a record with an `ok` verdict:
 
 1. allocate: gate on, the response mounts `<base>/compilecache`
    read-write at `/etc/vtpu-manager/compilecache`, sets
    VTPU_COMPILE_CACHE=true and VTPU_COMPILE_CACHE_DIR, and the config
-   file names the dir; gate off, none of the three;
+   file names the dir; gate off, none of the three; VTPU_CLUSTER_CACHE=true
+   exactly where ClusterCompileCache is on too (`cold` and `peer`);
 2. off: 3 compiles (each replica's Inductor graph cache missed);
 3. cold: exactly 1 `miss` and 2 `wait`s, one entry, nothing quarantined
    or left in tmp/;
 4. warm: 3 `hit`s and no Inductor compile;
 5. env: time to first step and the Inductor graph cache's hits (report);
-6. shared: every replica's first-step outputs within TOL of a replica
+6. peer: exactly 1 `fetch` and 2 `wait`s on B, no Inductor compile, one
+   entry on B, nothing quarantined or left in tmp/, and B's exporter's
+   `vtpu_compile_cache_peer_fetches_total` at 1 (failures 0); its time to
+   first step beside `cold`'s and `warm`'s (report);
+7. shared: every replica's first-step outputs within TOL of a replica
    that compiled alone (`off`'s first); `warm`'s mean time to first step
    below `off`'s; after each scenario the exporter's
    `vtpu_compile_cache_*` block (`render_node_metrics`) counts the hits,
@@ -75,6 +91,9 @@ GIB = 2**30
 REPLICAS = 3
 CORES, MEMORY_GIB = 25, 8
 SCENARIOS = ("off", "cold", "warm", "env")
+PEER = "peer"                 # the cluster tier's scenario, on node B
+PEER_NODE = "node-b"
+FINGERPRINT = "compiled-step-8192"   # the pods' declared program
 TOL = 1e-4                    # the kernel's tolerance on its outputs
 WAVE_TIMEOUT_S = 240.0
 
@@ -91,14 +110,16 @@ def summarize(name: str, rows: list[dict]) -> dict:
     is what the replicas' store clients counted (a wait is also a hit)."""
     ttfs = [r["ttfs_s"] for r in rows]
     outcomes = [r["outcome"] for r in rows]
-    waits = outcomes.count("wait")
+    waits, fetches = outcomes.count("wait"), outcomes.count("fetch")
     return {"scenario": name, "replicas": len(rows),
             "compiles": sum(r["fxgraph_cache_miss"] > 0 for r in rows),
             "outcomes": outcomes,
             "hits": outcomes.count("hit"),
             "single_flight_waits": waits,
+            "fetches": fetches,
             "misses": sum(o in ("miss", "timeout") for o in outcomes),
-            "store": {"hits_total": outcomes.count("hit") + waits,
+            # a fetched entry counts a hit
+            "store": {"hits_total": outcomes.count("hit") + waits + fetches,
                       "misses_total": sum(o in ("miss", "timeout")
                                           for o in outcomes),
                       "single_flight_waits_total": waits},
@@ -106,12 +127,12 @@ def summarize(name: str, rows: list[dict]) -> dict:
             "ttfs_max_s": max(ttfs)}
 
 
-def exporter_counts(root: str) -> dict:
+def exporter_counts(root: str, node: str = ba.NODE) -> dict:
     """The exporter's compile-cache block for the node, as numbers."""
     from vtpu_manager_torch.bench_monitor import parse_metrics
     from vtpu_manager_torch.compilecache.cache import render_node_metrics
     return {n[len("vtpu_compile_cache_"):]: v for n, _, v in parse_metrics(
-        render_node_metrics(root, ba.NODE))}
+        render_node_metrics(root, node))}
 
 
 class Phase:
@@ -127,6 +148,14 @@ class Phase:
                                f"{uuid}")
         self.plugin = self.node.plugin(True)
         self.cache_root = self.plugin.compile_cache_host_dir()
+        # node B of the peer scenario, on the same card and API client
+        self.peer_node = ba.Node(str(self.root / PEER_NODE), shim,
+                                 name=PEER_NODE, client=self.node.client)
+        self.peer_plugin = self.peer_node.plugin(True)
+        self.peer_plugin.compile_cache_enabled = True
+        self.peer_plugin.cluster_cache_enabled = True
+        self.peer_root = self.peer_plugin.compile_cache_host_dir()
+        self.exporters: dict = {}            # node name -> its exporter
         self.responses: dict = {}
         self.waves: dict[str, list] = {}     # scenario -> its replicas
         self.rows: dict[str, list[dict]] = {}
@@ -140,7 +169,10 @@ class Phase:
                 except subprocess.TimeoutExpired:
                     pass        # stop() kills it
                 t.stop()
+        for exporter in self.exporters.values():
+            exporter.close()
         self.node.close()
+        self.peer_node.close()
 
     # --- 1. allocate --------------------------------------------------------
 
@@ -149,13 +181,18 @@ class Phase:
         from vtpu_manager_torch.deviceplugin.api import messages as api
         from vtpu_manager_torch.deviceplugin.vnum import device_id
         pods = {}
-        for name in SCENARIOS:
+        for name in (*SCENARIOS, PEER):
             gate = name != "off"
-            self.plugin.compile_cache_enabled = gate
+            cluster = name in ("cold", PEER)
+            node, plugin, root = ((self.peer_node, self.peer_plugin,
+                                   self.peer_root) if name == PEER else
+                                  (self.node, self.plugin, self.cache_root))
+            plugin.compile_cache_enabled = gate
+            plugin.cluster_cache_enabled = cluster
             for i, pod in enumerate(pod_names(name)):
                 self.node.client.add_pod(ba.committed_pod(
-                    pod, self.chip, CORES, MEMORY_GIB * GIB))
-                (resp,) = self.plugin.allocate(api.AllocateRequest(
+                    pod, self.chip, CORES, MEMORY_GIB * GIB, node=node.name))
+                (resp,) = plugin.allocate(api.AllocateRequest(
                     [api.ContainerAllocateRequest(
                         [device_id(self.chip.uuid, i)])])).container_responses
                 self.responses[pod] = resp
@@ -166,19 +203,31 @@ class Phase:
                 rec = {"mount": None if mount is None else
                        [mount.host_path, mount.read_only],
                        "env": [resp.envs.get(consts.ENV_COMPILE_CACHE),
-                               resp.envs.get(consts.ENV_COMPILE_CACHE_DIR)],
+                               resp.envs.get(consts.ENV_COMPILE_CACHE_DIR),
+                               resp.envs.get(consts.ENV_CLUSTER_CACHE)],
                        "config_dir": cfg.compile_cache_dir}
-                want = ([self.cache_root, False], ["true",
-                        consts.COMPILE_CACHE_DIR], consts.COMPILE_CACHE_DIR) \
-                    if gate else (None, [None, None], "")
+                want = ([root, False], ["true", consts.COMPILE_CACHE_DIR,
+                                        "true" if cluster else None],
+                        consts.COMPILE_CACHE_DIR) \
+                    if gate else (None, [None, None, None], "")
                 rec["ok"] = (rec["mount"], rec["env"],
                              rec["config_dir"]) == want
                 pods[pod] = rec
         # every scenario's replicas start now and wait at READY: their
         # start-ups overlap, and each scenario starts on its own go file
         t0 = time.monotonic()
-        for name in SCENARIOS:
+        for name in (*SCENARIOS, PEER):
             self.waves[name] = self._spawn(name)
+        # both nodes' exporters, the cluster tier's route on, meanwhile
+        from vtpu_manager_torch.bench_monitor import Exporter
+        node_config = self.root / "node-config.json"
+        node_config.write_text(json.dumps({"default": {
+            "deviceSplitCount": ba.SPLIT}}))
+        for node in (self.node, self.peer_node):
+            self.exporters[node.name] = Exporter(
+                self.root, node, str(self.root / "no-checkpoint"),
+                str(node_config), gates="ClusterCompileCache=true",
+                tag=f"exporter-{node.name}")
         for tenants in self.waves.values():
             for t in tenants:
                 t.line("READY", WAVE_TIMEOUT_S)
@@ -192,13 +241,19 @@ class Phase:
     def _spawn(self, name: str) -> list:
         """The scenario's REPLICAS replica processes, from their pods'
         Allocate responses."""
+        from vtpu_manager_torch import bench_monitor as bm
         from vtpu_manager_torch import bench_quota as bq
         wave_dir = self.root / f"wave-{name}"
         wave_dir.mkdir()
         tenants = []
         for i, pod in enumerate(pod_names(name)):
             env = ba.container_env(self.responses[pod])
-            if name in ("off", "warm"):
+            if name in ("cold", PEER):
+                # what the pod's spec declares (the webhook's source)
+                env[consts.ENV_PROGRAM_FINGERPRINT] = FINGERPRINT
+            if name == PEER:
+                env[consts.ENV_CACHE_PEER_TOKEN] = bm.TOKEN
+            if name in ("off", "warm", PEER):
                 # fresh directories of the replica's own: nothing but the
                 # store (or nothing at all) can hand it a compile
                 for var in (consts.ENV_INDUCTOR_CACHE_DIR,
@@ -210,15 +265,17 @@ class Phase:
             args = ["-m", "vtpu_manager_torch.bench_compilecache",
                     "--tenant", "--go-file", str(wave_dir / "go"),
                     "--out", str(wave_dir / f"r{i}.pt")]
-            if name in ("cold", "warm"):
+            if name in ("cold", "warm", PEER):
                 args.append("--store")
             tenants.append(bq.Tenant(f"{name}-r{i}", args, env,
                                      str(wave_dir)))
         return tenants
 
-    def _wave(self, name: str) -> list[dict]:
+    def _wave(self, name: str, root: str | None = None,
+              node: str = ba.NODE) -> list[dict]:
         """Lets the scenario's replicas go together; their WORKER records,
-        each with its first-step outputs' sample path."""
+        each with its first-step outputs' sample path. The exporter's
+        counts are read from `root` (node A's store by default)."""
         wave_dir = self.root / f"wave-{name}"
         tenants = self.waves[name]
         (wave_dir / "go").touch()
@@ -229,7 +286,7 @@ class Phase:
             rows.append(row)
         # the replicas exit while the next scenario runs; close() reaps them
         self.rows[name] = rows
-        self.exported[name] = exporter_counts(self.cache_root)
+        self.exported[name] = exporter_counts(root or self.cache_root, node)
         return rows
 
     def _scenario(self, name: str, verdict) -> dict:
@@ -271,7 +328,54 @@ class Phase:
                                      for r in rec["rows"]]
         return rec
 
-    # --- 6. across the scenarios --------------------------------------------
+    # --- 6. a warm peer seeds node B ---------------------------------------
+
+    def check_peer(self) -> dict:
+        from vtpu_manager_torch.bench_monitor import value
+        from vtpu_manager_torch.clustercache import CacheAdvertiser
+        client = self.node.client
+        a, b = (self.exporters[n.name] for n in (self.node, self.peer_node))
+        published = CacheAdvertiser(
+            client, ba.NODE, self.cache_root,
+            endpoint=a.url.removeprefix("http://")).publish_once()
+        peers = CacheAdvertiser(
+            client, PEER_NODE, self.peer_root,
+            endpoint=b.url.removeprefix("http://")).refresh_peers()
+        rows = self._wave(PEER, self.peer_root, PEER_NODE)
+        rec = {**summarize(PEER, rows), "rows": rows,
+               "advertised": [list(p) for p in published.pairs],
+               "peers": peers}
+        root = self.peer_root
+        rec["entries"] = os.listdir(os.path.join(root, "entries"))
+        rec["entry_bytes"] = [os.path.getsize(os.path.join(root, "entries", e))
+                              for e in rec["entries"]]
+        rec["store_s"] = {name: [r["store_s"] for r in self.rows[name]]
+                          for name in ("cold", "warm", PEER)}
+        rec["quarantine"] = os.listdir(os.path.join(root, "quarantine"))
+        rec["tmp"] = os.listdir(os.path.join(root, "tmp"))
+        _, samples = b.metrics()
+        rec["exporter"] = {
+            k: value(samples, f"vtpu_compile_cache_{k}", node=PEER_NODE)
+            for k in ("peer_fetches_total", "peer_fetch_failures_total",
+                      "hits_total", "misses_total",
+                      "single_flight_waits_total")}
+        # the peer's time to first step beside the node tier's two
+        rec["ttfs_vs"] = {
+            "cold": summarize("cold", self.rows["cold"])["ttfs_mean_s"],
+            "warm": summarize("warm", self.rows["warm"])["ttfs_mean_s"],
+            PEER: rec["ttfs_mean_s"]}
+        rec["ok"] = bool(
+            rec["fetches"] == 1 and rec["single_flight_waits"] == REPLICAS - 1
+            and rec["compiles"] == 0 and rec["misses"] == 0
+            and len(rec["advertised"]) == 1 and peers == 1
+            and len(rec["entries"]) == 1 and not rec["quarantine"]
+            and not rec["tmp"]
+            and rec["exporter"]["peer_fetches_total"] == 1
+            and rec["exporter"]["peer_fetch_failures_total"] == 0
+            and all(self._replica_ok(r) for r in rows))
+        return rec
+
+    # --- 7. across the scenarios --------------------------------------------
 
     def check_shared(self) -> dict:
         torch = self.torch
@@ -305,7 +409,7 @@ class Phase:
         return rec
 
 
-CHECKS = ("allocate", "off", "cold", "warm", "env", "shared")
+CHECKS = ("allocate", "off", "cold", "warm", "env", PEER, "shared")
 
 
 def _tenant(args) -> None:
@@ -327,6 +431,21 @@ def _tenant(args) -> None:
     if args.store and cache is None:
         raise RuntimeError("--store without an armed compile cache")
     tel = rt.step_telemetry()
+    store_s = 0.0
+    if cache is not None:
+        # the time inside the store (a compile, a wait, a fetch or a read)
+        # apart from the artifacts' load and the first call
+        get_or_compile = cache.get_or_compile
+
+        def timed(*a, **k):
+            nonlocal store_s
+            t0 = time.monotonic()
+            try:
+                return get_or_compile(*a, **k)
+            finally:
+                store_s = time.monotonic() - t0
+
+        cache.get_or_compile = timed
     torch.cuda.synchronize()
     print("READY", flush=True)
     _wait_file(args.go_file)
@@ -357,6 +476,7 @@ def _tenant(args) -> None:
         ring_compiled = bool(records) and bool(records[-1].compiled)
     print("WORKER " + json.dumps({
         "pid": os.getpid(), "outcome": outcome, "ttfs_s": ttfs,
+        "store_s": store_s,
         "key": key[:16], **cs.compile_counters(),
         "step_launches": step_launches,
         "op_launches": attn.LAUNCHES["attn_block"] - step_launches,
@@ -367,6 +487,20 @@ def _tenant(args) -> None:
         "first_step_wall": first_step_wall,
         "traced": trace.is_enabled()}),
         flush=True)
+
+
+def table(results: dict) -> str:
+    """One line per scenario, node B's `peer` last: compiles, hits (a
+    fetch counts one), waits and the time to first step."""
+    lines = [f"{'scenario':8} {'compiles':>8} {'hits':>5} {'waits':>6} "
+             f"{'ttfs mean':>10} {'max':>8}"]
+    for name in (*SCENARIOS, PEER):
+        r = results[name]
+        lines.append(
+            f"{name:8} {r['compiles']:8d} {r['hits'] + r['fetches']:5d} "
+            f"{r['single_flight_waits']:6d} {r['ttfs_mean_s']:9.3f}s "
+            f"{r['ttfs_max_s']:7.3f}s")
+    return "\n".join(lines)
 
 
 def main(argv=None) -> int:
@@ -393,13 +527,7 @@ def main(argv=None) -> int:
                        for name in CHECKS}
         finally:
             phase.close()
-    print(f"{'scenario':8} {'compiles':>8} {'hits':>5} {'waits':>6} "
-          f"{'ttfs mean':>10} {'max':>8}")
-    for name in SCENARIOS:
-        r = results[name]
-        print(f"{name:8} {r['compiles']:8d} {r['hits']:5d} "
-              f"{r['single_flight_waits']:6d} {r['ttfs_mean_s']:9.3f}s "
-              f"{r['ttfs_max_s']:7.3f}s")
+    print(table(results))
     print(json.dumps({n: r["ok"] for n, r in results.items()}))
     return 0 if all(r["ok"] for r in results.values()) else 1
 

@@ -47,7 +47,28 @@ Checks, each a record with an `ok` verdict:
    q50's, and the node pressure (fraction and memory headroom) that a
    `TenantStepTelemetry` over the same rings gives, scanned at the pause
    and after the exit as the exporter was;
-4. publish: `PressurePublisher.publish_once` over the in-cluster client
+4. outside: F4's pair (ROADMAP R11). On a second private node of its own
+   (so the first node's exporter counts no third pod), a 50 % / 16 GiB
+   pod's tenant under the interposer runs the same 16384 bf16 step beside
+   a process outside the interposer running it too (no config, no ledger
+   entry, no throttle). Both start with the other tenants, create their
+   inputs and wait at their own go file; they warm up only after it, so
+   they take no slice while the other tenants run. After `OUTSIDE_SETTLE_S`
+   (the watcher's NVML per-process samples lag about a second) the charge
+   window opens for `OUTSIDE_RUN_S`: what the interposer charged per step
+   there lies within CHARGE_REL of the step's card time alone at the
+   pod's duty, as in `running` (`charge_rel_err`), its slice clock
+   measured the tenant's long kernels, and the outside process stepped
+   throughout. The outside process times its own card time per step in
+   the window with a slice clock of the bench's own (`StepClock`, every
+   `OUTSIDE_CLOCK_EVERY`-th step): reported beside, as the charge over
+   that (`charge_rel_outside`) and as the two processes' card time over
+   the window (`busy`). The node's feed, read in the window, is
+   recorded. Not a check of chip_smoke.py's: on the H100 the charge
+   lies a varying 2-13 % above the step at duty, often over the 5 % band
+   (PERF.md); `python -m vtpu_manager_torch.bench_monitor --f4` runs the
+   phase with it and exits 1 when a check fails;
+5. publish: `PressurePublisher.publish_once` over the in-cluster client
    patches the node annotation on `client.apistub.ApiStub` (TLS), and the
    annotation decodes with `parse_pressure` to what was published; the
    vtpu-cores reporter lists 100 devices and the vtpu-memory reporter one
@@ -98,6 +119,15 @@ SOLO_STEPS = 10
 # split that ignored who launched (equal shares, 37.5 each here) or halved
 # a tenant's share would miss by more
 SHARE_BAND = 8.0
+# F4's pair: (cores %, memory GiB, attention launch, kubelet's slot) of the
+# metered pod, beside the same step outside the interposer
+OUTSIDE_POD = "pod-f4"
+OUTSIDE_SPEC = (50, 16, False, 0)
+OUTSIDE_NODE = "node-f4"
+OUTSIDE_SETTLE_S = 2.0
+OUTSIDE_RUN_S = 3.0
+OUTSIDE_MAX_STEPS = 1000
+OUTSIDE_CLOCK_EVERY = 4
 # taken against the quota, in points of the card, and the charge against
 # the card time of a step at the tenant's duty: a tenant charged its own
 # device time takes its quota (co_tenancy's long runs hold the charge to
@@ -143,13 +173,15 @@ def write_checkpoint(path: str, entries: list[tuple[str, str, list[str]]]
 
 
 class Exporter:
-    """The port's exporter as a subprocess on 127.0.0.1 and a free port."""
+    """The port's exporter of `node` as a subprocess on 127.0.0.1 and a
+    free port, its token file and log named by `tag`; `gates` is its
+    --feature-gates."""
 
     def __init__(self, root: Path, node: ba.Node, checkpoint: str,
-                 node_config: str):
-        self.token_file = root / "metrics-token"
+                 node_config: str, gates: str = "", tag: str = "monitor"):
+        self.token_file = root / f"{tag}-token"
         self.token_file.write_text(TOKEN + "\n")
-        self.log_path = root / "monitor.log"
+        self.log_path = root / f"{tag}.log"
         self._log = open(self.log_path, "w")
         env = {k: v for k, v in os.environ.items()
                if not k.startswith("VTPU_") and k != consts.ENV_LD_PRELOAD}
@@ -159,7 +191,7 @@ class Exporter:
         self.env = env
         self.proc = subprocess.Popen(
             [sys.executable, "-m", "vtpu_manager_torch.cmd.device_monitor",
-             "--host", "127.0.0.1", "--port", "0", "--node-name", ba.NODE,
+             "--host", "127.0.0.1", "--port", "0", "--node-name", node.name,
              "--node-config", node_config,
              "--base-dir", node.base_dir,
              "--tc-path", os.path.join(node.watcher_dir, os.path.basename(
@@ -169,7 +201,8 @@ class Exporter:
              "--trace-spool-dir", str(root / "trace"),
              "--kubelet-checkpoint", checkpoint,
              "--pod-resources-socket", str(root / "no-kubelet.sock"),
-             "--metrics-token-file", str(self.token_file)],
+             "--metrics-token-file", str(self.token_file),
+             "--feature-gates", gates],
             cwd=str(REPO), env=env, stdout=self._log,
             stderr=subprocess.STDOUT)
         self.url = self._wait_for_port()
@@ -215,7 +248,11 @@ class Exporter:
 
 
 class Phase:
-    def __init__(self, torch, shim: str, root: str):
+    """The phase's checks on a private node; with `f4` False F4's pair
+    is not started and `check_outside` does not run."""
+
+    def __init__(self, torch, shim: str, root: str, f4: bool = True):
+        self.f4 = f4
         from vtpu_manager_torch.telemetry import TenantStepTelemetry
         self.torch = torch
         self.root = Path(root)
@@ -231,6 +268,10 @@ class Phase:
         self.responses: dict = {}
         self.tenants: dict[str, bq.Tenant] = {}
         self.exporter: Exporter | None = None
+        # F4's pair: its node, and its two processes ("metered", "outside")
+        self.outside_node = ba.Node(str(self.root / "f4"), shim,
+                                    name=OUTSIDE_NODE)
+        self.outside: dict[str, bq.Tenant] = {}
         self.paused_counts: dict[str, int] = {}
         # the phase's own fold of the rings, scanned where the exporter's
         # last two scrapes were (the pause, and after the exit)
@@ -241,11 +282,12 @@ class Phase:
         self.again_s: dict[str, float] = {}
 
     def close(self) -> None:
-        for t in self.tenants.values():
+        for t in [*self.tenants.values(), *self.outside.values()]:
             t.stop()
         if self.exporter is not None:
             self.exporter.close()
         self.node.close()
+        self.outside_node.close()
 
     def _scrape(self):
         text, samples = self.exporter.metrics()
@@ -267,6 +309,14 @@ class Phase:
             ids[pod] = [device_id(chip.uuid, slot)]
             (self.responses[pod],) = plugin.allocate(api.AllocateRequest(
                 [api.ContainerAllocateRequest(ids[pod])])).container_responses
+        # F4's pod, on its own node
+        cores, gib, _, slot = OUTSIDE_SPEC
+        other = self.outside_node
+        other.client.add_pod(ba.committed_pod(
+            OUTSIDE_POD, chip, cores, gib * GIB, node=OUTSIDE_NODE))
+        (self.responses[OUTSIDE_POD],) = other.plugin(True).allocate(
+            api.AllocateRequest([api.ContainerAllocateRequest(
+                [device_id(chip.uuid, slot)])])).container_responses
         checkpoint = str(self.root / "kubelet_internal_checkpoint")
         write_checkpoint(checkpoint, [(pod_uid(p), "main", ids[p])
                                       for p in PODS])
@@ -291,11 +341,12 @@ class Phase:
                "envs": {p: {k: v for k, v in r.envs.items()
                             if k.startswith(("VTPU_", "NVIDIA"))}
                         for p, r in self.responses.items()}}
+        specs = {**PODS, OUTSIDE_POD: OUTSIDE_SPEC}
         rec["ok"] = bool(
             health == (200, "ok")
             and all(r.envs.get(consts.ENV_STEP_TELEMETRY) == "true"
                     and r.envs.get(f"{consts.ENV_MEM_LIMIT}_0")
-                    == str(PODS[p][1] * GIB)
+                    == str(specs[p][1] * GIB)
                     for p, r in self.responses.items()))
         return rec
 
@@ -350,7 +401,8 @@ class Phase:
             end.synchronize()
             return start.elapsed_time(end) / 1e3 / SOLO_STEPS
 
-        for pod, (cores, _, with_attn, _) in PODS.items():
+        solo = {**PODS, OUTSIDE_POD: OUTSIDE_SPEC}
+        for pod, (cores, _, with_attn, _) in solo.items():
             for _ in range(2):
                 step(with_attn)
             back_to_back[pod] = run_back_to_back(with_attn)
@@ -363,7 +415,7 @@ class Phase:
                 times.append(start.elapsed_time(end) / 1e3)
                 time.sleep(times[-1] * (100.0 / cores - 1.0))
             at_duty[pod] = sorted(times)[len(times) // 2]
-        for pod, (_, _, with_attn, _) in PODS.items():
+        for pod, (_, _, with_attn, _) in solo.items():
             again[pod] = run_back_to_back(with_attn)
         del x, q, k, v, bias
         torch.cuda.empty_cache()
@@ -396,7 +448,25 @@ class Phase:
             self.tenants[pod] = bq.Tenant(
                 pod, args, ba.container_env(self.responses[pod]),
                 str(self.root))
-        for t in self.tenants.values():
+        # F4's pair starts with them and waits, cold, at its own go file
+        f4 = ["-m", "vtpu_manager_torch.bench_monitor", "--tenant",
+              "--dim", str(DIM), "--hold-mib", str(HOLD_MIB),
+              "--late-warmup", "--max-steps", str(OUTSIDE_MAX_STEPS)] + [
+            a for name in ("go", "mark", "pause", "resume")
+            for a in (f"--{name}-file", str(self.root / f"{name}-f4"))]
+        outside_env = {k: v for k, v in os.environ.items()
+                       if not k.startswith("VTPU_")
+                       and k != consts.ENV_LD_PRELOAD}
+        outside_env["PYTHONPATH"] = os.pathsep.join(
+            p for p in (str(REPO), os.environ.get("PYTHONPATH")) if p)
+        if self.f4:
+            self.outside = {
+                "metered": bq.Tenant("f4-metered", f4, ba.container_env(
+                    self.responses[OUTSIDE_POD]), str(self.root)),
+                "outside": bq.Tenant("f4-outside",
+                                     f4 + ["--unmetered", "--clock"],
+                                     outside_env, str(self.root))}
+        for t in [*self.tenants.values(), *self.outside.values()]:
             t.line("READY")
         Path(go).touch()
 
@@ -564,7 +634,68 @@ class Phase:
             and rec["pressure_headroom"] == headroom)
         return rec
 
-    # --- 4. the annotation, the reporters and the other routes ------------
+    # --- 4. F4's pair: a tenant beside a process outside the interposer ----
+
+    def check_outside(self) -> dict:
+        from vtpu_manager_torch.config.tc_watcher import TcUtilFile
+        if not self.f4:
+            raise RuntimeError("F4's pair was not started (f4=False)")
+        (self.root / "go-f4").touch()
+        time.sleep(OUTSIDE_SETTLE_S)
+        (self.root / "mark-f4").touch()
+        t0 = time.monotonic()
+        time.sleep(OUTSIDE_RUN_S / 2)
+        feed = TcUtilFile(os.path.join(self.outside_node.watcher_dir,
+                                       os.path.basename(
+                                           consts.TC_UTIL_CONFIG)))
+        try:
+            rec = feed.read_device(self.chip.index)
+        finally:
+            feed.close()
+        time.sleep(OUTSIDE_RUN_S / 2)
+        (self.root / "pause-f4").touch()
+        paused = {k: t.line("PAUSED") for k, t in self.outside.items()}
+        window_s = time.monotonic() - t0
+        (self.root / "resume-f4").touch()
+        workers = {}
+        for k, t in self.outside.items():
+            workers[k] = t.line("WORKER ")
+            t.proc.wait(timeout=60)
+        m, o = paused["metered"], paused["outside"]
+        charged_ms = m["charged_ns"] / 1e6 / max(m["run_steps"], 1)
+        duty_ms = self.duty_s[OUTSIDE_POD] * 1e3
+        own_ms = o.get("clock_own_ms") or float("nan")
+        out = {
+            "charged_ms_per_step": charged_ms, "duty_step_ms": duty_ms,
+            "outside_own_ms_per_step": own_ms,
+            "outside_clocked": o.get("clocked", 0),
+            "solo_step_ms": self.solo_s[OUTSIDE_POD] * 1e3,
+            "solo_again_ms": self.again_s[OUTSIDE_POD] * 1e3,
+            "charge_rel_err": charged_ms / duty_ms - 1.0,
+            "charge_rel_outside": charged_ms / own_ms - 1.0,
+            # the card time the two processes took over the window
+            "busy": (m["charged_ns"] / 1e9 + o["run_steps"] * own_ms / 1e3)
+            / window_s,
+            "run_steps": {k: p["run_steps"] for k, p in paused.items()},
+            "window_s": window_s,
+            "taken_at_duty": (100.0 * m["run_steps"] * self.duty_s[
+                OUTSIDE_POD] / window_s),
+            "windows": workers["metered"].get("vtpu_windows_total"),
+            "clocked": workers["metered"].get("vtpu_clocked_total"),
+            "blind_ticks": workers["metered"].get("vtpu_blind_ticks_total"),
+            "pids": {k: w["pid"] for k, w in workers.items()},
+            "feed": {"device_util": rec.device_util,
+                     "procs": [[p.pid, p.util, p.owner_token != 0]
+                               for p in rec.procs]},
+            # what the watcher reads of the card per process
+            "per_process": [self.outside_node.daemon.sampler.per_process,
+                            self.outside_node.daemon.sampler.per_process_util]}
+        out["ok"] = bool(o["run_steps"] > 0 and m["run_steps"] > 0
+                         and (out["clocked"] or 0) > 0
+                         and abs(out["charge_rel_err"]) <= CHARGE_REL)
+        return out
+
+    # --- 5. the annotation, the reporters and the other routes ------------
 
     def check_publish(self) -> dict:
         from vtpu_manager_torch.bench_cluster import CERTS
@@ -623,6 +754,175 @@ class Phase:
         return rec
 
 
+# The outside process's own slice clock: the interposer's two kernels
+# (csrc/shim/enforce_rate.cc, kSliceClockPtx), launched here over ctypes
+# by a process the interposer does not touch.
+_CLOCK_PTX = r"""
+.version 7.0
+.target sm_70
+.address_size 64
+.visible .entry vtpu_slice_watch(.param .u64 p_dev, .param .u64 p_rec,
+    .param .u64 p_tag, .param .u64 p_gap, .param .u64 p_max)
+{
+  .reg .pred %p<4>;
+  .reg .b64 %rd<20>;
+  ld.param.u64 %rd1, [p_dev];
+  ld.param.u64 %rd2, [p_rec];
+  ld.param.u64 %rd3, [p_tag];
+  ld.param.u64 %rd4, [p_gap];
+  ld.param.u64 %rd5, [p_max];
+  cvta.to.global.u64 %rd1, %rd1;
+  cvta.to.global.u64 %rd2, %rd2;
+  mov.u64 %rd6, %globaltimer;
+  mov.u64 %rd7, %rd6;
+  st.volatile.global.u64 [%rd1+32], %rd3;
+  membar.sys;
+  mov.u64 %rd8, 0;
+  mov.u64 %rd9, 0;
+  mov.u64 %rd10, 0;
+  mov.u64 %rd15, 0;
+LOOP:
+  mov.u64 %rd11, %globaltimer;
+  sub.u64 %rd12, %rd11, %rd7;
+  setp.gt.u64 %p1, %rd12, %rd4;
+  setp.ne.u64 %p2, %rd10, 0;
+  and.pred %p3, %p1, %p2;
+  @%p3 add.u64 %rd8, %rd8, %rd12;
+  @%p3 add.u64 %rd9, %rd9, 1;
+  mov.u64 %rd7, %rd11;
+  ld.volatile.global.u64 %rd13, [%rd1];
+  setp.eq.u64 %p1, %rd13, %rd3;
+  selp.u64 %rd10, 1, 0, %p1;
+  ld.volatile.global.u64 %rd14, [%rd1+16];
+  setp.eq.u64 %p1, %rd14, %rd3;
+  @%p1 bra DONE;
+  sub.u64 %rd12, %rd11, %rd6;
+  setp.lt.u64 %p1, %rd12, %rd5;
+  nanosleep.u32 2000;
+  @%p1 bra LOOP;
+  mov.u64 %rd15, 1;
+DONE:
+  ld.volatile.global.u64 %rd16, [%rd1+8];
+  ld.volatile.global.u64 %rd17, [%rd1+24];
+  st.volatile.global.u64 [%rd2+8], %rd6;
+  st.volatile.global.u64 [%rd2+16], %rd8;
+  st.volatile.global.u64 [%rd2+24], %rd16;
+  st.volatile.global.u64 [%rd2+32], %rd17;
+  st.volatile.global.u64 [%rd2+40], %rd9;
+  st.volatile.global.u64 [%rd2+48], %rd15;
+  membar.sys;
+  st.volatile.global.u64 [%rd2], %rd3;
+  ret;
+}
+.visible .entry vtpu_slice_stamp(.param .u64 p_word, .param .u64 p_tag,
+    .param .u64 p_wait)
+{
+  .reg .pred %p<3>;
+  .reg .b64 %rd<8>;
+  ld.param.u64 %rd1, [p_word];
+  ld.param.u64 %rd2, [p_tag];
+  ld.param.u64 %rd3, [p_wait];
+  cvta.to.global.u64 %rd1, %rd1;
+  setp.eq.u64 %p1, %rd3, 0;
+  @%p1 bra STAMP;
+  cvta.to.global.u64 %rd3, %rd3;
+  mov.u64 %rd4, %globaltimer;
+WAIT:
+  ld.volatile.global.u64 %rd5, [%rd3];
+  setp.eq.u64 %p1, %rd5, %rd2;
+  @%p1 bra STAMP;
+  mov.u64 %rd6, %globaltimer;
+  sub.u64 %rd6, %rd6, %rd4;
+  setp.lt.u64 %p2, %rd6, 1000000;
+  @%p2 bra WAIT;
+STAMP:
+  mov.u64 %rd7, %globaltimer;
+  st.volatile.global.u64 [%rd1+8], %rd7;
+  membar.sys;
+  st.volatile.global.u64 [%rd1], %rd2;
+  ret;
+}
+"""
+
+
+class StepClock:
+    """A step's own card time beside other contexts: the watch kernel on
+    a stream of its own reads %globaltimer from before the start stamp to
+    the stop stamp, and the gaps longer than 20 us in its reads are other
+    contexts' slices (`csrc/shim/enforce_rate.cc`, "A co-tenant outside
+    the ledger"). For a process without the interposer."""
+
+    GAP_NS = 20_000
+    MAX_NS = 2_000_000_000
+
+    def __init__(self, torch):
+        import ctypes
+        self._c = ctypes
+        self.cu = ctypes.CDLL("libcuda.so.1")
+        mod = ctypes.c_void_p()
+        self._check(self.cu.cuModuleLoadData(
+            ctypes.byref(mod), ctypes.c_char_p(_CLOCK_PTX.encode() + b"\0")))
+        self.watch, self.stamp = ctypes.c_void_p(), ctypes.c_void_p()
+        for fn, name in ((self.watch, b"vtpu_slice_watch"),
+                         (self.stamp, b"vtpu_slice_stamp")):
+            self._check(self.cu.cuModuleGetFunction(ctypes.byref(fn), mod,
+                                                    name))
+        host = ctypes.c_void_p()
+        # CU_MEMHOSTALLOC_PORTABLE | CU_MEMHOSTALLOC_DEVICEMAP
+        self._check(self.cu.cuMemHostAlloc(ctypes.byref(host),
+                                           ctypes.c_size_t(128),
+                                           ctypes.c_uint(3)))
+        ctypes.memset(host, 0, 128)
+        self.words = (ctypes.c_uint64 * 16).from_address(host.value)
+        dev = ctypes.c_uint64()
+        self._check(self.cu.cuMemHostGetDevicePointer_v2(
+            ctypes.byref(dev), host, ctypes.c_uint(0)))
+        self.dev = dev.value
+        self.side = torch.cuda.Stream()
+        self.torch = torch
+        self.tag = 0
+
+    @staticmethod
+    def _check(rc: int) -> None:
+        if rc != 0:
+            raise RuntimeError(f"slice clock: CUDA driver error {rc}")
+
+    def _launch(self, fn, stream, args) -> None:
+        c = self._c
+        vals = [c.c_uint64(a) for a in args]
+        ptrs = (c.c_void_p * len(vals))(*[c.cast(c.byref(v), c.c_void_p)
+                                           for v in vals])
+        self._check(self.cu.cuLaunchKernel(fn, 1, 1, 1, 1, 1, 1, 0,
+                                           c.c_void_p(stream.cuda_stream),
+                                           ptrs, None))
+
+    def start(self) -> None:
+        self.tag += 1
+        self._launch(self.watch, self.side,
+                     [self.dev, self.dev + 64, self.tag, self.GAP_NS,
+                      self.MAX_NS])
+        self._launch(self.stamp, self.torch.cuda.current_stream(),
+                     [self.dev, self.tag, self.dev + 32])
+
+    def stop(self) -> None:
+        self._launch(self.stamp, self.torch.cuda.current_stream(),
+                     [self.dev + 16, self.tag, 0])
+
+    def own_ns(self) -> int | None:
+        """The last clocked stretch's own time, once the card has run it
+        (the caller has synchronized); None when the watch missed it."""
+        rec = self.words[8:15]
+        deadline = time.monotonic() + 1.0
+        while self.words[8] != self.tag and time.monotonic() < deadline:
+            time.sleep(1e-4)
+            rec = self.words[8:15]
+        tag, start, gap, t0, t1, _, timed_out = rec
+        if tag != self.tag or timed_out or start > t0 or t1 <= t0 \
+                or gap > t1 - t0:
+            return None
+        return t1 - t0 - gap
+
+
 def _tenant(args) -> None:
     import torch
 
@@ -639,35 +939,66 @@ def _tenant(args) -> None:
                for _ in range(3))
     bias = torch.zeros((ATTN_SHAPE[2], ATTN_SHAPE[2]), device=dev)
     tel = step_telemetry()
-    if tel is None:
+    if tel is None and not args.unmetered:
         raise RuntimeError("no step ring: the plugin armed no StepTelemetry")
+    # F4's pair times its own steps in the charge window
+    clock = StepClock(torch) if args.clock else None
+    owns: list[int] = []
     steps = 0
 
-    def step() -> None:
+    def step(clocked: bool = False) -> None:
         nonlocal x, steps
         s0 = time.monotonic_ns()
+        if clocked:
+            clock.start()
         x, loss = _quota_step(x)
         if args.attn:
             attn.attention_block(q, k, v, bias)
+        if clocked:
+            clock.stop()
         _ = float(loss)
-        tel.record(time.monotonic_ns() - s0,
-                   hbm_highwater_bytes=torch.cuda.max_memory_allocated(),
-                   compiled=(steps == 0))
+        if clocked:
+            own = clock.own_ns()
+            if own is not None:
+                owns.append(own)
+        if tel is not None:
+            tel.record(time.monotonic_ns() - s0,
+                       hbm_highwater_bytes=torch.cuda.max_memory_allocated(),
+                       compiled=(steps == 0))
         steps += 1
 
-    for _ in range(WARMUP):
-        step()
-    hold = torch.ones(args.hold_mib * MIB, dtype=torch.uint8, device=dev)
-    torch.cuda.synchronize()
+    def warm_up() -> torch.Tensor:
+        for _ in range(WARMUP):
+            step()
+        hold = torch.ones(args.hold_mib * MIB, dtype=torch.uint8,
+                          device=dev)
+        torch.cuda.synchronize()
+        return hold
+
+    def charged() -> int:
+        return _shim_counters().get("vtpu_charged_ns_total", 0)
+
+    if not args.late_warmup:
+        hold = warm_up()
     print("READY", flush=True)
     _wait_file(args.go_file)
-    charged0, steps0 = _shim_counters()["vtpu_charged_ns_total"], steps
-    while steps < MAX_STEPS - TAIL_STEPS and not os.path.exists(
+    if args.late_warmup:
+        hold = warm_up()
+    # the charge is read from the mark file (the go file unless named)
+    mark = args.mark_file or args.go_file
+    charged0 = steps0 = None
+    while steps < args.max_steps - TAIL_STEPS and not os.path.exists(
             args.pause_file):
-        step()
+        if charged0 is None and os.path.exists(mark):
+            charged0, steps0 = charged(), steps
+        step(clocked=clock is not None and charged0 is not None
+             and (steps - steps0) % OUTSIDE_CLOCK_EVERY == 0)
+    if charged0 is None:
+        charged0, steps0 = charged(), steps
     print("PAUSED " + json.dumps({
         "records": steps, "run_steps": steps - steps0,
-        "charged_ns": _shim_counters()["vtpu_charged_ns_total"] - charged0}),
+        "charged_ns": charged() - charged0, "clocked": len(owns),
+        "clock_own_ms": (sum(owns) / len(owns) / 1e6 if owns else None)}),
         flush=True)
     _wait_file(args.resume_file)
     for _ in range(TAIL_STEPS):
@@ -678,21 +1009,62 @@ def _tenant(args) -> None:
         **_shim_counters()}), flush=True)
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tenant", action="store_true")
     ap.add_argument("--dim", type=int, default=DIM)
     ap.add_argument("--hold-mib", type=int, default=HOLD_MIB)
     ap.add_argument("--attn", action="store_true")
     ap.add_argument("--go-file")
+    ap.add_argument("--mark-file",
+                    help="the charge is read from when this file appears "
+                    "(default: the go file)")
     ap.add_argument("--pause-file")
     ap.add_argument("--resume-file")
+    ap.add_argument("--late-warmup", action="store_true",
+                    help="warm up after the go file, not before READY")
+    ap.add_argument("--max-steps", type=int, default=MAX_STEPS)
+    ap.add_argument("--unmetered", action="store_true",
+                    help="a process outside the interposer: no step ring")
+    ap.add_argument("--clock", action="store_true",
+                    help="time every few steps after the mark by a slice "
+                    "clock of the bench's own (without the interposer)")
+    ap.add_argument("--f4", action="store_true",
+                    help="run the phase's checks with F4's pair on the card")
     args = ap.parse_args(argv)
     if args.tenant:
         _tenant(args)
-    else:
-        ap.error("bench_monitor runs as a tenant; the phase is driven by "
-                 "chip_smoke.py")
+        return 0
+    if args.f4:
+        return _f4_phase()
+    ap.error("bench_monitor runs as a tenant, or with --f4; the phase is "
+             "driven by chip_smoke.py")
+
+
+def _f4_phase() -> int:
+    """The phase's checks with F4's pair, one `MONITOR {json}` line each;
+    1 when any fails."""
+    import tempfile
+
+    import torch
+
+    from vtpu_manager_torch import build
+    if not torch.cuda.is_available():
+        print("bench_monitor: no CUDA device", file=sys.stderr)
+        return 1
+    shim = str(build.build_for_card()["shim"])
+    ok = True
+    with tempfile.TemporaryDirectory(prefix="vtpu-node-") as root:
+        phase = Phase(torch, shim, root)
+        try:
+            for name in ("setup", "running", "after", "outside", "publish"):
+                rec = getattr(phase, f"check_{name}")()
+                ok &= bool(rec["ok"])
+                print("MONITOR " + json.dumps({"check": name, **rec},
+                                              default=str), flush=True)
+        finally:
+            phase.close()
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":

@@ -311,7 +311,7 @@ COUNTERS = ("vtpu_launches_total", "vtpu_sampled_launches_total",
             "vtpu_watcher_fallback_total", "vtpu_blind_ticks_total",
             "vtpu_oom_rejected_total", "vtpu_graph_launches_total",
             "vtpu_captured_launches_total", "vtpu_windows_total",
-            "vtpu_stand_aside_ns_total")
+            "vtpu_stand_aside_ns_total", "vtpu_clocked_total")
 SIGNED = ("vtpu_charged_ns_total", "vtpu_obs_overhead_ns")
 # what a graph tenant reports across its capture
 CAPTURE_COUNTERS = ("vtpu_launches_total", "vtpu_sampled_launches_total",

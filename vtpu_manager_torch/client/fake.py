@@ -102,6 +102,11 @@ class FakeKubeClient:
 
     # -- KubeClient -----------------------------------------------------------
 
+    def list_nodes(self) -> list[dict]:
+        failpoints.fire("kube.request", op="list_nodes")
+        with self._lock:
+            return [copy.deepcopy(n) for n in self.nodes.values()]
+
     def get_node(self, name: str) -> dict:
         failpoints.fire("kube.request", op="get_node")
         with self._lock:

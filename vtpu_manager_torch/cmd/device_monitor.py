@@ -15,7 +15,14 @@ no aiohttp, grpc or protobuf):
   timeline and critical path with `?pod=<uid or trace id>`;
 - `/healthz`: `ok`;
 - `/debug/stacks` with `--debug-endpoints`: every thread's stack
-  (`util/debug.format_stacks`), behind the same token as `/metrics`.
+  (`util/debug.format_stacks`), behind the same token as `/metrics`;
+- `/cache/entry?key=<64 hex>` with ClusterCompileCache: the raw entry
+  (24-byte header and payload) of the node compile cache under
+  `<base-dir>/compilecache`, verified as it is read, for a cold peer's
+  fetch (JAX `cmd/device_monitor.py:574-600, 624-627`), behind the same
+  token as `/metrics`. A key that is not 64 lowercase hex gets 400; a
+  missing entry 404, and a corrupt one is quarantined and gets 404. With
+  the gate off there is no route (404).
 
 FaultInjection arms the failpoint registry from `VTPU_FAILPOINTS` (seed
 `VTPU_FAILPOINTS_SEED`), as the JAX monitor does; a malformed spec exits
@@ -60,7 +67,6 @@ NOT_PORTED_GATES = {
     "SLOAttribution": "SLO attribution and /slo",
     "SLOAutopilot": "the SLO autopilot and /autopilot",
     "FragObservatory": "the fragmentation observatory and /fragmentation",
-    "ClusterCompileCache": "the cluster compile cache and /cache/entry",
     "QuotaMarket": "the quota market",
     "HBMOvercommit": "memory over-commit (the spill series)",
     "CommTelemetry": "the comm telemetry series",
@@ -123,7 +129,9 @@ def split_gates(spec: str) -> tuple[str, list[str]]:
     return ",".join(kept), refused
 
 
-def make_handler(collector, args, read_token):
+def make_handler(collector, args, read_token, cache_root: str | None = None):
+    """The request handler; `cache_root` (ClusterCompileCache) serves
+    /cache/entry from that store."""
     from vtpu_manager_torch.resilience.policy import render_resilience_metrics
     from vtpu_manager_torch.trace import assemble
     from vtpu_manager_torch.trace.metrics import render_trace_metrics
@@ -191,6 +199,9 @@ def make_handler(collector, args, read_token):
                     else:
                         pod = parse_qs(url.query).get("pod", [""])[0]
                         self._json(*traces_doc(pod))
+                elif url.path == "/cache/entry" and cache_root is not None:
+                    self._cache_entry(parse_qs(url.query).get("key",
+                                                              [""])[0])
                 elif url.path == "/debug/stacks" and args.debug_endpoints:
                     # stacks disclose internals: opt-in, and behind the
                     # token when one is configured
@@ -203,6 +214,24 @@ def make_handler(collector, args, read_token):
             except Exception:  # noqa: BLE001 - one request, not the server
                 log.exception("%s failed", url.path)
                 self._send(500, "500: Internal Server Error", "text/plain")
+
+        def _cache_entry(self, key: str) -> None:
+            from vtpu_manager_torch.clustercache import (
+                advertise, read_entry_for_serving)
+            if not self._authorized():
+                self._send(401, "unauthorized\n", "text/plain")
+            elif not advertise.valid_entry_key(key):
+                # the key names a file under entries/: anything else is a
+                # protocol error, or a path traversal
+                self._send(400, "bad entry key\n", "text/plain")
+            elif (raw := read_entry_for_serving(cache_root, key)) is None:
+                self._send(404, "no such entry\n", "text/plain")
+            else:
+                self.send_response(200)
+                self.send_header("Content-Type", "application/octet-stream")
+                self.send_header("Content-Length", str(len(raw)))
+                self.end_headers()
+                self.wfile.write(raw)
 
         def log_message(self, fmt, *a) -> None:
             log.debug("%s " + fmt, self.address_string(), *a)
@@ -220,6 +249,7 @@ def main(argv: list[str] | None = None) -> int:
                                                        shape_chips)
     from vtpu_manager_torch.metrics.collector import NodeCollector
     from vtpu_manager_torch.tpu import discovery
+    from vtpu_manager_torch.util import consts
     from vtpu_manager_torch.util import featuregates as fg
 
     spec, refused = split_gates(args.feature_gates)
@@ -263,8 +293,11 @@ def main(argv: list[str] | None = None) -> int:
         tc_path=args.tc_path, vmem_path=args.vmem_path,
         pod_resources_socket=args.pod_resources_socket,
         kubelet_checkpoint=args.kubelet_checkpoint)
+    cache_root = (os.path.join(args.base_dir, consts.COMPILE_CACHE_SUBDIR)
+                  if gates.enabled(fg.CLUSTER_COMPILE_CACHE) else None)
     server = ThreadingHTTPServer(
-        (args.host, args.port), make_handler(collector, args, read_token))
+        (args.host, args.port),
+        make_handler(collector, args, read_token, cache_root))
     server.daemon_threads = True
     stop = threading.Event()
     for sig in (signal.SIGTERM, signal.SIGINT):

@@ -3,6 +3,8 @@
     python -m vtpu_manager_torch.cmd.device_plugin --node-name n1 \\
         [--fake-client] [--fake-chips 2] [--feature-gates StepTelemetry=true]
         [--feature-gates CompileCache=true --compile-cache-budget-mb 4096]
+        [--feature-gates CompileCache=true,ClusterCompileCache=true
+         --cache-advertise-endpoint 10.0.0.7:9394 --cache-ad-max-pairs 8]
         [--feature-gates Tracing=true --trace-sampling-rate 0.5
          --trace-spool-dir <dir>]
         [--feature-gates ClientMode=true --registry-socket <path>]
@@ -18,7 +20,12 @@ and vtpu-memory reporters (CorePlugin, MemoryPlugin), the memory ledger
 step rings' pressure annotation (StepTelemetry) and the node compile
 cache (CompileCache: Allocate mounts `<base-dir>/compilecache` into every
 tenant, and this agent evicts it to `--compile-cache-budget-mb` every
-`--compile-cache-evict-interval` seconds), and allocation-path tracing
+`--compile-cache-evict-interval` seconds; with ClusterCompileCache as
+well, Allocate arms the tenants' peer fetch, and this agent publishes the
+node's warm entries with the node exporter's `--cache-advertise-endpoint`
+(default `$NODE_IP:9394`) every 15 s and writes the other nodes' into
+`<base-dir>/compilecache/peers.json`; ClusterCompileCache without
+CompileCache logs a warning and stays off), and allocation-path tracing
 (Tracing: Allocate's spans spool to `--trace-spool-dir`, for the pods a
 `--trace-sampling-rate` share of which the admission mint sampled, and a
 traced pod's tenant gets the trace env and, when sampled, the node trace
@@ -59,8 +66,6 @@ from vtpu_manager_torch.client.kube import (SERVICE_ACCOUNT_DIR,
 # JAX flags of parts not ported yet: refused when given
 NOT_PORTED = {
     "--lease-namespace": "the reschedule controller",
-    "--cache-advertise-endpoint": "the cluster compile cache",
-    "--cache-ad-max-pairs": "the cluster compile cache",
     "--spill-budget-gib": "memory over-commit",
     # a GPU's id is its NVML UUID; a store's synthetic ids would reach
     # NVIDIA_VISIBLE_DEVICES, which the container runtime cannot resolve
@@ -119,6 +124,14 @@ def parse_args(argv: list[str] | None) -> argparse.Namespace:
                     help="seconds between evictor passes (which also reap "
                     "crashed writers' temp files and fold exited tenants' "
                     "counters)")
+    ap.add_argument("--cache-advertise-endpoint", default=None,
+                    help="ClusterCompileCache: host:port of this node's "
+                    "exporter, whose /cache/entry peers fetch from "
+                    "(default: $NODE_IP:9394 when NODE_IP is set, else "
+                    "no peer can fetch from this node)")
+    ap.add_argument("--cache-ad-max-pairs", type=int, default=None,
+                    help="ClusterCompileCache: the hottest fp=key pairs "
+                    "advertised (default 8, at most 32)")
     for flag in NOT_PORTED:
         ap.add_argument(flag, default=None)
     ap.add_argument("-v", "--verbose", action="count", default=0)
@@ -188,6 +201,32 @@ def start_cache_evictor(root: str, budget_bytes: int, interval_s: float,
     threading.Thread(target=loop, daemon=True, name="vtcc-evictor").start()
     log.info("compile cache at %s (budget %d MiB)", root, budget_bytes >> 20)
     return True
+
+
+def start_cache_advertiser(client, node_name: str, root: str,
+                           endpoint: str | None, max_pairs: int | None):
+    """The cluster tier's advertiser (JAX `cmd/device_plugin.py:
+    485-515`), started; the caller stops it."""
+    from vtpu_manager_torch.clustercache import CacheAdvertiser
+    from vtpu_manager_torch.clustercache.advertise import (MAX_AD_KEYS,
+                                                           MAX_AD_KEYS_LIMIT)
+    log = logging.getLogger("vtpu-device-plugin")
+    if endpoint is None:
+        node_ip = os.environ.get("NODE_IP", "")
+        endpoint = f"{node_ip}:9394" if node_ip else ""
+    if not endpoint:
+        log.warning("no --cache-advertise-endpoint / NODE_IP: no peer can "
+                    "fetch from this node")
+    if max_pairs is None:
+        max_pairs = MAX_AD_KEYS
+    elif not 1 <= max_pairs <= MAX_AD_KEYS_LIMIT:
+        log.warning("--cache-ad-max-pairs=%d outside 1..%d; clamping",
+                    max_pairs, MAX_AD_KEYS_LIMIT)
+    advertiser = CacheAdvertiser(client, node_name, root, endpoint=endpoint,
+                                 max_keys=max_pairs)
+    advertiser.start()
+    log.info("cluster cache advertiser running (endpoint %r)", endpoint)
+    return advertiser
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -282,6 +321,14 @@ def main(argv: list[str] | None = None) -> int:
     vnum.preferred_allocation_available = gates.enabled(fg.HONOR_PREALLOC_IDS)
     vnum.step_telemetry_enabled = gates.enabled(fg.STEP_TELEMETRY)
     vnum.compile_cache_enabled = gates.enabled(fg.COMPILE_CACHE)
+    # the cluster tier lands its fetches in the node store: without it the
+    # gate is a configuration error, said loudly, and stays off
+    cluster_cache_on = gates.enabled(fg.CLUSTER_COMPILE_CACHE)
+    if cluster_cache_on and not vnum.compile_cache_enabled:
+        log.warning("ClusterCompileCache=true requires CompileCache=true; "
+                    "the cluster tier stays disarmed")
+        cluster_cache_on = False
+    vnum.cluster_cache_enabled = cluster_cache_on
     plugins = [vnum]
     if gates.enabled(fg.CORE_PLUGIN):
         plugins.append(VcorePlugin(manager))
@@ -354,10 +401,16 @@ def main(argv: list[str] | None = None) -> int:
         log.info("resilience metrics on :%d/metrics",
                  metrics.server_address[1])
 
+    advertiser = None
     if gates.enabled(fg.COMPILE_CACHE):
-        start_cache_evictor(vnum.compile_cache_host_dir(),
-                            args.compile_cache_budget_mb << 20,
-                            args.compile_cache_evict_interval, stop)
+        cache_ok = start_cache_evictor(vnum.compile_cache_host_dir(),
+                                       args.compile_cache_budget_mb << 20,
+                                       args.compile_cache_evict_interval,
+                                       stop)
+        if cluster_cache_on and cache_ok:
+            advertiser = start_cache_advertiser(
+                client, args.node_name, vnum.compile_cache_host_dir(),
+                args.cache_advertise_endpoint, args.cache_ad_max_pairs)
     log.info("device plugin running on %s",
              ", ".join(s.socket_path for s in servers))
     stop.wait()
@@ -367,6 +420,8 @@ def main(argv: list[str] | None = None) -> int:
         watcher.stop()
     if pressure is not None:
         pressure.stop()
+    if advertiser is not None:
+        advertiser.stop()
     for server in servers:
         server.stop()
     if metrics is not None:

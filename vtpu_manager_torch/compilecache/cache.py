@@ -35,8 +35,14 @@ followed by its `shim.compile_outcome` event (`cache.py:433-446`). The
 JAX store's failpoints fire where they fire there: `cache.write` after the
 temp entry is written, before the rename (a torn temp file never becomes
 an entry), and `cache.lease` once the lease is held, before the compile
-(a crash leaves the lease as a dead holder would). The cluster tier's peer
-fetch is not ported.
+(a crash leaves the lease as a dead holder would).
+
+A miss asks `_fetch_remote` for the entry before it compiles, under the
+lease it compiles under (`cache.py:447-456, 495`): the node-local store
+has no peers and returns None, so with the ClusterCompileCache gate off a
+miss does no fetch I/O. The cluster tier (`clustercache/fetch.py`)
+overrides it with the download from a warm peer; an entry it lands counts
+a hit (outcome `fetch`), and its `peer_fetches` or `peer_fetch_failures`.
 """
 
 from __future__ import annotations
@@ -373,7 +379,8 @@ class CompileCache:
                        timeout_s: float = 600.0,
                        ctx=None) -> tuple[bytes, str]:
         """(payload, outcome): `hit` (the entry was there), `miss` (this
-        process compiled and stored), `wait` (another client compiled
+        process compiled and stored), `fetch` (a peer's entry landed in
+        its place, cluster tier only), `wait` (another client compiled
         while this one waited on its lease) or `timeout` (the holder
         outlived `timeout_s`: compiled here, not stored). Each call counts
         one hit or one miss, and a wait besides. With a sampled trace
@@ -385,6 +392,11 @@ class CompileCache:
         trace.event(ctx, "shim.compile_outcome", outcome=outcome,
                     key=key[:16])
         return payload, outcome
+
+    def _fetch_remote(self, key: str) -> bytes | None:
+        """The entry from a warm peer, or None to compile. Runs under the
+        key's lease; the node-local store has no peers."""
+        return None
 
     def _get_or_compile(self, key: str, compile_fn,
                         timeout_s: float) -> tuple[bytes, str]:
@@ -406,6 +418,20 @@ class CompileCache:
                         self._flush_stats()
                         return payload, ("wait" if waited else "hit")
                     failpoints.fire("cache.lease", key=key)
+                    # a warm peer's entry beats a compile; any failure
+                    # there returns None and the compile runs
+                    fetched = self._fetch_remote(key)
+                    if fetched is not None:
+                        try:
+                            self.put(key, fetched)
+                        except OSError:
+                            log.warning("compile cache put of a fetched "
+                                        "entry failed for %s; serving "
+                                        "unshared", key, exc_info=True)
+                        self.release_lease(key)
+                        self.stats.hits += 1
+                        self._flush_stats()
+                        return fetched, "fetch"
                     payload = compile_fn()
                     try:
                         self.put(key, payload)

@@ -460,6 +460,19 @@ bool TenantOnCard(int slot, uint64_t token) {
   return false;
 }
 
+bool LedgerHoldsPid(int slot, int pid) {
+  const DeviceLimits* d = Dev(slot);
+  MapLedgerOnce();
+  if (!g_vmem || !d) return false;
+  for (int i = 0; i < kVmemMaxEntries; i++) {
+    const VmemEntry& e = g_vmem->entries[i];
+    if (__atomic_load_n(&e.pid, __ATOMIC_ACQUIRE) == pid &&
+        e.host_index == d->host_index)
+      return true;
+  }
+  return false;
+}
+
 VmemEntry* OwnLedgerEntry(int slot) {
   const DeviceLimits* d = Dev(slot);
   MapLedgerOnce();

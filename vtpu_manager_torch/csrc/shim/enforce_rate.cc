@@ -81,6 +81,33 @@
 // (vtpu_stand_aside_ns_total), and the card idles while a window waits for
 // the drain to show.
 //
+// A co-tenant outside the ledger. A process that no interposer meters
+// never stands aside, so beside one no window can find the card idle. The
+// node watcher writes such a process into the feed as a resident without
+// a token, with its utilization where NVML reads it per process and -1
+// where it cannot; one that PidIsSelf does not claim and that no ledger
+// entry of the card explains (LedgerHoldsPid) is outside: busy (util > 0),
+// idle (0: taken for a co-tenant that stands aside, as before) or of
+// unknown use (-1, not counted as a co-tenant). Beside one that is busy,
+// or one of unknown use while no ledger co-tenant is there, a long
+// kernel's gated samples are taken by the slice clock instead of a window:
+// a one-thread kernel (vtpu_slice_watch) on a stream of the interposer's
+// own reads %globaltimer in a loop while the tenant's kernel runs, between
+// two one-thread stamps on the tenant's stream (vtpu_slice_stamp), and
+// adds up the gaps longer than kClockGapNs between its reads: the times
+// the card ran another context, since a time slice takes the whole
+// context off the card, the watch with it. The kernel's own time is the
+// span between the stamps less those gaps. The watch sleeps between reads
+// (nanosleep) so that it takes next to nothing from the SM it shares with
+// the kernel. A clocked sample with gaps over 1/kSlicedFrac of its span
+// marks the card sliced for kSlicedHoldNs, as does a window that found no
+// idle card beside a context of unknown use; while sliced the tenant is
+// charged, and its samples settle to, the EMA of its clocked samples, as
+// beside a ledger co-tenant to its windowed ones, and balance mode stays
+// at hard_core. Beside co-tenants that are all in the ledger, the windows
+// above are unchanged. Cooperative launches are not clocked (the watch
+// takes a block's room on one SM).
+//
 // Refill and the tick. A watcher thread refills every 10 ms window (the
 // GPU's kernels are micro- to milliseconds long, where the TPU's 100 ms
 // window suits whole programs); a thread waiting on debt also refills for
@@ -121,6 +148,7 @@
 #include <algorithm>
 #include <cstdio>
 #include <cstdlib>
+#include <cstring>
 #include <mutex>
 #include <unordered_map>
 #include <vector>
@@ -157,6 +185,10 @@ constexpr size_t kMaxPending = 256;
 constexpr int kProbeConverged = 6;
 constexpr uint64_t kProbeFastNs = 20'000'000;
 constexpr uint64_t kProbeSlowNs = 1'000'000'000;
+constexpr int64_t kClockGapNs = 20'000;  // the watch off the card
+constexpr int64_t kClockMaxNs = 2'000'000'000;  // a watch ends by then
+constexpr int64_t kSlicedFrac = 32;
+constexpr uint64_t kSlicedHoldNs = 2'000'000'000;
 
 // Controller tunables, the reference's defaults (enforce.cc:69-74). The
 // controller is the reference's "auto": delta while the card has been the
@@ -188,6 +220,10 @@ struct DeviceBucket {
   std::atomic<uint64_t> active_since_ns{0};
   std::atomic<bool> blind{false};
   std::atomic<bool> shared{false};  // a co-tenant on the card, last tick
+  std::atomic<bool> outside{false};  // a busy one outside the ledger
+  std::atomic<bool> unseen{false};   // one outside it of unknown use
+  // until when another context's slices are in the tenant's spans
+  std::atomic<uint64_t> sliced_until_ns{0};
   std::atomic<int64_t> blind_cost_ns{0};
   std::atomic<uint64_t> vmem_retry_ns{0};
   std::atomic<int64_t> obs_overhead_ns{0};
@@ -234,6 +270,8 @@ struct FnCost {
   int64_t ema_ns = 0;    // EMA of the samples taken alone
   int64_t low_ns = 0;    // shared spans outside windows, min-filtered
   int64_t clean_ns = 0;  // EMA of the samples taken in windows of its own
+                         // or by the slice clock
+  bool clean_clocked = false;  // clean_ns is the clock's
   uint64_t launches = 0;
   bool inflight = false;
   bool agree = false;    // the last shared span outside a window ~ clean_ns
@@ -265,6 +303,9 @@ struct Sample {
   bool isolated = false;
   bool shared = false;
   bool windowed = false;  // taken in a window the co-tenants stood aside for
+  bool clocked = false;   // taken by the slice clock
+  uint64_t tag = 0;       // the slice clock's tag of this sample
+  uint64_t deadline_ns = 0;  // the clock's record comes by then or never
 };
 
 std::mutex g_cost_mu;
@@ -345,14 +386,18 @@ void Charge(int slot, int64_t ns) {
 
 // The card's utilization for the slot: the node watcher's feed when fresh,
 // else this tenant's own estimate (`self_ns` over the window). Also says
-// whether a co-tenant is on the card and how much of the window the feed
-// attributes to this tenant (enforce.cc:1422-1501).
+// whether a co-tenant is on the card, whether one of them is outside the
+// ledger, and how much of the window the feed attributes to this tenant
+// (enforce.cc:1422-1501).
 int MeasuredUtil(int slot, int64_t window_ns, int64_t self_ns, bool* external,
-                 bool* others, int64_t* attributed_ns, int* feed_others) {
+                 bool* others, bool* outside, bool* unseen,
+                 int64_t* attributed_ns, int* feed_others) {
   const DeviceLimits* d = Dev(slot);
   const TcUtilFile* feed = TcFeed();
   *external = false;
   *others = false;
+  *outside = false;
+  *unseen = false;
   *attributed_ns = 0;
   *feed_others = -1;
   if (feed && d->host_index >= 0 && d->host_index < kMaxDeviceCount) {
@@ -365,7 +410,8 @@ int MeasuredUtil(int slot, int64_t window_ns, int64_t self_ns, bool* external,
       int util = rec.device_util;
       uint64_t ts = rec.timestamp_ns;
       int nproc = std::clamp(rec.proc_count, 0, kMaxProcs);
-      int other = 0;
+      int other = 0, tokenless = 0, unknown = 0;
+      int tokenless_pids[kMaxProcs], unknown_pids[kMaxProcs];
       int self_share = -1, token_share = -1, token_hits = 0;
       for (int i = 0; i < nproc; i++) {
         const TcProcUtil& p = rec.procs[i];
@@ -373,7 +419,13 @@ int MeasuredUtil(int slot, int64_t window_ns, int64_t self_ns, bool* external,
         // a resident without a token is ours when the registry-attested
         // pid set names it (enforce.cc:1444-1446)
         if (p.owner_token == 0 ? !PidIsSelf(p.pid) : p.owner_token != token) {
+          if (p.owner_token == 0 && p.util < 0) {
+            unknown_pids[unknown++] = p.pid;  // no co-tenant by itself
+            continue;
+          }
           other++;
+          if (p.owner_token == 0 && p.util > 0)
+            tokenless_pids[tokenless++] = p.pid;
           continue;
         }
         token_share = p.util;
@@ -387,6 +439,10 @@ int MeasuredUtil(int slot, int64_t window_ns, int64_t self_ns, bool* external,
       *external = true;
       *others = other > 0;
       *feed_others = other;
+      for (int i = 0; i < tokenless && !*outside; i++)
+        *outside = !LedgerHoldsPid(slot, tokenless_pids[i]);
+      for (int i = 0; i < unknown && !*unseen; i++)
+        *unseen = !LedgerHoldsPid(slot, unknown_pids[i]);
       // our share: the exact (pid, token) entry, else the only entry with
       // our token; with no residents at all, the whole card when the
       // ledger confirms we are alone
@@ -521,11 +577,12 @@ void WatcherTick(uint64_t now, int64_t window_ns) {
     DeviceBucket& b = g_bucket[slot];
     ControllerState* cs = &g_ctl[slot];
     int64_t self_ns = b.self_tick_ns.exchange(0, std::memory_order_relaxed);
-    bool external, others;
+    bool external, others, outside, unseen;
     int64_t attributed;
     int feed_others;
     int used = MeasuredUtil(slot, window_ns, self_ns, &external, &others,
-                            &attributed, &feed_others);
+                            &outside, &unseen, &attributed, &feed_others);
+    bool sliced = now < b.sliced_until_ns.load(std::memory_order_relaxed);
     if (feed_others >= 0 && cs->feed_others >= 0 &&
         feed_others != cs->feed_others)
       b.active_since_ns.store(now, std::memory_order_relaxed);
@@ -539,7 +596,7 @@ void WatcherTick(uint64_t now, int64_t window_ns) {
       int up = b.up_limit.load(std::memory_order_relaxed);
       if (up == 0) up = d->hard_core;
       int seen = std::max(used, (int)cs->self_util_ema);
-      if (others) {
+      if (others || sliced) {
         up = d->hard_core;
       } else if (seen >= up - 5 && up < d->soft_core) {
         up = std::min(up + 2, d->soft_core);
@@ -552,6 +609,8 @@ void WatcherTick(uint64_t now, int64_t window_ns) {
     cs->external |= external;
     cs->others |= others;
     b.shared.store(others, std::memory_order_relaxed);
+    b.outside.store(outside, std::memory_order_relaxed);
+    b.unseen.store(unseen, std::memory_order_relaxed);
     if (++cs->ticks >= kHorizonTicks) JudgeHorizon(slot);
   }
   RefreshClientPids();  // enforce.cc:1664
@@ -669,6 +728,196 @@ void AdoptProbe(int slot, int64_t span_ns) {
   g_probes.fetch_add(1, std::memory_order_relaxed);
 }
 
+// The slice clock (see "A co-tenant outside the ledger" above). The
+// watch's record, at word 8 of the clock's buffer: the tag, the watch's
+// first read, the gaps' sum, the start and stop stamps' times, the number
+// of gaps and whether it gave up waiting for the stop stamp. The stamps
+// write [tag, time] at words 0 and 2; the watch writes its tag at word 4
+// when it starts, and the start stamp waits up to 1 ms for it (the card
+// may run the two streams' kernels in either order when the context
+// comes back from another's slice).
+constexpr char kSliceClockPtx[] =
+    ".version 7.0\n.target sm_70\n.address_size 64\n"
+    ".visible .entry vtpu_slice_watch(.param .u64 p_dev, .param .u64 p_rec,\n"
+    "    .param .u64 p_tag, .param .u64 p_gap, .param .u64 p_max)\n{\n"
+    "  .reg .pred %p<4>;\n  .reg .b64 %rd<20>;\n"
+    "  ld.param.u64 %rd1, [p_dev];\n  ld.param.u64 %rd2, [p_rec];\n"
+    "  ld.param.u64 %rd3, [p_tag];\n  ld.param.u64 %rd4, [p_gap];\n"
+    "  ld.param.u64 %rd5, [p_max];\n"
+    "  cvta.to.global.u64 %rd1, %rd1;\n  cvta.to.global.u64 %rd2, %rd2;\n"
+    "  mov.u64 %rd6, %globaltimer;\n  mov.u64 %rd7, %rd6;\n"
+    "  st.volatile.global.u64 [%rd1+32], %rd3;\n  membar.sys;\n"
+    "  mov.u64 %rd8, 0;\n  mov.u64 %rd9, 0;\n  mov.u64 %rd10, 0;\n"
+    "  mov.u64 %rd15, 0;\n"
+    "LOOP:\n"
+    "  mov.u64 %rd11, %globaltimer;\n  sub.u64 %rd12, %rd11, %rd7;\n"
+    "  setp.gt.u64 %p1, %rd12, %rd4;\n  setp.ne.u64 %p2, %rd10, 0;\n"
+    "  and.pred %p3, %p1, %p2;\n"
+    "  @%p3 add.u64 %rd8, %rd8, %rd12;\n  @%p3 add.u64 %rd9, %rd9, 1;\n"
+    "  mov.u64 %rd7, %rd11;\n"
+    "  ld.volatile.global.u64 %rd13, [%rd1];\n"
+    "  setp.eq.u64 %p1, %rd13, %rd3;\n  selp.u64 %rd10, 1, 0, %p1;\n"
+    "  ld.volatile.global.u64 %rd14, [%rd1+16];\n"
+    "  setp.eq.u64 %p1, %rd14, %rd3;\n  @%p1 bra DONE;\n"
+    "  sub.u64 %rd12, %rd11, %rd6;\n  setp.lt.u64 %p1, %rd12, %rd5;\n"
+    "  nanosleep.u32 2000;\n"
+    "  @%p1 bra LOOP;\n  mov.u64 %rd15, 1;\n"
+    "DONE:\n"
+    "  ld.volatile.global.u64 %rd16, [%rd1+8];\n"
+    "  ld.volatile.global.u64 %rd17, [%rd1+24];\n"
+    "  st.volatile.global.u64 [%rd2+8], %rd6;\n"
+    "  st.volatile.global.u64 [%rd2+16], %rd8;\n"
+    "  st.volatile.global.u64 [%rd2+24], %rd16;\n"
+    "  st.volatile.global.u64 [%rd2+32], %rd17;\n"
+    "  st.volatile.global.u64 [%rd2+40], %rd9;\n"
+    "  st.volatile.global.u64 [%rd2+48], %rd15;\n"
+    "  membar.sys;\n  st.volatile.global.u64 [%rd2], %rd3;\n  ret;\n}\n"
+    ".visible .entry vtpu_slice_stamp(.param .u64 p_word, .param .u64 p_tag,"
+    "\n    .param .u64 p_wait)\n{\n"
+    "  .reg .pred %p<3>;\n  .reg .b64 %rd<8>;\n"
+    "  ld.param.u64 %rd1, [p_word];\n  ld.param.u64 %rd2, [p_tag];\n"
+    "  ld.param.u64 %rd3, [p_wait];\n  cvta.to.global.u64 %rd1, %rd1;\n"
+    "  setp.eq.u64 %p1, %rd3, 0;\n  @%p1 bra STAMP;\n"
+    "  cvta.to.global.u64 %rd3, %rd3;\n  mov.u64 %rd4, %globaltimer;\n"
+    "WAIT:\n"
+    "  ld.volatile.global.u64 %rd5, [%rd3];\n"
+    "  setp.eq.u64 %p1, %rd5, %rd2;\n  @%p1 bra STAMP;\n"
+    "  mov.u64 %rd6, %globaltimer;\n  sub.u64 %rd6, %rd6, %rd4;\n"
+    "  setp.lt.u64 %p2, %rd6, 1000000;\n  @%p2 bra WAIT;\n"
+    "STAMP:\n"
+    "  mov.u64 %rd7, %globaltimer;\n"
+    "  st.volatile.global.u64 [%rd1+8], %rd7;\n  membar.sys;\n"
+    "  st.volatile.global.u64 [%rd1], %rd2;\n  ret;\n}\n";
+constexpr unsigned kStreamNonBlocking = 0x1;
+constexpr size_t kClockBufBytes = 128;
+
+struct SliceClock {
+  CUfunction watch = nullptr;
+  CUfunction stamp = nullptr;
+  CUstream side = nullptr;  // the watch's own stream
+  uint64_t* buf = nullptr;  // pinned host memory the card writes through
+  uint64_t tag = 0;
+  bool off = false;
+  bool busy = false;        // a clocked sample in flight
+};
+SliceClock g_clock[kMaxDevices];
+std::atomic<uint64_t> g_clocked{0};  // samples the slice clock settled
+
+// Claims the slot's slice clock for a sample, loading it into the calling
+// thread's context at first use. False when it is unavailable or already
+// measuring. Caller holds g_cost_mu.
+bool TakeClockLocked(int slot) {
+  SliceClock& k = g_clock[slot];
+  if (k.off || k.busy) return false;
+  if (!k.buf) {
+    auto load = VTPU_REAL_AS(PFN_cuModuleLoadData, "cuModuleLoadData");
+    auto get = VTPU_REAL_AS(PFN_cuModuleGetFunction, "cuModuleGetFunction");
+    auto create = VTPU_REAL_AS(PFN_cuStreamCreate, "cuStreamCreate");
+    auto alloc_host = VTPU_REAL_AS(PFN_cuMemAllocHost, "cuMemAllocHost_v2");
+    CUmodule mod = nullptr;
+    void* buf = nullptr;
+    if (!load || !get || !create || !alloc_host ||
+        load(&mod, kSliceClockPtx) != CUDA_SUCCESS ||
+        get(&k.watch, mod, "vtpu_slice_watch") != CUDA_SUCCESS ||
+        get(&k.stamp, mod, "vtpu_slice_stamp") != CUDA_SUCCESS ||
+        create(&k.side, kStreamNonBlocking) != CUDA_SUCCESS ||
+        alloc_host(&buf, kClockBufBytes) != CUDA_SUCCESS) {
+      k.off = true;
+      Log(kLogWarn, "device %d: the slice clock did not load; beside a "
+          "process outside the ledger the spans hold its slices", slot);
+      return false;
+    }
+    memset(buf, 0, kClockBufBytes);
+    k.buf = static_cast<uint64_t*>(buf);
+  }
+  k.busy = true;
+  return true;
+}
+
+// Launches the watch on the clock's stream, then the start stamp on the
+// tenant's; the sample carries the tag. False (the clock released) when
+// a launch failed. Caller holds g_cost_mu and the clock.
+bool StartClockLocked(Sample* s, CUstream stream, int64_t cost) {
+  SliceClock& k = g_clock[s->slot];
+  auto launch = VTPU_REAL(cuLaunchKernel);
+  uint64_t tag = ++k.tag;
+  uint64_t dev = (uint64_t)(uintptr_t)k.buf, rec = dev + 64;
+  uint64_t gap = kClockGapNs;
+  uint64_t max = (uint64_t)std::clamp<int64_t>(16 * cost, 100'000'000,
+                                               kClockMaxNs);
+  uint64_t started = dev + 32;
+  void* watch_args[] = {&dev, &rec, &tag, &gap, &max};
+  void* stamp_args[] = {&dev, &tag, &started};
+  if (!launch ||
+      launch(k.watch, 1, 1, 1, 1, 1, 1, 0, k.side, watch_args, nullptr) !=
+          CUDA_SUCCESS ||
+      launch(k.stamp, 1, 1, 1, 1, 1, 1, 0, stream, stamp_args, nullptr) !=
+          CUDA_SUCCESS) {
+    k.busy = false;
+    return false;
+  }
+  s->tag = tag;
+  s->deadline_ns = NowNs() + max + kSampleWindowMaxNs;
+  return true;
+}
+
+// The stop stamp, after the tenant's launch; the watch ends when it runs.
+void StopClockLocked(const Sample& s, CUstream stream) {
+  SliceClock& k = g_clock[s.slot];
+  auto launch = VTPU_REAL(cuLaunchKernel);
+  uint64_t word = (uint64_t)(uintptr_t)(k.buf + 2), tag = s.tag, wait = 0;
+  void* args[] = {&word, &tag, &wait};
+  if (launch) launch(k.stamp, 1, 1, 1, 1, 1, 1, 0, stream, args, nullptr);
+}
+
+// A clocked sample whose end event has been reached (`ran`: without an
+// error): false while the watch's record has yet to come. The kernel's
+// own time is the stamps' span less the gaps; gaps over 1/kSlicedFrac of
+// it mark the card sliced. Caller holds g_cost_mu.
+bool SettleClockedLocked(const Sample& s, bool ran) {
+  SliceClock& k = g_clock[s.slot];
+  const uint64_t* rec = k.buf + 8;
+  bool ready = __atomic_load_n(&rec[0], __ATOMIC_ACQUIRE) == s.tag;
+  if (!ready && ran && NowNs() < s.deadline_ns) return false;
+  k.busy = false;
+  FnCost& c = g_costs[s.key];
+  c.inflight = false;
+  uint64_t start = rec[1], gap = rec[2], t0 = rec[3], t1 = rec[4];
+  // the watch ran from before the start stamp to the stop stamp
+  if (!ready || !ran || rec[6] != 0 || start > t0 || t1 <= t0 ||
+      gap > t1 - t0) {
+    Log(kLogDebug, "clocked %p void: ready=%d ran=%d timed_out=%llu "
+        "late=%lld span=%lld gaps=%llu", s.key, (int)ready, (int)ran,
+        (unsigned long long)rec[6], (long long)(start - t0),
+        (long long)(t1 - t0), (unsigned long long)gap);
+    return true;
+  }
+  DeviceBucket& b = g_bucket[s.slot];
+  int64_t span = (int64_t)(t1 - t0), own = span - (int64_t)gap;
+  if ((int64_t)gap * kSlicedFrac > span)
+    b.sliced_until_ns.store(NowNs() + kSlicedHoldNs,
+                            std::memory_order_relaxed);
+  b.observed_ns.fetch_add(own, std::memory_order_relaxed);
+  b.observed_n.fetch_add(1, std::memory_order_relaxed);
+  // a window beside a process outside the ledger may have held its
+  // slices (it can start during the window): the clock's first sample
+  // replaces what windows learned
+  c.clean_ns = (c.clean_ns == 0 || !c.clean_clocked)
+                   ? own
+                   : (int64_t)(kCostEmaAlpha * own +
+                               (1 - kCostEmaAlpha) * c.clean_ns);
+  c.clean_clocked = true;
+  g_clocked.fetch_add(1, std::memory_order_relaxed);
+  bool beside = s.shared || NowNs() < b.sliced_until_ns.load(
+                                          std::memory_order_relaxed);
+  Log(kLogDebug, "clocked %p span=%lld gaps=%lld n=%llu own=%lld charged=%lld",
+      s.key, (long long)span, (long long)gap, (unsigned long long)rec[5],
+      (long long)own, (long long)s.charged_ns);
+  if (!b.blind.load(std::memory_order_relaxed))
+    Charge(s.slot, (beside ? CostOf(c, true) : own) - s.charged_ns);
+  return true;
+}
+
 // Reads back finished samples without waiting: the EMA learns the kernel's
 // duration and the bucket settles the difference from what was charged.
 // Caller holds g_cost_mu.
@@ -682,6 +931,14 @@ void DrainLocked() {
     CUresult rc = query(s.end);
     if (rc == CUDA_ERROR_NOT_READY) {
       g_pending[keep++] = s;
+      continue;
+    }
+    if (s.clocked) {
+      if (!SettleClockedLocked(s, rc == CUDA_SUCCESS)) {
+        g_pending[keep++] = s;
+        continue;
+      }
+      GiveEvents(s);
       continue;
     }
     float ms = 0.f;
@@ -709,14 +966,15 @@ void DrainLocked() {
           c.low_ns = (c.low_ns == 0 || dur < c.low_ns)
                          ? dur
                          : c.low_ns + (dur - c.low_ns) / 16;
-          if (c.clean_ns > 0)
-            c.agree = std::abs(dur - c.clean_ns) <= kDisagree * c.clean_ns;
         } else {
           int64_t& ema = s.windowed ? c.clean_ns : c.ema_ns;
           ema = ema == 0 ? dur
                          : (int64_t)(kCostEmaAlpha * dur +
                                      (1 - kCostEmaAlpha) * ema);
+          if (s.windowed) c.clean_clocked = false;
         }
+        if (!s.windowed && c.clean_ns > 0)
+          c.agree = std::abs(dur - c.clean_ns) <= kDisagree * c.clean_ns;
         // a blind tenant's samples lie; the tick settles against the feed
         if (!b.blind.load(std::memory_order_relaxed))
           Charge(s.slot, (s.shared ? CostOf(c, true) : dur) - s.charged_ns);
@@ -983,7 +1241,7 @@ bool Capturing(CUstream stream) {
 // event; a launch on an idle stream may carry the observation probe
 // instead. A captured launch is counted and nothing more.
 void BeforeLaunch(CostKey key, CUstream stream, int slot, bool may_sample,
-                  Ticket* t) {
+                  bool may_clock, Ticket* t) {
   g_launches.fetch_add(1, std::memory_order_relaxed);
   if (slot < 0) slot = CurrentSlot();
   if (!IsMetered(Dev(slot))) return;
@@ -996,12 +1254,17 @@ void BeforeLaunch(CostKey key, CUstream stream, int slot, bool may_sample,
   DeviceBucket& b = g_bucket[slot];
   uint64_t now = NowNs();
   int64_t cost;
-  bool sample, probe, shared, gate = false;
+  bool sample, probe, shared, unseen, gate = false, clock = false;
   {
     std::lock_guard<std::mutex> lock(g_cost_mu);
     DrainLocked();
     FnCost& c = g_costs[key];
-    shared = b.shared.load(std::memory_order_relaxed);
+    bool tenants = b.shared.load(std::memory_order_relaxed);
+    bool outside = b.outside.load(std::memory_order_relaxed);
+    bool sliced = now < b.sliced_until_ns.load(std::memory_order_relaxed);
+    unseen = b.unseen.load(std::memory_order_relaxed);
+    // the spans may hold another context's slices
+    shared = tenants || sliced;
     cost = CostOf(c, shared);
     if (b.blind.load(std::memory_order_relaxed))
       cost = std::max(cost, b.blind_cost_ns.load(std::memory_order_relaxed));
@@ -1010,14 +1273,21 @@ void BeforeLaunch(CostKey key, CUstream stream, int slot, bool may_sample,
              (c.launches <= kAlwaysSampleFirst ||
               c.launches % kSampleEvery == 0 || cost >= kSampleAllNs);
     if (sample) c.inflight = true;
-    // under co-tenancy a long kernel's first sample, and then every
-    // kGateEvery-th while its spans disagree with its windowed cost (else
-    // every kGateRefresh-th), is taken in a window of its own
-    if (sample && shared && cost >= kSampleAllNs &&
-        (c.clean_ns == 0 ||
+    // beside another context a long kernel's first sample, and then every
+    // kGateEvery-th while its spans disagree with its clean cost (else
+    // every kGateRefresh-th), is taken in a window of its own beside
+    // co-tenants that are all in the ledger, else by the slice clock (at
+    // once when its clean cost is still a window's)
+    bool windows = tenants && !outside && !sliced;
+    if (sample && (shared || outside || unseen) && cost >= kSampleAllNs &&
+        (c.clean_ns == 0 || (!windows && !c.clean_clocked) ||
          c.launches % (c.agree ? kGateRefresh : kGateEvery) == 0)) {
-      gate = c.gate_backoff == 0;
-      if (!gate) c.gate_backoff--;
+      if (windows) {
+        gate = c.gate_backoff == 0;
+        if (!gate) c.gate_backoff--;
+      } else {
+        clock = may_clock && TakeClockLocked(slot);
+      }
     }
     uint64_t since = now - b.last_probe_ns.load(std::memory_order_relaxed);
     // a kernel with no cost yet is sampled, not displaced by the probe
@@ -1058,10 +1328,20 @@ void BeforeLaunch(CostKey key, CUstream stream, int slot, bool may_sample,
     std::lock_guard<std::mutex> lock(g_cost_mu);
     FnCost& c = g_costs[key];
     if (!windowed) {
-      c.inflight = false;
       // another tenant's window is no reason to wait; a busy card is
       if (opened) c.gate_backoff = kGateBackoff;
-      sample = false;
+      // beside a context of unknown use the drain that never came is its
+      // work: its slices are in the spans, and the clock takes the sample
+      if (opened && unseen) {
+        b.sliced_until_ns.store(NowNs() + kSlicedHoldNs,
+                                std::memory_order_relaxed);
+        shared = true;
+        clock = may_clock && TakeClockLocked(slot);
+      }
+      if (!clock) {
+        c.inflight = false;
+        sample = false;
+      }
     }
   }
   if (!sample && !probe) return;
@@ -1071,9 +1351,9 @@ void BeforeLaunch(CostKey key, CUstream stream, int slot, bool may_sample,
   if (probe && idle) {
     b.last_probe_ns.store(NowNs(), std::memory_order_relaxed);
     ProbeLocked(slot, stream, record);
-    // this launch goes unsampled behind the probe, or in a window sampled
-    // behind it
-    if (windowed)
+    // this launch goes unsampled behind the probe, or in a window or by
+    // the clock sampled behind it
+    if (windowed || clock)
       idle = false;
     else
       ok = false;
@@ -1083,10 +1363,14 @@ void BeforeLaunch(CostKey key, CUstream stream, int slot, bool may_sample,
   s.key = key;
   s.slot = slot;
   s.charged_ns = cost;
-  s.isolated = idle;
+  s.isolated = idle && !clock;
   s.shared = shared;
   s.windowed = windowed;
-  if (ok) {
+  s.clocked = clock;
+  if (ok && clock) {
+    s.end = TakeEvent();
+    ok = s.end && StartClockLocked(&s, stream, cost);
+  } else if (ok) {
     s.start = TakeEvent();
     s.end = TakeEvent();
     ok = s.start && s.end && record(s.start, stream) == CUDA_SUCCESS;
@@ -1095,6 +1379,7 @@ void BeforeLaunch(CostKey key, CUstream stream, int slot, bool may_sample,
     GiveEvents(s);
     g_costs[key].inflight = false;
     if (windowed) SetWindow(slot, 0);
+    if (clock) g_clock[slot].busy = false;
     return;
   }
   t->sampled = true;
@@ -1109,6 +1394,8 @@ void AfterLaunch(CUresult rc, Ticket* t) {
   CUevent end = nullptr;
   {
     std::lock_guard<std::mutex> lock(g_cost_mu);
+    // the watch ends at the stop stamp whether or not the launch went
+    if (t->sample.clocked) StopClockLocked(t->sample, t->stream);
     if (rc == CUDA_SUCCESS &&
         record(t->sample.end, t->stream) == CUDA_SUCCESS) {
       g_pending.push_back(t->sample);
@@ -1118,20 +1405,34 @@ void AfterLaunch(CUresult rc, Ticket* t) {
     } else {
       GiveEvents(t->sample);
       g_costs[t->sample.key].inflight = false;
+      if (t->sample.clocked) g_clock[t->sample.slot].busy = false;
     }
   }
   if (t->sample.windowed)
     CloseWindowAfter(t->sample.slot, end, t->window_until);
 }
 
+// Whether a cuLaunchKernelEx asks for a cooperative launch, which the
+// slice clock's watch could keep from being co-resident.
+bool Cooperative(const CUlaunchConfig* config) {
+  for (unsigned i = 0; config && config->attrs && i < config->numAttrs; i++) {
+    const CUlaunchAttribute_st& a = config->attrs[i];
+    int on = 0;
+    memcpy(&on, a.value, sizeof(on));
+    if (a.id == CU_LAUNCH_ATTRIBUTE_COOPERATIVE && on) return true;
+  }
+  return false;
+}
+
 template <typename Launch>
-CUresult Metered(CostKey key, CUstream stream, bool ptsz, Launch launch) {
+CUresult Metered(CostKey key, CUstream stream, bool ptsz, bool may_clock,
+                 Launch launch) {
   // A null stream in a _ptsz launch is the per-thread default stream, and
   // the events must go on that stream too.
   CUstream ev_stream = (ptsz && stream == nullptr) ? CU_STREAM_PER_THREAD
                                                    : stream;
   Ticket t;
-  BeforeLaunch(key, ev_stream, -1, /*may_sample=*/true, &t);
+  BeforeLaunch(key, ev_stream, -1, /*may_sample=*/true, may_clock, &t);
   CUresult rc = launch();
   AfterLaunch(rc, &t);
   return rc;
@@ -1150,7 +1451,7 @@ VTPU_EXPORT CUresult cuLaunchKernel(CUfunction f, unsigned gx, unsigned gy,
                                     void** extra) {
   auto real = VTPU_REAL(cuLaunchKernel);
   if (!real) return CUDA_ERROR_NOT_INITIALIZED;
-  return Metered(f, stream, false, [&] {
+  return Metered(f, stream, false, true, [&] {
     return real(f, gx, gy, gz, bx, by, bz, smem, stream, params, extra);
   });
 }
@@ -1163,7 +1464,7 @@ VTPU_EXPORT CUresult cuLaunchKernel_ptsz(CUfunction f, unsigned gx,
                                          void** extra) {
   auto real = VTPU_REAL(cuLaunchKernel_ptsz);
   if (!real) return CUDA_ERROR_NOT_INITIALIZED;
-  return Metered(f, stream, true, [&] {
+  return Metered(f, stream, true, true, [&] {
     return real(f, gx, gy, gz, bx, by, bz, smem, stream, params, extra);
   });
 }
@@ -1174,7 +1475,7 @@ VTPU_EXPORT CUresult cuLaunchKernelEx(const CUlaunchConfig* config,
   auto real = VTPU_REAL(cuLaunchKernelEx);
   if (!real) return CUDA_ERROR_NOT_INITIALIZED;
   CUstream stream = config ? config->hStream : nullptr;
-  return Metered(f, stream, false,
+  return Metered(f, stream, false, !Cooperative(config),
                  [&] { return real(config, f, params, extra); });
 }
 
@@ -1184,7 +1485,7 @@ VTPU_EXPORT CUresult cuLaunchKernelEx_ptsz(const CUlaunchConfig* config,
   auto real = VTPU_REAL(cuLaunchKernelEx_ptsz);
   if (!real) return CUDA_ERROR_NOT_INITIALIZED;
   CUstream stream = config ? config->hStream : nullptr;
-  return Metered(f, stream, true,
+  return Metered(f, stream, true, !Cooperative(config),
                  [&] { return real(config, f, params, extra); });
 }
 
@@ -1196,7 +1497,7 @@ VTPU_EXPORT CUresult cuLaunchCooperativeKernel(CUfunction f, unsigned gx,
                                                void** params) {
   auto real = VTPU_REAL(cuLaunchCooperativeKernel);
   if (!real) return CUDA_ERROR_NOT_INITIALIZED;
-  return Metered(f, stream, false, [&] {
+  return Metered(f, stream, false, false, [&] {
     return real(f, gx, gy, gz, bx, by, bz, smem, stream, params);
   });
 }
@@ -1207,7 +1508,7 @@ VTPU_EXPORT CUresult cuLaunchCooperativeKernel_ptsz(
     void** params) {
   auto real = VTPU_REAL(cuLaunchCooperativeKernel_ptsz);
   if (!real) return CUDA_ERROR_NOT_INITIALIZED;
-  return Metered(f, stream, true, [&] {
+  return Metered(f, stream, true, false, [&] {
     return real(f, gx, gy, gz, bx, by, bz, smem, stream, params);
   });
 }
@@ -1236,7 +1537,7 @@ VTPU_EXPORT CUresult cuLaunchCooperativeKernelMultiDevice(
     }
     Ticket t;
     BeforeLaunch(list[i].function, list[i].hStream, slot,
-                 /*may_sample=*/false, &t);
+                 /*may_sample=*/false, /*may_clock=*/false, &t);
   }
   return real(list, num_devices, flags);
 }
@@ -1245,14 +1546,16 @@ VTPU_EXPORT CUresult cuGraphLaunch(CUgraphExec exec, CUstream stream) {
   auto real = VTPU_REAL(cuGraphLaunch);
   if (!real) return CUDA_ERROR_NOT_INITIALIZED;
   g_graph_launches.fetch_add(1, std::memory_order_relaxed);
-  return Metered(exec, stream, false, [&] { return real(exec, stream); });
+  return Metered(exec, stream, false, true,
+                 [&] { return real(exec, stream); });
 }
 
 VTPU_EXPORT CUresult cuGraphLaunch_ptsz(CUgraphExec exec, CUstream stream) {
   auto real = VTPU_REAL(cuGraphLaunch_ptsz);
   if (!real) return CUDA_ERROR_NOT_INITIALIZED;
   g_graph_launches.fetch_add(1, std::memory_order_relaxed);
-  return Metered(exec, stream, true, [&] { return real(exec, stream); });
+  return Metered(exec, stream, true, true,
+                 [&] { return real(exec, stream); });
 }
 
 // Counters a tenant reads over ctypes. Every launch the hooks saw, graph
@@ -1303,6 +1606,11 @@ VTPU_EXPORT uint64_t vtpu_windows_total() {
 
 VTPU_EXPORT uint64_t vtpu_stand_aside_ns_total() {
   return g_stand_aside_ns.load(std::memory_order_relaxed);
+}
+
+// Samples the slice clock measured (beside a context outside the ledger).
+VTPU_EXPORT uint64_t vtpu_clocked_total() {
+  return g_clocked.load(std::memory_order_relaxed);
 }
 
 // The probe's estimate of an isolated sample's overhead on device 0.

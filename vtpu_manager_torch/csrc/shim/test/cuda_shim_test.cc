@@ -301,7 +301,8 @@ void PrintCounters() {
       "vtpu_watcher_external_total", "vtpu_watcher_fallback_total",
       "vtpu_blind_ticks_total",     "vtpu_oom_rejected_total",
       "vtpu_graph_launches_total",  "vtpu_captured_launches_total",
-      "vtpu_windows_total",         "vtpu_stand_aside_ns_total"};
+      "vtpu_windows_total",         "vtpu_stand_aside_ns_total",
+      "vtpu_clocked_total"};
   printf("COUNTERS");
   for (const char* name : kNames) {
     auto fn = reinterpret_cast<int64_t (*)()>(dlsym(RTLD_DEFAULT, name));

@@ -27,6 +27,11 @@
 //                           slices of n microseconds (round robin); a
 //                           kernel's events then bracket the co-tenants'
 //                           slices too. Alone, a process runs as in FIFO.
+//                           Each process's queue counts the busy ns its own
+//                           work took (SliceProc.busy_ns), beside the
+//                           card's total: NVML's per-process utilization
+//                           for a test playing the watcher, which finds
+//                           the layout through fake_slice_layout().
 //
 // Stream capture follows the driver's rules as far as the interposer meets
 // them: a launch into a capturing stream becomes a node of the graph and
@@ -40,7 +45,14 @@
 // then fails. A stream's device is
 // bits 12-15 of its handle (cuStreamGetCtx), for multi-device launches.
 // cuModuleLoadData and cuModuleGetFunction give, for any image and name, a
-// kernel that runs no time (the interposer's idle probe loads one).
+// kernel that runs no time (the interposer's idle probe loads one), except
+// the interposer's slice clock (vtpu_slice_watch, vtpu_slice_stamp): a
+// stamp writes, once the card has run it, the time it ran and its tag into
+// the two words it names, and a watch, once the stop stamp of its tag has
+// run, writes its record as the card's kernel would. On the sliced card
+// the record's gap is the time between the two stamps that the process's
+// own work did not run (what the card gave the co-tenants); elsewhere it
+// is 0.
 
 #include <fcntl.h>
 #include <stdio.h>
@@ -52,9 +64,11 @@
 #include <unistd.h>
 
 #include <algorithm>
+#include <cstddef>
 #include <map>
 #include <mutex>
 #include <thread>
+#include <vector>
 
 #include "../cuda_subset.h"
 
@@ -123,12 +137,14 @@ constexpr uint64_t kSliceRing = 256;
 struct SliceProc {
   int32_t pid;  // 0 = free
   int32_t pad_;
+  uint64_t busy_ns;       // what this process's work has run
   uint64_t next_seq;      // items submitted
   uint64_t done_seq;      // items finished
   uint64_t head_left_ns;  // what the oldest unfinished item has left to run
   uint64_t exec_ns[kSliceRing];
   uint64_t ready_ns[kSliceRing];
   uint64_t done_at_ns[kSliceRing];
+  uint64_t done_busy_ns[kSliceRing];  // busy_ns when the item finished
 };
 
 struct SharedChip {
@@ -225,9 +241,11 @@ void AdvanceLocked(uint64_t now) {
     p.head_left_ns -= run;
     c.sim_ns = t + run;
     c.busy_ns += run;
+    p.busy_ns += run;
     if (p.head_left_ns == 0) {
       p.done_seq++;
       p.done_at_ns[p.done_seq % kSliceRing] = c.sim_ns;
+      p.done_busy_ns[p.done_seq % kSliceRing] = p.busy_ns;
       if (Pending(p) > 0)
         p.head_left_ns = p.exec_ns[(p.done_seq + 1) % kSliceRing];
     }
@@ -254,7 +272,15 @@ SliceProc& OwnSliceLocked() {
   return g_shared->procs[g_slice_slot];
 }
 
-CUresult SubmitSliced(uint64_t exec_ns) {
+// A process that exits leaves the card, as NVML stops listing it.
+__attribute__((destructor)) void LeaveSlicedCard() {
+  if (g_slice_slot < 0) return;
+  ChipLock lock;
+  AdvanceLocked(NowNs());
+  g_shared->procs[g_slice_slot].pid = 0;
+}
+
+CUresult SubmitSliced(uint64_t exec_ns, uint64_t* seq_out = nullptr) {
   for (;;) {
     {
       ChipLock lock;
@@ -267,6 +293,7 @@ CUresult SubmitSliced(uint64_t exec_ns) {
         p.ready_ns[seq % kSliceRing] =
             Pending(p) == 1 ? now + LatencyNs() : now;
         if (Pending(p) == 1) p.head_left_ns = exec_ns;
+        if (seq_out) *seq_out = seq;
         return CUDA_SUCCESS;
       }
     }
@@ -274,12 +301,14 @@ CUresult SubmitSliced(uint64_t exec_ns) {
   }
 }
 
-bool SeqDoneSliced(uint64_t seq, uint64_t* at_ns) {
+bool SeqDoneSliced(uint64_t seq, uint64_t* at_ns,
+                   uint64_t* busy_ns = nullptr) {
   ChipLock lock;
   AdvanceLocked(NowNs());
   SliceProc& p = OwnSliceLocked();
   if (p.done_seq < seq) return false;
   *at_ns = p.done_at_ns[seq % kSliceRing];
+  if (busy_ns) *busy_ns = p.done_busy_ns[seq % kSliceRing];
   return true;
 }
 
@@ -346,8 +375,105 @@ bool UnsafeProhibitedLocked() {
 }
 
 // The function cuModuleGetFunction gives for any name: a kernel that runs
-// no time (the interposer's idle probe loads such a module).
+// no time (the interposer's idle probe loads such a module); the slice
+// clock's two kernels are told apart by name.
 CUfunction const kEmptyKernel = reinterpret_cast<CUfunction>(0xE0);
+CUfunction const kWatchKernel = reinterpret_cast<CUfunction>(0xE1);
+CUfunction const kStampKernel = reinterpret_cast<CUfunction>(0xE2);
+
+// The slice clock's kernels, as the process sees their effects: a stamp
+// waits for the card to reach it (its item, or the timeline's end), then
+// writes [time, tag] into its words; a watch waits for the stop stamp of
+// its tag. Guarded by g_mu.
+struct ClockStamp {
+  uint64_t seq = 0;  // sliced card: its item
+  uint64_t at_ns = 0;  // FIFO timeline: when the card reaches it
+  uint64_t* word = nullptr;
+  uint64_t tag = 0;
+};
+struct ClockWatch {
+  uint64_t* dev = nullptr;  // start stamp [tag, t], stop stamp [tag, t]
+  uint64_t* rec = nullptr;  // [tag, start, gap, t0, t1, gaps, timed out]
+  uint64_t tag = 0;
+  uint64_t max_ns = 0;
+  uint64_t start_ns = 0;
+  bool active = false;
+};
+std::vector<ClockStamp> g_stamps;
+std::map<uint64_t*, uint64_t> g_stamp_busy;  // a stamp's words -> busy ns
+ClockWatch g_watch;
+
+uint64_t Param(void** params, int i) {
+  return params && params[i] ? *static_cast<uint64_t*>(params[i]) : 0;
+}
+
+// Writes what the card has reached of the slice clock's kernels. Caller
+// holds g_mu.
+void ApplyClockLocked() {
+  size_t keep = 0;
+  for (size_t i = 0; i < g_stamps.size(); i++) {
+    ClockStamp& s = g_stamps[i];
+    uint64_t at = s.at_ns, busy = 0;
+    bool done = s.seq ? SeqDoneSliced(s.seq, &at, &busy) : NowNs() >= at;
+    if (!done) {
+      g_stamps[keep++] = s;
+      continue;
+    }
+    // off the sliced card nothing else runs between two of a process's
+    // items: the process's own time is the whole span
+    g_stamp_busy[s.word] = s.seq ? busy : at;
+    s.word[1] = at;
+    __atomic_store_n(&s.word[0], s.tag, __ATOMIC_RELEASE);
+  }
+  g_stamps.resize(keep);
+  ClockWatch& w = g_watch;
+  if (!w.active) return;
+  uint64_t* start = w.dev;
+  uint64_t* stop = w.dev + 2;
+  if (stop[0] == w.tag && start[0] == w.tag) {
+    uint64_t t0 = start[1], t1 = stop[1];
+    uint64_t own = std::min(g_stamp_busy[stop] - g_stamp_busy[start],
+                            t1 - t0);
+    uint64_t gap = t1 - t0 - own;
+    w.rec[1] = w.start_ns;
+    w.rec[2] = gap;
+    w.rec[3] = t0;
+    w.rec[4] = t1;
+    w.rec[5] = gap > 0;
+    w.rec[6] = 0;
+  } else if (NowNs() - w.start_ns > w.max_ns) {
+    w.rec[1] = w.start_ns;
+    w.rec[6] = 1;
+  } else {
+    return;
+  }
+  __atomic_store_n(&w.rec[0], w.tag, __ATOMIC_RELEASE);
+  w.active = false;
+}
+
+// A launch of the slice clock's kernels: not counted among the process's
+// launches, and the watch takes no time of the card.
+CUresult ClockLaunch(CUfunction f, void** params) {
+  if (f == kWatchKernel) {
+    std::lock_guard<std::mutex> lock(g_mu);
+    g_watch = ClockWatch{reinterpret_cast<uint64_t*>(Param(params, 0)),
+                         reinterpret_cast<uint64_t*>(Param(params, 1)),
+                         Param(params, 2), Param(params, 4), NowNs(), true};
+    return CUDA_SUCCESS;
+  }
+  ClockStamp s;
+  s.word = reinterpret_cast<uint64_t*>(Param(params, 0));
+  s.tag = Param(params, 1);
+  if (!s.word) return CUDA_ERROR_INVALID_VALUE;
+  if (Sliced()) {
+    CUresult rc = SubmitSliced(0, &s.seq);
+    if (rc != CUDA_SUCCESS) return rc;
+  }
+  std::lock_guard<std::mutex> lock(g_mu);
+  if (!s.seq) s.at_ns = std::max(NowNs(), g_free_at_ns);
+  g_stamps.push_back(s);
+  return CUDA_SUCCESS;
+}
 
 CUresult Launch(CUstream stream, uint64_t nodes = 1,
                 uint64_t exec_ns = ExecNs()) {
@@ -456,8 +582,9 @@ FAKE_EXPORT CUresult cuCtxPopCurrent_v2(CUcontext* ctx) {
 
 FAKE_EXPORT CUresult cuLaunchKernel(CUfunction f, unsigned, unsigned,
                                     unsigned, unsigned, unsigned, unsigned,
-                                    unsigned, CUstream stream, void**,
+                                    unsigned, CUstream stream, void** params,
                                     void**) {
+  if (f == kWatchKernel || f == kStampKernel) return ClockLaunch(f, params);
   return Launch(stream, 1, f == kEmptyKernel ? 0 : ExecNs());
 }
 
@@ -468,10 +595,36 @@ FAKE_EXPORT CUresult cuModuleLoadData(CUmodule* module, const void* image) {
 }
 
 FAKE_EXPORT CUresult cuModuleGetFunction(CUfunction* f, CUmodule module,
-                                         const char*) {
+                                         const char* name) {
   if (!f || !module) return CUDA_ERROR_INVALID_VALUE;
-  *f = kEmptyKernel;
+  *f = !name                                   ? kEmptyKernel
+       : strcmp(name, "vtpu_slice_watch") == 0 ? kWatchKernel
+       : strcmp(name, "vtpu_slice_stamp") == 0 ? kStampKernel
+                                               : kEmptyKernel;
   return CUDA_SUCCESS;
+}
+
+FAKE_EXPORT CUresult cuStreamCreate(CUstream* stream, unsigned) {
+  if (!stream) return CUDA_ERROR_INVALID_VALUE;
+  std::lock_guard<std::mutex> lock(g_mu);
+  static uintptr_t next = 0x800;  // device 0 (bits 12-15)
+  *stream = reinterpret_cast<CUstream>(next);
+  next += 0x10;
+  return CUDA_SUCCESS;
+}
+
+// The shared card's layout, for a test that reads the state file itself:
+// sizeof(SharedChip), offsetof(SharedChip, busy_ns), offsetof(SharedChip,
+// procs), sizeof(SliceProc), offsetof(SliceProc, pid), offsetof(SliceProc,
+// busy_ns), kSliceProcs. Returns how many there are.
+FAKE_EXPORT int fake_slice_layout(uint64_t* out, int n) {
+  const uint64_t v[] = {sizeof(SharedChip), offsetof(SharedChip, busy_ns),
+                        offsetof(SharedChip, procs), sizeof(SliceProc),
+                        offsetof(SliceProc, pid), offsetof(SliceProc, busy_ns),
+                        kSliceProcs};
+  const int count = (int)(sizeof(v) / sizeof(v[0]));
+  for (int i = 0; out && i < n && i < count; i++) out[i] = v[i];
+  return count;
 }
 
 FAKE_EXPORT CUresult cuLaunchKernel_ptsz(CUfunction, unsigned, unsigned,
@@ -596,14 +749,16 @@ FAKE_EXPORT CUresult cuGraphLaunch_ptsz(CUgraphExec exec, CUstream stream) {
 FAKE_EXPORT CUresult cuStreamSynchronize(CUstream) {
   if (Sliced()) {
     while (!IdleSliced()) usleep(50);
-    return CUDA_SUCCESS;
+  } else {
+    uint64_t t;
+    {
+      std::lock_guard<std::mutex> lock(g_mu);
+      t = g_free_at_ns;
+    }
+    SleepUntil(t);
   }
-  uint64_t t;
-  {
-    std::lock_guard<std::mutex> lock(g_mu);
-    t = g_free_at_ns;
-  }
-  SleepUntil(t);
+  std::lock_guard<std::mutex> lock(g_mu);
+  ApplyClockLocked();
   return CUDA_SUCCESS;
 }
 
@@ -695,8 +850,12 @@ FAKE_EXPORT CUresult cuEventQuery(CUevent ev) {
       return CUDA_ERROR_STREAM_CAPTURE_UNSUPPORTED;
     }
   }
-  return EventDone(reinterpret_cast<FakeEvent*>(ev)) ? CUDA_SUCCESS
-                                                     : CUDA_ERROR_NOT_READY;
+  bool done = EventDone(reinterpret_cast<FakeEvent*>(ev));
+  {
+    std::lock_guard<std::mutex> lock(g_mu);
+    ApplyClockLocked();
+  }
+  return done ? CUDA_SUCCESS : CUDA_ERROR_NOT_READY;
 }
 
 FAKE_EXPORT CUresult cuEventElapsedTime(float* ms, CUevent a, CUevent b) {
@@ -876,6 +1035,7 @@ FAKE_EXPORT void* fake_real_address(const char* name) {
       {"cuLaunchKernel", (void*)&cuLaunchKernel},
       {"cuModuleLoadData", (void*)&cuModuleLoadData},
       {"cuModuleGetFunction", (void*)&cuModuleGetFunction},
+      {"cuStreamCreate", (void*)&cuStreamCreate},
       {"cuLaunchKernel_ptsz", (void*)&cuLaunchKernel_ptsz},
       {"cuLaunchKernelEx", (void*)&cuLaunchKernelEx},
       {"cuLaunchKernelEx_ptsz", (void*)&cuLaunchKernelEx_ptsz},

@@ -27,15 +27,16 @@ StepTelemetry (`step_telemetry_enabled`) and CompileCache
 compile cache dir `<base_dir>/compilecache` is made first, and only when
 it exists does the config name it (`compile_cache_dir`), is it mounted
 read-write at the same container path for every tenant, and do
-`VTPU_COMPILE_CACHE` / `VTPU_COMPILE_CACHE_DIR` arm the runtime client.
+`VTPU_COMPILE_CACHE` / `VTPU_COMPILE_CACHE_DIR` arm the runtime client;
+ClusterCompileCache (`cluster_cache_enabled`, `vnum.py:61, 537-543`) adds
+`VTPU_CLUSTER_CACHE=true` only on top of that mounted node cache.
 Tracing (`vnum.py:256-258, 424-431, 462, 511-523`): once
 `trace.configure` ran, Allocate records the `plugin.allocate` span and,
 inside it, `plugin.config`, for a pod whose annotations carry a trace id;
 the response carries `VTPU_TRACE_ID` and `VTPU_TRACE_SAMPLED` for such a
 pod, and for a sampled one also the node trace dir `consts.TRACE_DIR`,
 mounted read-write at the same path, where the tenant spools its own
-spans. The JAX package's other gated fields (the cluster compile cache,
-quota market, memory over-commit, link share, comm telemetry) are not
+spans. The JAX package's other gated fields (quota market, memory over-commit, link share, comm telemetry) are not
 ported; the config fields they drive are written as the JAX package
 writes them with the gates off. Allocate fires the JAX plugin's
 failpoints where it fires them: `plugin.allocate` inside the span, before
@@ -142,6 +143,7 @@ class VnumPlugin(DevicePluginServicer):
     preferred_allocation_available = False   # gated: HonorPreAllocatedDeviceIDs
     step_telemetry_enabled = False           # gated: StepTelemetry
     compile_cache_enabled = False            # gated: CompileCache
+    cluster_cache_enabled = False            # gated: ClusterCompileCache
 
     def __init__(self, manager: DeviceManager, client: KubeClient,
                  node_name: str, node_config: NodeConfig | None = None,
@@ -496,6 +498,10 @@ class VnumPlugin(DevicePluginServicer):
                 read_only=False))
             resp.envs[consts.ENV_COMPILE_CACHE] = "true"
             resp.envs[consts.ENV_COMPILE_CACHE_DIR] = consts.COMPILE_CACHE_DIR
+            if self.cluster_cache_enabled:
+                # the miss path then fetches from the peers.json the
+                # advertiser keeps under the same mount
+                resp.envs[consts.ENV_CLUSTER_CACHE] = "true"
         if self.step_telemetry_enabled:
             # the one writable surface under the container's config dir:
             # the tenant writes its step ring there, the node reads it by

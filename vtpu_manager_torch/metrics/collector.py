@@ -197,11 +197,14 @@ class NodeCollector:
                         g_feed_age.set(labels,
                                        _age_seconds(rec.timestamp_ns))
                     for proc in rec.procs:
+                        # a process outside the ledger of unknown use
+                        # (-1) adds nothing
+                        util = max(0, proc.util)
                         key = (proc.owner_token, chip.index)
                         util_by_token[key] = \
-                            util_by_token.get(key, 0) + proc.util
+                            util_by_token.get(key, 0) + util
                         proc_utils.append((proc.owner_token, chip.index,
-                                           proc.pid, proc.util))
+                                           proc.pid, util))
             tc.close()
         except (OSError, ValueError):
             # absent feed (no TCWatcher on this node) is normal; only a

@@ -279,22 +279,25 @@ def compile_cache():
             payload, outcome = cc.get_or_compile(
                 key, compile_fn, ctx=trace.context_from_env())
 
-    The cluster tier (`VTPU_CLUSTER_CACHE`) is not ported: with it set,
-    this logs so and serves the node tier."""
+    With `VTPU_CLUSTER_CACHE=true` (JAX `runtime/client.py:407-420`) it
+    is a `clustercache.ClusterCompileCache` on the same store, whose miss
+    fetches a warm peer's entry (from the `peers.json` the device plugin's
+    advertiser keeps under the mount) before compiling, and whose
+    `get_or_compile(..., fingerprint=...)` leaves the `fps/` marker the
+    advertiser publishes."""
     global _compile_cache, _compile_cache_checked
     if _compile_cache_checked:
         return _compile_cache
     _compile_cache_checked = True
     if os.environ.get(consts.ENV_COMPILE_CACHE) != "true":
         return None
-    from vtpu_manager_torch.compilecache import CompileCache
     root = _compile_cache_root()
     if os.environ.get(consts.ENV_CLUSTER_CACHE) == "true":
-        logging.getLogger(__name__).warning(
-            "the cluster compile cache is not ported; using the node cache "
-            "at %s", root)
+        from vtpu_manager_torch.clustercache import ClusterCompileCache as cls
+    else:
+        from vtpu_manager_torch.compilecache import CompileCache as cls
     try:
-        _compile_cache = CompileCache(root)
+        _compile_cache = cls(root)
     except OSError as e:
         logging.getLogger(__name__).warning(
             "compile cache unavailable at %s (%s); compiling uncached",

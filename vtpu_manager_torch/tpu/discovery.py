@@ -62,7 +62,12 @@ def _result(chips: list[ChipSpec], minors: dict[int, int]
 
 
 class NvmlError(RuntimeError):
-    pass
+    """An NVML call that failed; `code` is NVML's return code (None when
+    no call was made)."""
+
+    def __init__(self, msg: str, code: int | None = None):
+        super().__init__(msg)
+        self.code = code
 
 
 class _NvmlMemory(ctypes.Structure):
@@ -78,6 +83,24 @@ class _NvmlMemoryV2(ctypes.Structure):
 
 # NVML_STRUCT_VERSION(Memory, 2): the struct's size, version in the top byte
 NVML_MEMORY_V2 = ctypes.sizeof(_NvmlMemoryV2) | (2 << 24)
+NVML_ERROR_INVALID_ARGUMENT = 2
+NVML_ERROR_NOT_SUPPORTED = 3
+NVML_ERROR_NOT_FOUND = 6
+NVML_ERROR_INSUFFICIENT_SIZE = 7
+NVML_VALUE_NOT_AVAILABLE = 2**64 - 1
+
+
+class _NvmlProcessInfo(ctypes.Structure):
+    """nvmlProcessInfo_t (v2 and v3 share it)."""
+    _fields_ = [("pid", ctypes.c_uint), ("usedGpuMemory", ctypes.c_ulonglong),
+                ("gpuInstanceId", ctypes.c_uint),
+                ("computeInstanceId", ctypes.c_uint)]
+
+
+class _NvmlProcessUtilizationSample(ctypes.Structure):
+    _fields_ = [("pid", ctypes.c_uint), ("timeStamp", ctypes.c_ulonglong),
+                ("smUtil", ctypes.c_uint), ("memUtil", ctypes.c_uint),
+                ("encUtil", ctypes.c_uint), ("decUtil", ctypes.c_uint)]
 
 
 class _NvmlUtilization(ctypes.Structure):
@@ -104,7 +127,7 @@ class Nvml:
     def _call(self, name: str, *args) -> None:
         rc = getattr(self.lib, name)(*args)
         if rc != 0:
-            raise NvmlError(f"{name} failed: NVML error {rc}")
+            raise NvmlError(f"{name} failed: NVML error {rc}", rc)
 
     def count(self) -> int:
         n = ctypes.c_uint(0)
@@ -157,6 +180,45 @@ class Nvml:
         self._call("nvmlDeviceGetUtilizationRates", handle,
                    ctypes.byref(util))
         return int(util.gpu)
+
+    def compute_processes(self, handle) -> list[tuple[int, int]]:
+        """(pid, bytes) of each process with a compute context on the
+        card, pids in NVML's namespace (the host's); bytes 0 where NVML
+        cannot say (a container without the host's pid namespace)."""
+        count, buf = ctypes.c_uint(0), None
+        while True:
+            rc = self.lib.nvmlDeviceGetComputeRunningProcesses_v3(
+                handle, ctypes.byref(count), buf)
+            if rc == 0:
+                return [] if buf is None else [
+                    (int(p.pid), 0 if p.usedGpuMemory ==
+                     NVML_VALUE_NOT_AVAILABLE else int(p.usedGpuMemory))
+                    for p in buf[:count.value]]
+            if rc != NVML_ERROR_INSUFFICIENT_SIZE:
+                raise NvmlError("nvmlDeviceGetComputeRunningProcesses_v3 "
+                                f"failed: NVML error {rc}", rc)
+            # room for processes that start between the two calls
+            count = ctypes.c_uint(count.value + 8)
+            buf = (_NvmlProcessInfo * count.value)()
+
+    def process_utilization(self, handle, since_us: int
+                            ) -> list[tuple[int, int, int]]:
+        """(pid, timestamp us, SM percent) of each per-process sample NVML
+        took after `since_us` (its CPU clock, microseconds); empty when
+        none is newer."""
+        count, buf = ctypes.c_uint(0), None
+        while True:
+            rc = self.lib.nvmlDeviceGetProcessUtilization(
+                handle, buf, ctypes.byref(count), ctypes.c_ulonglong(since_us))
+            if rc == NVML_ERROR_NOT_FOUND or (rc == 0 and buf is None):
+                return []
+            if rc == 0:
+                return [(int(s.pid), int(s.timeStamp), int(s.smUtil))
+                        for s in buf[:count.value]]
+            if rc != NVML_ERROR_INSUFFICIENT_SIZE:
+                raise NvmlError("nvmlDeviceGetProcessUtilization failed: "
+                                f"NVML error {rc}", rc)
+            buf = (_NvmlProcessUtilizationSample * count.value)()
 
 
 class NvmlBackend:

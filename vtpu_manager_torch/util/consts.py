@@ -129,6 +129,14 @@ def node_pressure_annotation() -> str:
     return _ann("node-pressure")
 
 
+def node_cache_keys_annotation() -> str:
+    """The node's warm compile-cache entries,
+    `<endpoint>|<fp>=<entry_key>,...@<ts>` hottest first
+    (clustercache/advertise.py): a cold node's fetcher downloads an entry
+    key it names from `endpoint`, the node exporter's `/cache/entry`."""
+    return _ann("node-cache-keys")
+
+
 def trace_id_annotation() -> str:
     """The trace id minted at admission and carried through every stage of
     a pod's allocation path: the join key across processes."""
@@ -199,14 +207,21 @@ ENV_OBS_EXCESS_TABLE = "VTPU_OBS_EXCESS_TABLE"
 TRACE_DIR = f"{MANAGER_BASE_DIR}/trace"
 COMPILE_CACHE_SUBDIR = "compilecache"
 COMPILE_CACHE_DIR = f"{MANAGER_BASE_DIR}/{COMPILE_CACHE_SUBDIR}"
+# the advertiser's fan-in of the other nodes' warm keys, under the cache
+# root, which in-container fetchers read (`util/consts.py:544`)
+CACHE_PEERS_NAME = "peers.json"
 
 # --- The compile cache's tenant variables -----------------------------------
-# The JAX package's (`util/consts.py:467-468`), so one plugin arms both
-# kinds of tenant; the cluster tier's `VTPU_CLUSTER_CACHE` (`:474`) is
-# named so a tenant can say it does not serve it.
+# The JAX package's (`util/consts.py:467-482`), so one plugin arms both
+# kinds of tenant.
 ENV_COMPILE_CACHE = "VTPU_COMPILE_CACHE"    # "true": node compile cache armed
 ENV_COMPILE_CACHE_DIR = "VTPU_COMPILE_CACHE_DIR"  # in-container cache dir
+# "true": the miss path fetches a warm peer's entry before compiling
 ENV_CLUSTER_CACHE = "VTPU_CLUSTER_CACHE"
+# the bearer token the fetcher shows a peer exporter's /cache/entry
+ENV_CACHE_PEER_TOKEN = "VTPU_CACHE_PEER_TOKEN"
+# the tenant's program fingerprint: the marker the advertiser publishes
+ENV_PROGRAM_FINGERPRINT = "VTPU_PROGRAM_FINGERPRINT"
 # Inductor's and Triton's own cache directories, which the runtime client
 # points under the mount when the cache is armed
 ENV_INDUCTOR_CACHE_DIR = "TORCHINDUCTOR_CACHE_DIR"

@@ -18,6 +18,7 @@ NRI_SUPPORT = "NRISupport"              # DRA: the NRI runtime hook
 CORE_PLUGIN = "CorePlugin"              # advertise the vtpu-cores resource
 MEMORY_PLUGIN = "MemoryPlugin"          # advertise the vtpu-memory resource
 COMPILE_CACHE = "CompileCache"          # the node compile cache
+CLUSTER_COMPILE_CACHE = "ClusterCompileCache"  # entries fetched from peers
 TRACING = "Tracing"                     # allocation-path spans
 FAULT_INJECTION = "FaultInjection"      # the failpoint registry
 CLIENT_MODE = "ClientMode"              # the registry socket's pid sets
@@ -31,6 +32,9 @@ _KNOWN = {
     CORE_PLUGIN: False,
     MEMORY_PLUGIN: False,
     COMPILE_CACHE: False,
+    # on top of CompileCache: the node advertises its warm entries, and a
+    # cold node's miss fetches one from a peer before compiling
+    CLUSTER_COMPILE_CACHE: False,
     TRACING: False,
     FAULT_INJECTION: False,
     CLIENT_MODE: False,

@@ -19,8 +19,11 @@ whose output is normalised in the same graph.
 cache it compiles alone (`uncached`); with one it goes through
 `cache.get_or_compile(key, ...)`. On a miss this process compiles, and
 the artifacts it saved become the entry; on a hit, or after waiting for
-another tenant's compile, it loads the entry before its first call. A
-traced tenant's store call is its `shim.compile` span, outside the
+another tenant's compile, or after fetching a warm peer's entry (the
+cluster tier's outcome `fetch`), it loads the entry before its first call.
+With the cluster tier the tenant's `VTPU_PROGRAM_FINGERPRINT` goes with
+the key, so the `fps/` marker lands and the node can advertise the entry.
+A traced tenant's store call is its `shim.compile` span, outside the
 compiled region.
 """
 
@@ -28,12 +31,15 @@ from __future__ import annotations
 
 import hashlib
 import inspect
+import os
 import time
 
 import torch
 
 from vtpu_manager_torch import trace
+from vtpu_manager_torch.clustercache import ClusterCompileCache
 from vtpu_manager_torch.compilecache import keys
+from vtpu_manager_torch.util import consts
 from vtpu_manager_torch.workloads.block_attention import attn_block_op
 
 DIM = 8192                        # the quota step's width
@@ -119,8 +125,13 @@ def first_step(inputs: tuple[torch.Tensor, ...], cache=None,
                                "there is nothing to share")
         return saved[0]
 
+    extra = {}
+    if isinstance(cache, ClusterCompileCache):
+        extra["fingerprint"] = os.environ.get(consts.ENV_PROGRAM_FINGERPRINT,
+                                              "")
     payload, outcome = cache.get_or_compile(key, compile_fn,
-                                            ctx=trace.context_from_env())
+                                            ctx=trace.context_from_env(),
+                                            **extra)
     if "out" not in ran:
         torch.compiler.load_cache_artifacts(payload)
         ran["out"] = compiled(*inputs)
