@@ -97,10 +97,10 @@ result line:
    of the card lies within 5 points of its quota, and what the interposer
    charged it per step within 5 % of the step's card time alone at the
    tenant's duty (R9). F4's pair (a tenant beside a process outside the
-   interposer, R11) is not run here: on the H100 its charge lies a
-   varying 2-13 % above the step at duty, often over the 5 % band;
-   `python -m vtpu_manager_torch.bench_monitor --f4` runs it. One
-   `MONITOR {json}` line per check;
+   interposer, R11; F4) is not run here: `python -m
+   vtpu_manager_torch.bench_monitor --f4` runs it and judges the charge
+   against the tenant's own card time inside the pair. One `MONITOR
+   {json}` line per check;
 10. compile_cache (`vtpu_manager_torch/bench_compilecache.py`): the
    device plugin with the CompileCache gate allocates pods of 25 % (gate
    on: the cache mount, env and config field; gate off: none), and three
@@ -153,7 +153,25 @@ result line:
    machine having no kubelet); `pids.config` holds both pids, each
    interposer reads it, the two processes share the one 8 GiB cap, the
    pod's timeline holds both sides of each registration, and a spoofed
-   pod uid is refused. One `RESILIENCE {json}` line per check.
+   pod uid is refused. One `RESILIENCE {json}` line per check;
+13. observation (`vtpu_manager_torch/bench_observation.py`): the device
+   plugin starts with `VTPU_OBS_CALIBRATE=1` and calibrates the
+   interposer's after-idle discount on the idle card
+   (`manager/obs_calibrate.py`, a throwaway process, while the phase's
+   tenants start and wait without touching the card); the table is in the
+   node annotation, the feed's calibration block, each Allocate response
+   and the exporter's `vtpu_node_obs_excess_max_us`, and a tenant's
+   interposer adopts it. A q50 tenant that never calls `step_telemetry()`
+   (the 8192 bf16 quota step, one `torch.ops.vtpu.attn_block` launch and
+   `float(loss)` per step) gets a ring from its interposer: one record per
+   step, the median within 10 % of its own step, the throttle waits adding
+   up to the interposer's counter, `compiled` on the first steps only, the
+   exporter folding it, and the tenant's share within 15 points of 50. A
+   tenant that arms the Python writer after its first steps leaves one
+   stream in its ring with an unbroken index. Its tenants' `attn_block`
+   launches are added to the kernel record's. One `OBSERVATION {json}`
+   line per check. The other phases start their plugins with
+   `VTPU_OBS_CALIBRATE=0`, as they were accepted.
 
 The last three lines are the nvidia-smi line, the kernels JSON and the
 result JSON.
@@ -646,6 +664,24 @@ def resilience(torch, shim: str) -> dict:
                             for k, r in client["steps"].items()}}
 
 
+def observation(torch, shim: str) -> dict:
+    from vtpu_manager_torch import bench_observation as bo
+
+    results = run_checks("observation", bo.Phase, torch, shim, bo.CHECKS)
+    cal, unmod, late = (results[c] for c in bo.CHECKS)
+    return {"table": cal["table"], "calibration_s": cal["calibration_s"],
+            "tenants_ready_s": cal["tenants_ready_s"],
+            "node_ready_s": cal["node_ready_s"],
+            "records": {"unmodified": unmod["records"],
+                        "late": [late["shim_records"],
+                                 late["python_records"]]},
+            "median_ms": [unmod["median_record_ms"], unmod["median_wall_ms"]],
+            "wait_ns": [unmod["wait_sum_ns"], unmod["wait_counter_ns"]],
+            "share": unmod["share"],
+            "attn_block_launches": unmod["attn_block_launches"]
+            + late["attn_block_launches"]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -718,6 +754,11 @@ def main() -> int:
                                smi)
     summary["resilience"] = phase("resilience", resilience, torch,
                                   str(paths["shim"]))
+    summary["observation"] = phase("observation", observation, torch,
+                                   str(paths["shim"]))
+    if record is not None and summary["observation"] is not None:
+        # the observation phase's tenants launch the kernel on their path
+        record["launches"] += summary["observation"]["attn_block_launches"]
     log("SUMMARY " + json.dumps(summary, default=str))
     if failures or record is None:
         print(f"chip_smoke: failed phases: {failures}", file=sys.stderr)

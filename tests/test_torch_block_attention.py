@@ -124,9 +124,17 @@ def test_merge_partials_matches_jax():
 @pytest.mark.parametrize("causal", [True, False])
 def test_block_bias_matches_jax(q_idx, k_idx, causal):
     want = np.asarray(jra._block_bias(q_idx, k_idx, 8, causal))
-    got = ra._block_bias(q_idx, k_idx, 8, causal).numpy()
+    got = ra._block_bias(q_idx, k_idx, 8, causal, device="cpu").numpy()
     assert got.dtype == want.dtype
     np.testing.assert_array_equal(got, want)
+
+
+def test_block_bias_defaults_to_the_card(monkeypatch):
+    # no card here: the default raises rather than falling back to the CPU
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ra._block_bias(0, 0, 8, True)
+    assert ra._block_bias(0, 0, 8, True, device="cpu").device.type == "cpu"
 
 
 @pytest.mark.parametrize("causal", [True, False])

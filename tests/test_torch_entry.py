@@ -338,10 +338,11 @@ def test_kubelet_plugin_refuses_what_is_not_ported(tmp_path, args, message):
     assert not (tmp_path / "plugins").exists()
 
 
-def _serve_until(cmd: list[str], marker: str) -> str:
-    """Starts an agent, reads its log until `marker`, stops it with
-    SIGTERM (exit 0) and returns the log."""
-    proc = subprocess.Popen(cmd, cwd=REPO, env=_env(),
+def _serve_until(cmd: list[str], marker: str, env: dict | None = None
+                 ) -> str:
+    """Starts an agent (with `env` over a clean environment), reads its log
+    until `marker`, stops it with SIGTERM (exit 0) and returns the log."""
+    proc = subprocess.Popen(cmd, cwd=REPO, env={**_env(), **(env or {})},
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
     try:

@@ -55,6 +55,7 @@ import os
 import statistics
 import sys
 import threading
+import time
 from pathlib import Path
 
 from vtpu_manager_torch import build
@@ -174,13 +175,21 @@ class RingTail:
 class Node:
     """The node agent on the card, on a directory of its own; a second
     node on the same card takes a `name` of its own and may share the
-    first one's fake API `client`."""
+    first one's fake API `client`. It starts as `cmd/device_plugin.py`
+    does: discovery, then the observation calibration under
+    `obs_calibrate` (the plugin's VTPU_OBS_CALIBRATE: "0", the default of
+    every phase but `observation`, skips it; "1" measures the idle card in
+    a throwaway process), registration, and the watcher, whose feed the
+    table seeds."""
 
-    def __init__(self, root: str, shim: str, name: str = NODE, client=None):
+    def __init__(self, root: str, shim: str, name: str = NODE, client=None,
+                 obs_calibrate: str = "0"):
         from vtpu_manager_torch.client.fake import FakeKubeClient
         from vtpu_manager_torch.config.node_config import NodeConfig
         from vtpu_manager_torch.config.vmem import VmemLedger
         from vtpu_manager_torch.deviceplugin.vnum import install_interposer
+        from vtpu_manager_torch.manager import \
+            obs_calibrate as obs_calibrate_mod
         from vtpu_manager_torch.manager.device_manager import DeviceManager
         from vtpu_manager_torch.manager.watcher import (NvmlSampler,
                                                         TcWatcherDaemon)
@@ -204,12 +213,22 @@ class Node:
             name, self.client, node_config=NodeConfig(device_split_count=SPLIT),
             backends=[NvmlBackend()])
         self.manager.init_devices()
+        t0 = time.perf_counter()
+        table = obs_calibrate_mod.maybe_calibrate(
+            real_chips=True,
+            env={**os.environ, "VTPU_OBS_CALIBRATE": obs_calibrate})
+        self.calibration_s = time.perf_counter() - t0
+        if table is not None:
+            self.manager.calibrate_obs_overhead(table=table)
         self.manager.register_node()
         self.daemon = TcWatcherDaemon(
             [c.index for c in self.manager.chips], NvmlSampler(),
             tc_path=os.path.join(self.watcher_dir,
                                  os.path.basename(consts.TC_UTIL_CONFIG)),
             vmem_path=vmem_path)
+        if table is not None:
+            self.daemon.publish_calibration(
+                obs_calibrate_mod.decode_table(table))
         self.daemon.start()
 
     def plugin(self, step_telemetry: bool):

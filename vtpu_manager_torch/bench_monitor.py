@@ -47,27 +47,19 @@ Checks, each a record with an `ok` verdict:
    q50's, and the node pressure (fraction and memory headroom) that a
    `TenantStepTelemetry` over the same rings gives, scanned at the pause
    and after the exit as the exporter was;
-4. outside: F4's pair (ROADMAP R11). On a second private node of its own
-   (so the first node's exporter counts no third pod), a 50 % / 16 GiB
-   pod's tenant under the interposer runs the same 16384 bf16 step beside
-   a process outside the interposer running it too (no config, no ledger
-   entry, no throttle). Both start with the other tenants, create their
-   inputs and wait at their own go file; they warm up only after it, so
-   they take no slice while the other tenants run. After `OUTSIDE_SETTLE_S`
-   (the watcher's NVML per-process samples lag about a second) the charge
-   window opens for `OUTSIDE_RUN_S`: what the interposer charged per step
-   there lies within CHARGE_REL of the step's card time alone at the
-   pod's duty, as in `running` (`charge_rel_err`), its slice clock
-   measured the tenant's long kernels, and the outside process stepped
-   throughout. The outside process times its own card time per step in
-   the window with a slice clock of the bench's own (`StepClock`, every
-   `OUTSIDE_CLOCK_EVERY`-th step): reported beside, as the charge over
-   that (`charge_rel_outside`) and as the two processes' card time over
-   the window (`busy`). The node's feed, read in the window, is
-   recorded. Not a check of chip_smoke.py's: on the H100 the charge
-   lies a varying 2-13 % above the step at duty, often over the 5 % band
-   (PERF.md); `python -m vtpu_manager_torch.bench_monitor --f4` runs the
-   phase with it and exits 1 when a check fails;
+4. outside: F4's pair (ROADMAP R11, F4; `F4Pair`). On a second private
+   node of its own (so the first node's exporter counts no third pod), a
+   50 % / 16 GiB pod's tenant under the interposer runs the same 16384
+   bf16 step beside a process outside the interposer. The yardstick is
+   the tenant's own card time inside the pair, T_a * f: f is the card's
+   own inflation of that step beside another busy context, measured by
+   two processes outside the interposer side by side (both time their
+   step alone before and after). In each of `PAIR_WINDOWS` windows the
+   interposer's charge per step lies within CHARGE_REL of T_a * f; the
+   step at the pod's duty is printed beside, with NVML's SM clock, power
+   draw and clock-event reasons per stretch. Not a check of
+   chip_smoke.py's; `python -m vtpu_manager_torch.bench_monitor --f4`
+   runs the phase with it and exits 1 when a check fails;
 5. publish: `PressurePublisher.publish_once` over the in-cluster client
    patches the node annotation on `client.apistub.ApiStub` (TLS), and the
    annotation decodes with `parse_pressure` to what was published; the
@@ -88,6 +80,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 import urllib.error
 import urllib.request
@@ -124,10 +117,12 @@ SHARE_BAND = 8.0
 OUTSIDE_POD = "pod-f4"
 OUTSIDE_SPEC = (50, 16, False, 0)
 OUTSIDE_NODE = "node-f4"
-OUTSIDE_SETTLE_S = 2.0
-OUTSIDE_RUN_S = 3.0
-OUTSIDE_MAX_STEPS = 1000
-OUTSIDE_CLOCK_EVERY = 4
+PAIR_S = 3.0             # one window; the pair without the interposer too
+PAIR_SETTLE_S = 2.0      # NVML's listing lags about a second
+PAIR_WINDOWS = 4
+PAIR_ALONE_STEPS = 30
+PAIR_SAMPLE_S = 0.02
+PAIR_MIN_UTIL = 95       # f's identity holds only on a card kept busy
 # taken against the quota, in points of the card, and the charge against
 # the card time of a step at the tenant's duty: a tenant charged its own
 # device time takes its quota (co_tenancy's long runs hold the charge to
@@ -271,7 +266,7 @@ class Phase:
         # F4's pair: its node, and its two processes ("metered", "outside")
         self.outside_node = ba.Node(str(self.root / "f4"), shim,
                                     name=OUTSIDE_NODE)
-        self.outside: dict[str, bq.Tenant] = {}
+        self.pair: F4Pair | None = None
         self.paused_counts: dict[str, int] = {}
         # the phase's own fold of the rings, scanned where the exporter's
         # last two scrapes were (the pause, and after the exit)
@@ -282,8 +277,10 @@ class Phase:
         self.again_s: dict[str, float] = {}
 
     def close(self) -> None:
-        for t in [*self.tenants.values(), *self.outside.values()]:
+        for t in self.tenants.values():
             t.stop()
+        if self.pair is not None:
+            self.pair.close()
         if self.exporter is not None:
             self.exporter.close()
         self.node.close()
@@ -448,25 +445,7 @@ class Phase:
             self.tenants[pod] = bq.Tenant(
                 pod, args, ba.container_env(self.responses[pod]),
                 str(self.root))
-        # F4's pair starts with them and waits, cold, at its own go file
-        f4 = ["-m", "vtpu_manager_torch.bench_monitor", "--tenant",
-              "--dim", str(DIM), "--hold-mib", str(HOLD_MIB),
-              "--late-warmup", "--max-steps", str(OUTSIDE_MAX_STEPS)] + [
-            a for name in ("go", "mark", "pause", "resume")
-            for a in (f"--{name}-file", str(self.root / f"{name}-f4"))]
-        outside_env = {k: v for k, v in os.environ.items()
-                       if not k.startswith("VTPU_")
-                       and k != consts.ENV_LD_PRELOAD}
-        outside_env["PYTHONPATH"] = os.pathsep.join(
-            p for p in (str(REPO), os.environ.get("PYTHONPATH")) if p)
-        if self.f4:
-            self.outside = {
-                "metered": bq.Tenant("f4-metered", f4, ba.container_env(
-                    self.responses[OUTSIDE_POD]), str(self.root)),
-                "outside": bq.Tenant("f4-outside",
-                                     f4 + ["--unmetered", "--clock"],
-                                     outside_env, str(self.root))}
-        for t in [*self.tenants.values(), *self.outside.values()]:
+        for t in self.tenants.values():
             t.line("READY")
         Path(go).touch()
 
@@ -637,63 +616,13 @@ class Phase:
     # --- 4. F4's pair: a tenant beside a process outside the interposer ----
 
     def check_outside(self) -> dict:
-        from vtpu_manager_torch.config.tc_watcher import TcUtilFile
         if not self.f4:
-            raise RuntimeError("F4's pair was not started (f4=False)")
-        (self.root / "go-f4").touch()
-        time.sleep(OUTSIDE_SETTLE_S)
-        (self.root / "mark-f4").touch()
-        t0 = time.monotonic()
-        time.sleep(OUTSIDE_RUN_S / 2)
-        feed = TcUtilFile(os.path.join(self.outside_node.watcher_dir,
-                                       os.path.basename(
-                                           consts.TC_UTIL_CONFIG)))
-        try:
-            rec = feed.read_device(self.chip.index)
-        finally:
-            feed.close()
-        time.sleep(OUTSIDE_RUN_S / 2)
-        (self.root / "pause-f4").touch()
-        paused = {k: t.line("PAUSED") for k, t in self.outside.items()}
-        window_s = time.monotonic() - t0
-        (self.root / "resume-f4").touch()
-        workers = {}
-        for k, t in self.outside.items():
-            workers[k] = t.line("WORKER ")
-            t.proc.wait(timeout=60)
-        m, o = paused["metered"], paused["outside"]
-        charged_ms = m["charged_ns"] / 1e6 / max(m["run_steps"], 1)
-        duty_ms = self.duty_s[OUTSIDE_POD] * 1e3
-        own_ms = o.get("clock_own_ms") or float("nan")
-        out = {
-            "charged_ms_per_step": charged_ms, "duty_step_ms": duty_ms,
-            "outside_own_ms_per_step": own_ms,
-            "outside_clocked": o.get("clocked", 0),
-            "solo_step_ms": self.solo_s[OUTSIDE_POD] * 1e3,
-            "solo_again_ms": self.again_s[OUTSIDE_POD] * 1e3,
-            "charge_rel_err": charged_ms / duty_ms - 1.0,
-            "charge_rel_outside": charged_ms / own_ms - 1.0,
-            # the card time the two processes took over the window
-            "busy": (m["charged_ns"] / 1e9 + o["run_steps"] * own_ms / 1e3)
-            / window_s,
-            "run_steps": {k: p["run_steps"] for k, p in paused.items()},
-            "window_s": window_s,
-            "taken_at_duty": (100.0 * m["run_steps"] * self.duty_s[
-                OUTSIDE_POD] / window_s),
-            "windows": workers["metered"].get("vtpu_windows_total"),
-            "clocked": workers["metered"].get("vtpu_clocked_total"),
-            "blind_ticks": workers["metered"].get("vtpu_blind_ticks_total"),
-            "pids": {k: w["pid"] for k, w in workers.items()},
-            "feed": {"device_util": rec.device_util,
-                     "procs": [[p.pid, p.util, p.owner_token != 0]
-                               for p in rec.procs]},
-            # what the watcher reads of the card per process
-            "per_process": [self.outside_node.daemon.sampler.per_process,
-                            self.outside_node.daemon.sampler.per_process_util]}
-        out["ok"] = bool(o["run_steps"] > 0 and m["run_steps"] > 0
-                         and (out["clocked"] or 0) > 0
-                         and abs(out["charge_rel_err"]) <= CHARGE_REL)
-        return out
+            raise RuntimeError("F4's pair was not asked for (f4=False)")
+        self.pair = F4Pair(self.torch, self.root, self.chip,
+                           self.responses[OUTSIDE_POD])
+        rec = self.pair.measure(self.duty_s[OUTSIDE_POD] * 1e3)
+        rec["solo_step_ms"] = self.solo_s[OUTSIDE_POD] * 1e3
+        return rec
 
     # --- 5. the annotation, the reporters and the other routes ------------
 
@@ -754,175 +683,6 @@ class Phase:
         return rec
 
 
-# The outside process's own slice clock: the interposer's two kernels
-# (csrc/shim/enforce_rate.cc, kSliceClockPtx), launched here over ctypes
-# by a process the interposer does not touch.
-_CLOCK_PTX = r"""
-.version 7.0
-.target sm_70
-.address_size 64
-.visible .entry vtpu_slice_watch(.param .u64 p_dev, .param .u64 p_rec,
-    .param .u64 p_tag, .param .u64 p_gap, .param .u64 p_max)
-{
-  .reg .pred %p<4>;
-  .reg .b64 %rd<20>;
-  ld.param.u64 %rd1, [p_dev];
-  ld.param.u64 %rd2, [p_rec];
-  ld.param.u64 %rd3, [p_tag];
-  ld.param.u64 %rd4, [p_gap];
-  ld.param.u64 %rd5, [p_max];
-  cvta.to.global.u64 %rd1, %rd1;
-  cvta.to.global.u64 %rd2, %rd2;
-  mov.u64 %rd6, %globaltimer;
-  mov.u64 %rd7, %rd6;
-  st.volatile.global.u64 [%rd1+32], %rd3;
-  membar.sys;
-  mov.u64 %rd8, 0;
-  mov.u64 %rd9, 0;
-  mov.u64 %rd10, 0;
-  mov.u64 %rd15, 0;
-LOOP:
-  mov.u64 %rd11, %globaltimer;
-  sub.u64 %rd12, %rd11, %rd7;
-  setp.gt.u64 %p1, %rd12, %rd4;
-  setp.ne.u64 %p2, %rd10, 0;
-  and.pred %p3, %p1, %p2;
-  @%p3 add.u64 %rd8, %rd8, %rd12;
-  @%p3 add.u64 %rd9, %rd9, 1;
-  mov.u64 %rd7, %rd11;
-  ld.volatile.global.u64 %rd13, [%rd1];
-  setp.eq.u64 %p1, %rd13, %rd3;
-  selp.u64 %rd10, 1, 0, %p1;
-  ld.volatile.global.u64 %rd14, [%rd1+16];
-  setp.eq.u64 %p1, %rd14, %rd3;
-  @%p1 bra DONE;
-  sub.u64 %rd12, %rd11, %rd6;
-  setp.lt.u64 %p1, %rd12, %rd5;
-  nanosleep.u32 2000;
-  @%p1 bra LOOP;
-  mov.u64 %rd15, 1;
-DONE:
-  ld.volatile.global.u64 %rd16, [%rd1+8];
-  ld.volatile.global.u64 %rd17, [%rd1+24];
-  st.volatile.global.u64 [%rd2+8], %rd6;
-  st.volatile.global.u64 [%rd2+16], %rd8;
-  st.volatile.global.u64 [%rd2+24], %rd16;
-  st.volatile.global.u64 [%rd2+32], %rd17;
-  st.volatile.global.u64 [%rd2+40], %rd9;
-  st.volatile.global.u64 [%rd2+48], %rd15;
-  membar.sys;
-  st.volatile.global.u64 [%rd2], %rd3;
-  ret;
-}
-.visible .entry vtpu_slice_stamp(.param .u64 p_word, .param .u64 p_tag,
-    .param .u64 p_wait)
-{
-  .reg .pred %p<3>;
-  .reg .b64 %rd<8>;
-  ld.param.u64 %rd1, [p_word];
-  ld.param.u64 %rd2, [p_tag];
-  ld.param.u64 %rd3, [p_wait];
-  cvta.to.global.u64 %rd1, %rd1;
-  setp.eq.u64 %p1, %rd3, 0;
-  @%p1 bra STAMP;
-  cvta.to.global.u64 %rd3, %rd3;
-  mov.u64 %rd4, %globaltimer;
-WAIT:
-  ld.volatile.global.u64 %rd5, [%rd3];
-  setp.eq.u64 %p1, %rd5, %rd2;
-  @%p1 bra STAMP;
-  mov.u64 %rd6, %globaltimer;
-  sub.u64 %rd6, %rd6, %rd4;
-  setp.lt.u64 %p2, %rd6, 1000000;
-  @%p2 bra WAIT;
-STAMP:
-  mov.u64 %rd7, %globaltimer;
-  st.volatile.global.u64 [%rd1+8], %rd7;
-  membar.sys;
-  st.volatile.global.u64 [%rd1], %rd2;
-  ret;
-}
-"""
-
-
-class StepClock:
-    """A step's own card time beside other contexts: the watch kernel on
-    a stream of its own reads %globaltimer from before the start stamp to
-    the stop stamp, and the gaps longer than 20 us in its reads are other
-    contexts' slices (`csrc/shim/enforce_rate.cc`, "A co-tenant outside
-    the ledger"). For a process without the interposer."""
-
-    GAP_NS = 20_000
-    MAX_NS = 2_000_000_000
-
-    def __init__(self, torch):
-        import ctypes
-        self._c = ctypes
-        self.cu = ctypes.CDLL("libcuda.so.1")
-        mod = ctypes.c_void_p()
-        self._check(self.cu.cuModuleLoadData(
-            ctypes.byref(mod), ctypes.c_char_p(_CLOCK_PTX.encode() + b"\0")))
-        self.watch, self.stamp = ctypes.c_void_p(), ctypes.c_void_p()
-        for fn, name in ((self.watch, b"vtpu_slice_watch"),
-                         (self.stamp, b"vtpu_slice_stamp")):
-            self._check(self.cu.cuModuleGetFunction(ctypes.byref(fn), mod,
-                                                    name))
-        host = ctypes.c_void_p()
-        # CU_MEMHOSTALLOC_PORTABLE | CU_MEMHOSTALLOC_DEVICEMAP
-        self._check(self.cu.cuMemHostAlloc(ctypes.byref(host),
-                                           ctypes.c_size_t(128),
-                                           ctypes.c_uint(3)))
-        ctypes.memset(host, 0, 128)
-        self.words = (ctypes.c_uint64 * 16).from_address(host.value)
-        dev = ctypes.c_uint64()
-        self._check(self.cu.cuMemHostGetDevicePointer_v2(
-            ctypes.byref(dev), host, ctypes.c_uint(0)))
-        self.dev = dev.value
-        self.side = torch.cuda.Stream()
-        self.torch = torch
-        self.tag = 0
-
-    @staticmethod
-    def _check(rc: int) -> None:
-        if rc != 0:
-            raise RuntimeError(f"slice clock: CUDA driver error {rc}")
-
-    def _launch(self, fn, stream, args) -> None:
-        c = self._c
-        vals = [c.c_uint64(a) for a in args]
-        ptrs = (c.c_void_p * len(vals))(*[c.cast(c.byref(v), c.c_void_p)
-                                           for v in vals])
-        self._check(self.cu.cuLaunchKernel(fn, 1, 1, 1, 1, 1, 1, 0,
-                                           c.c_void_p(stream.cuda_stream),
-                                           ptrs, None))
-
-    def start(self) -> None:
-        self.tag += 1
-        self._launch(self.watch, self.side,
-                     [self.dev, self.dev + 64, self.tag, self.GAP_NS,
-                      self.MAX_NS])
-        self._launch(self.stamp, self.torch.cuda.current_stream(),
-                     [self.dev, self.tag, self.dev + 32])
-
-    def stop(self) -> None:
-        self._launch(self.stamp, self.torch.cuda.current_stream(),
-                     [self.dev + 16, self.tag, 0])
-
-    def own_ns(self) -> int | None:
-        """The last clocked stretch's own time, once the card has run it
-        (the caller has synchronized); None when the watch missed it."""
-        rec = self.words[8:15]
-        deadline = time.monotonic() + 1.0
-        while self.words[8] != self.tag and time.monotonic() < deadline:
-            time.sleep(1e-4)
-            rec = self.words[8:15]
-        tag, start, gap, t0, t1, _, timed_out = rec
-        if tag != self.tag or timed_out or start > t0 or t1 <= t0 \
-                or gap > t1 - t0:
-            return None
-        return t1 - t0 - gap
-
-
 def _tenant(args) -> None:
     import torch
 
@@ -939,67 +699,38 @@ def _tenant(args) -> None:
                for _ in range(3))
     bias = torch.zeros((ATTN_SHAPE[2], ATTN_SHAPE[2]), device=dev)
     tel = step_telemetry()
-    if tel is None and not args.unmetered:
+    if tel is None:
         raise RuntimeError("no step ring: the plugin armed no StepTelemetry")
-    # F4's pair times its own steps in the charge window
-    clock = StepClock(torch) if args.clock else None
-    owns: list[int] = []
     steps = 0
 
-    def step(clocked: bool = False) -> None:
+    def step() -> None:
         nonlocal x, steps
         s0 = time.monotonic_ns()
-        if clocked:
-            clock.start()
         x, loss = _quota_step(x)
         if args.attn:
             attn.attention_block(q, k, v, bias)
-        if clocked:
-            clock.stop()
         _ = float(loss)
-        if clocked:
-            own = clock.own_ns()
-            if own is not None:
-                owns.append(own)
-        if tel is not None:
-            tel.record(time.monotonic_ns() - s0,
-                       hbm_highwater_bytes=torch.cuda.max_memory_allocated(),
-                       compiled=(steps == 0))
+        tel.record(time.monotonic_ns() - s0,
+                   hbm_highwater_bytes=torch.cuda.max_memory_allocated(),
+                   compiled=(steps == 0))
         steps += 1
-
-    def warm_up() -> torch.Tensor:
-        for _ in range(WARMUP):
-            step()
-        hold = torch.ones(args.hold_mib * MIB, dtype=torch.uint8,
-                          device=dev)
-        torch.cuda.synchronize()
-        return hold
 
     def charged() -> int:
         return _shim_counters().get("vtpu_charged_ns_total", 0)
 
-    if not args.late_warmup:
-        hold = warm_up()
+    for _ in range(WARMUP):
+        step()
+    hold = torch.ones(args.hold_mib * MIB, dtype=torch.uint8, device=dev)
+    torch.cuda.synchronize()
     print("READY", flush=True)
     _wait_file(args.go_file)
-    if args.late_warmup:
-        hold = warm_up()
-    # the charge is read from the mark file (the go file unless named)
-    mark = args.mark_file or args.go_file
-    charged0 = steps0 = None
+    charged0, steps0 = charged(), steps
     while steps < args.max_steps - TAIL_STEPS and not os.path.exists(
             args.pause_file):
-        if charged0 is None and os.path.exists(mark):
-            charged0, steps0 = charged(), steps
-        step(clocked=clock is not None and charged0 is not None
-             and (steps - steps0) % OUTSIDE_CLOCK_EVERY == 0)
-    if charged0 is None:
-        charged0, steps0 = charged(), steps
+        step()
     print("PAUSED " + json.dumps({
         "records": steps, "run_steps": steps - steps0,
-        "charged_ns": charged() - charged0, "clocked": len(owns),
-        "clock_own_ms": (sum(owns) / len(owns) / 1e6 if owns else None)}),
-        flush=True)
+        "charged_ns": charged() - charged0}), flush=True)
     _wait_file(args.resume_file)
     for _ in range(TAIL_STEPS):
         step()
@@ -1009,6 +740,260 @@ def _tenant(args) -> None:
         **_shim_counters()}), flush=True)
 
 
+# --- F4's pair ---------------------------------------------------------------
+
+class F4Pair:
+    """F4's pair (ROADMAP R11, F4): does the card run the same step slower
+    beside another busy context, and is the interposer's charge then the
+    tenant's own card time?
+
+    Three processes run the 16384 bf16 quota step, each ending in a scalar
+    readback: `a` and `b` outside the interposer, and `m`, a 50 % / 16 GiB
+    pod's tenant under it, on a private node of its own (`node-f4`). Each
+    answers commands on its stdin (`_pair_worker`). The card's own
+    inflation comes from `a` and `b` alone: each times its step alone
+    (CUDA events around each step, the median), then both step side by
+    side for `PAIR_S`; with the card busy throughout (NVML's utilization,
+    sampled) and both running the same step, both inflate alike, so
+    f = W / (n_a * T_a + n_b * T_b), with n counted in fractions of a
+    step. Then `m` steps beside `b` for `PAIR_SETTLE_S` (the watcher's
+    NVML listing and the slice clock settle) and `PAIR_WINDOWS` windows
+    of `PAIR_S`: in each, what the interposer charged per step of `m` is
+    judged against T_a * f, the tenant's own card time per step inside
+    the pair, within CHARGE_REL. The pair (and T_a, T_b around it) runs
+    before and after the windows; f is their mean. NVML's SM clock, power
+    draw and clock-event reasons are sampled through the port's binding
+    throughout, per stretch, to tell clocks from switches. The step timed
+    alone at the pod's duty (`running`'s yardstick) is printed beside."""
+
+    def __init__(self, torch, root: Path, chip, response):
+        from vtpu_manager_torch.tpu.discovery import Nvml
+        self.torch = torch
+        self.root = Path(root)
+        self.chip = chip
+        self.nvml = Nvml.load()
+        if self.nvml is None:
+            raise RuntimeError("F4's pair needs NVML on the card")
+        self.handle = self.nvml.handle(chip.index)
+        outside = {k: v for k, v in os.environ.items()
+                   if not k.startswith("VTPU_") and k != consts.ENV_LD_PRELOAD}
+        outside["PYTHONPATH"] = os.pathsep.join(
+            p for p in (str(REPO), os.environ.get("PYTHONPATH")) if p)
+        args = ["-m", "vtpu_manager_torch.bench_monitor", "--pair-worker",
+                "--dim", str(DIM)]
+        self.workers = {
+            "a": bq.Tenant("f4-a", args, outside, str(self.root), stdin=True),
+            "b": bq.Tenant("f4-b", args, dict(outside), str(self.root),
+                           stdin=True),
+            "m": bq.Tenant("f4-m", args, ba.container_env(response),
+                           str(self.root), stdin=True)}
+        for w in self.workers.values():
+            w.line("READY")
+        self.samples: list[tuple] = []
+        self._stretch = "idle"
+        self._stop = False
+        self._sampler = threading.Thread(target=self._sample, daemon=True)
+        self._sampler.start()
+        self.runs = 0
+
+    def _sample(self) -> None:
+        n = self.nvml
+        while not self._stop:
+            try:
+                self.samples.append((
+                    self._stretch, n.utilization(self.handle),
+                    n.sm_clock_mhz(self.handle), n.power_mw(self.handle),
+                    n.clocks_event_reasons(self.handle)))
+            except Exception as e:  # noqa: BLE001 - reported, not fatal
+                self.samples.append((self._stretch, None, None, None,
+                                     repr(e)))
+            time.sleep(PAIR_SAMPLE_S)
+
+    def close(self) -> None:
+        self._stop = True
+        for w in self.workers.values():
+            w.stop()
+
+    def nvml_summary(self, stretch: str) -> dict:
+        rows = [r for r in self.samples if r[0] == stretch and r[1] is not None]
+
+        def median(i):
+            vals = sorted(r[i] for r in rows)
+            return vals[len(vals) // 2] if vals else None
+        reasons: dict[str, int] = {}
+        for r in rows:
+            reasons[hex(r[4])] = reasons.get(hex(r[4]), 0) + 1
+        return {"n": len(rows), "util_median": median(1),
+                "util_min": min((r[1] for r in rows), default=None),
+                "sm_mhz_median": median(2),
+                "sm_mhz_min": min((r[2] for r in rows), default=None),
+                "sm_mhz_max": max((r[2] for r in rows), default=None),
+                "power_w_median": (median(3) or 0) / 1e3,
+                "reasons": reasons}
+
+    def alone(self, name: str) -> float:
+        """The card time of one step of `name`'s, alone (seconds)."""
+        self._stretch = f"alone-{name}"
+        w = self.workers[name]
+        w.send("ALONE")
+        return w.line("ALONE")["step_s"]
+
+    def run(self, names: list[str], seconds: float, stretch: str
+            ) -> tuple[int, dict]:
+        """Each of `names` steps from a common start for `seconds`; returns
+        the start (monotonic ns) and each one's marks: (ns, charged ns)
+        after each step, the first at the start."""
+        self.runs += 1
+        stop = self.root / f"stop-{self.runs}"
+        t0 = time.monotonic_ns() + int(0.3e9)
+        for n in names:
+            self.workers[n].send(f"RUN {t0} {stop}")
+        time.sleep(max(0.0, (t0 - time.monotonic_ns()) / 1e9))
+        self._stretch = stretch
+        time.sleep(seconds)
+        stop.touch()
+        self._stretch = "idle"
+        return t0, {n: self.workers[n].line("RUN", timeout=120)["marks"]
+                    for n in names}
+
+    @staticmethod
+    def steps_in(marks: list, t0: int, t1: int) -> float:
+        """The steps run inside [t0, t1], the partial ones at the ends in
+        fractions of their own length."""
+        n = 0.0
+        for (s, _), (e, _) in zip(marks, marks[1:]):
+            if e > s:
+                n += max(0, min(e, t1) - max(s, t0)) / (e - s)
+        return n
+
+    @staticmethod
+    def charge_in(marks: list, t0: int, t1: int) -> tuple[int, int]:
+        """(charged ns, steps) over the whole steps that end in (t0, t1]."""
+        idx = [i for i, (t, _) in enumerate(marks) if i and t0 < t <= t1]
+        if not idx:
+            return 0, 0
+        return marks[idx[-1]][1] - marks[idx[0] - 1][1], len(idx)
+
+    def pair(self, tag: str) -> dict:
+        t_a0, t_b0 = self.alone("a"), self.alone("b")
+        t0, marks = self.run(["a", "b"], PAIR_S, f"pair-{tag}")
+        t_a1, t_b1 = self.alone("a"), self.alone("b")
+        t1 = t0 + int(PAIR_S * 1e9)
+        t_a, t_b = (t_a0 + t_a1) / 2, (t_b0 + t_b1) / 2
+        n_a = self.steps_in(marks["a"], t0, t1)
+        n_b = self.steps_in(marks["b"], t0, t1)
+        return {"T_a_ms": [t_a0 * 1e3, t_a1 * 1e3],
+                "T_b_ms": [t_b0 * 1e3, t_b1 * 1e3],
+                "n_a": n_a, "n_b": n_b, "W_s": PAIR_S,
+                "f": PAIR_S / (n_a * t_a + n_b * t_b),
+                "T_a_s": t_a, "T_b_s": t_b, "nvml": self.nvml_summary(f"pair-{tag}"),
+                "nvml_alone": self.nvml_summary("alone-a")}
+
+    def metered(self) -> tuple[int, dict]:
+        """`m` beside `b`: the settle stretch, then the windows."""
+        total = PAIR_SETTLE_S + PAIR_WINDOWS * PAIR_S
+        t0, marks = self.run(["m", "b"], total, "metered")
+        return t0 + int(PAIR_SETTLE_S * 1e9), marks
+
+    def measure(self, duty_ms: float) -> dict:
+        before = self.pair("before")
+        start, marks = self.metered()
+        after = self.pair("after")
+        f = (before["f"] + after["f"]) / 2
+        t_a = (before["T_a_s"] + after["T_a_s"]) / 2
+        t_b = (before["T_b_s"] + after["T_b_s"]) / 2
+        own_ms = t_a * f * 1e3
+        windows = []
+        for k in range(PAIR_WINDOWS):
+            w0 = start + int(k * PAIR_S * 1e9)
+            w1 = w0 + int(PAIR_S * 1e9)
+            charged, steps = self.charge_in(marks["m"], w0, w1)
+            charged_ms = charged / 1e6 / max(steps, 1)
+            n_m = self.steps_in(marks["m"], w0, w1)
+            n_b = self.steps_in(marks["b"], w0, w1)
+            windows.append({
+                "steps": steps, "charged_ms_per_step": charged_ms,
+                "charge_rel_own": charged_ms / own_ms - 1.0,
+                "charge_rel_duty": charged_ms / duty_ms - 1.0,
+                # the same identity inside the window, for the record: it
+                # assumes both inflate alike, which b's stretches alone
+                # (while m waits in the bucket) do not
+                "f_window": PAIR_S / (n_m * t_a + n_b * t_b),
+                "taken": 100.0 * n_m * t_a * f / PAIR_S})
+        self.workers["m"].send("COUNTERS")
+        counters = self.workers["m"].line("COUNTERS")
+        rec = {"f": f, "f_before": before["f"], "f_after": after["f"],
+               "T_a_ms": t_a * 1e3, "own_ms_per_step": own_ms,
+               "duty_step_ms": duty_ms, "windows": windows,
+               "pair_before": before, "pair_after": after,
+               "nvml_metered": self.nvml_summary("metered"),
+               "clocked": counters.get("vtpu_clocked_total"),
+               "windows_opened": counters.get("vtpu_windows_total")}
+        rec["ok"] = bool(
+            all(abs(w["charge_rel_own"]) <= CHARGE_REL for w in windows)
+            and all(p["nvml"]["util_median"] is not None
+                    and p["nvml"]["util_median"] >= PAIR_MIN_UTIL
+                    for p in (before, after))
+            and (rec["clocked"] or 0) > 0)
+        return rec
+
+
+def _pair_worker(args) -> None:
+    """One process of F4's pair: the quota step on commands from stdin.
+    ALONE: the median card time of `PAIR_ALONE_STEPS` steps, each between
+    its own CUDA events; RUN <start ns> <stop file>: steps from the start
+    (monotonic) until the file appears, then the marks (monotonic ns,
+    the interposer's charged ns) after each step; COUNTERS: the
+    interposer's counters."""
+    import ctypes
+
+    import torch
+
+    from vtpu_manager_torch.bench_quota import _shim_counters
+    from vtpu_manager_torch.bench_steps import _quota_input, _quota_step
+    dev = torch.device("cuda")
+    x = _quota_input(args.dim, dev)
+    preload = os.environ.get(consts.ENV_LD_PRELOAD, "").split(":")[0]
+    charged = None
+    if preload:
+        charged = ctypes.CDLL(preload).vtpu_charged_ns_total
+        charged.restype = ctypes.c_uint64
+
+    def step() -> None:
+        nonlocal x
+        x, loss = _quota_step(x)
+        _ = float(loss)
+
+    for _ in range(WARMUP):
+        step()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    print("READY", flush=True)
+    for line in sys.stdin:
+        cmd, *rest = line.split()
+        if cmd == "ALONE":
+            times = []
+            for _ in range(PAIR_ALONE_STEPS):
+                start.record()
+                x, loss = _quota_step(x)
+                end.record()
+                end.synchronize()
+                times.append(start.elapsed_time(end) / 1e3)
+            print("ALONE " + json.dumps(
+                {"step_s": sorted(times)[len(times) // 2]}), flush=True)
+        elif cmd == "RUN":
+            t0, stop = int(rest[0]), rest[1]
+            while time.monotonic_ns() < t0:
+                time.sleep(1e-4)
+            marks = [(time.monotonic_ns(), charged() if charged else 0)]
+            while not os.path.exists(stop):
+                step()
+                marks.append((time.monotonic_ns(),
+                              charged() if charged else 0))
+            print("RUN " + json.dumps({"marks": marks}), flush=True)
+        elif cmd == "COUNTERS":
+            print("COUNTERS " + json.dumps(_shim_counters()), flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tenant", action="store_true")
@@ -1016,24 +1001,19 @@ def main(argv=None) -> int:
     ap.add_argument("--hold-mib", type=int, default=HOLD_MIB)
     ap.add_argument("--attn", action="store_true")
     ap.add_argument("--go-file")
-    ap.add_argument("--mark-file",
-                    help="the charge is read from when this file appears "
-                    "(default: the go file)")
     ap.add_argument("--pause-file")
     ap.add_argument("--resume-file")
-    ap.add_argument("--late-warmup", action="store_true",
-                    help="warm up after the go file, not before READY")
     ap.add_argument("--max-steps", type=int, default=MAX_STEPS)
-    ap.add_argument("--unmetered", action="store_true",
-                    help="a process outside the interposer: no step ring")
-    ap.add_argument("--clock", action="store_true",
-                    help="time every few steps after the mark by a slice "
-                    "clock of the bench's own (without the interposer)")
+    ap.add_argument("--pair-worker", action="store_true",
+                    help="one process of F4's pair, on stdin's commands")
     ap.add_argument("--f4", action="store_true",
                     help="run the phase's checks with F4's pair on the card")
     args = ap.parse_args(argv)
     if args.tenant:
         _tenant(args)
+        return 0
+    if args.pair_worker:
+        _pair_worker(args)
         return 0
     if args.f4:
         return _f4_phase()

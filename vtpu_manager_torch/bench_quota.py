@@ -118,17 +118,20 @@ SWEEP_STEPS = 150
 
 def run_worker(shim: str | None, quota: int, dim: int = 8192,
                warmup: int = SWEEP_WARMUP, steps: int = SWEEP_STEPS,
-               timeout: int = 300) -> dict | None:
+               timeout: int = 300, extra_env: dict | None = None
+               ) -> dict | None:
     """One tenant run of the step loop at `quota` (`shim` None: no
-    interposer). At quota 100 under the interposer the tenant also
-    launches the block-attention kernel once, to show the interposer
-    meters a hand-written kernel too."""
+    interposer), with `extra_env` over its environment. At quota 100
+    under the interposer the tenant also launches the block-attention
+    kernel once, to show the interposer meters a hand-written kernel
+    too."""
     args = ["-m", "vtpu_manager_torch.bench_quota", "--worker",
             "--dim", str(dim), "--warmup", str(warmup),
             "--steps", str(steps)]
     if shim is not None and quota >= 100:
         args.append("--kernel")
-    return _run_tenant(args, tenant_env(shim, quota), "WORKER", timeout)
+    env = {**tenant_env(shim, quota), **(extra_env or {})}
+    return _run_tenant(args, env, "WORKER", timeout)
 
 
 GRAPH_QUOTAS = (50, 25)
@@ -383,12 +386,14 @@ class Tenant:
     """A tenant subprocess whose stdout lines are read as they come; its
     stderr goes to a file beside the world's state."""
 
-    def __init__(self, tag: str, args: list[str], env: dict, log_dir: str):
+    def __init__(self, tag: str, args: list[str], env: dict, log_dir: str,
+                 stdin: bool = False):
         self.tag = tag
         self.err_path = os.path.join(log_dir, f"{tag}.stderr")
         self._err = open(self.err_path, "w")
         self.proc = subprocess.Popen([sys.executable, *args], env=env,
                                      cwd=str(build.REPO),
+                                     stdin=subprocess.PIPE if stdin else None,
                                      stdout=subprocess.PIPE,
                                      stderr=self._err, text=True, bufsize=1)
         self._lines: queue.Queue = queue.Queue()
@@ -417,6 +422,11 @@ class Tenant:
             if line.startswith(prefix):
                 rest = line[len(prefix):].strip()
                 return json.loads(rest) if rest else {}
+
+    def send(self, line: str) -> None:
+        """One command line to a tenant started with `stdin`."""
+        self.proc.stdin.write(line + "\n")
+        self.proc.stdin.flush()
 
     def horizon_log(self, n: int = 20) -> list[str]:
         """The interposer's lines on horizons it found suspect and on

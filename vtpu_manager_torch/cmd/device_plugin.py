@@ -308,6 +308,16 @@ def main(argv: list[str] | None = None) -> int:
     chips = manager.init_devices()
     log.info("discovered %d device(s): %s", len(chips),
              [c.uuid for c in chips])
+    # the card's excess table, measured before serving while the card is
+    # free (device_plugin.py:212-219); VTPU_OBS_CALIBRATE gates it
+    from vtpu_manager_torch.manager.obs_calibrate import maybe_calibrate
+    table = maybe_calibrate(real_chips=not args.fake_chips)
+    if table is not None:
+        manager.calibrate_obs_overhead(table=table)
+        log.info("obs excess table calibrated: %s", table)
+    else:
+        log.info("obs-overhead calibration skipped or unavailable; the "
+                 "interposers probe")
     manager.register_node()
     manager.start_heartbeat()
 
@@ -369,6 +379,15 @@ def main(argv: list[str] | None = None) -> int:
             tc_path=os.path.join(args.watcher_dir,
                                  os.path.basename(consts.TC_UTIL_CONFIG)),
             vmem_path=args.vmem_path)
+        if manager.obs_excess_table is not None:
+            # the live channel: a running interposer adopts the feed's
+            # table (device_plugin.py:383-394)
+            from vtpu_manager_torch.manager.obs_calibrate import decode_table
+            try:
+                watcher.publish_calibration(
+                    decode_table(manager.obs_excess_table))
+            except ValueError:
+                log.warning("unparseable excess table; feed not seeded")
         watcher.start()
     pressure = None
     if gates.enabled(fg.STEP_TELEMETRY):

@@ -174,17 +174,34 @@ def main(argv: list[str] | None = None) -> int:
     log.info("discovered %d device(s): %s", len(chips),
              [c.uuid for c in chips])
 
+    # the card's excess table before serving, as cmd/device_plugin.py does
+    # (kubelet_plugin.py:125-150)
+    from vtpu_manager_torch.manager.obs_calibrate import maybe_calibrate
+    obs_table = maybe_calibrate(real_chips=not args.fake_chips)
+    log.info("obs-overhead calibration: %s", obs_table or "unavailable")
+
     state = DeviceState(args.node_name, chips, base_dir=args.base_dir,
                         cdi_dir=args.cdi_dir, node_config=node_config,
                         minors=result.minors, shim_host_dir=args.driver_dir,
                         lock_dir=args.lock_dir,
                         vmem_dir=os.path.dirname(args.vmem_path),
                         watcher_dir=args.watcher_dir,
-                        real_libcuda_path=args.real_libcuda_path)
+                        real_libcuda_path=args.real_libcuda_path,
+                        obs_excess_table=obs_table)
     client = in_cluster_client(args.service_account_dir)
     if client is None:
         log.warning("claims cannot be fetched and the slice is not "
                     "published")
+    elif obs_table is not None:
+        # the annotation the device plugin's path publishes
+        from vtpu_manager_torch.util import consts
+        try:
+            client.patch_node_annotations(
+                args.node_name,
+                {consts.node_obs_overhead_annotation(): obs_table})
+        # the annotation is for observation only
+        except Exception as e:  # noqa: BLE001
+            log.warning("obs table annotation publish failed: %s", e)
     driver = DraDriver(args.node_name, ClaimSource(client), state,
                        plugin_dir=args.plugin_dir)
     driver.serve()

@@ -71,6 +71,9 @@ struct Allocation {
 
 std::mutex g_mu;
 int64_t g_used[kMaxDevices] = {};
+// the most the cap has granted this process at once, per slot (the step
+// ring's HBM high-water); under g_mu
+int64_t g_peak[kMaxDevices] = {};
 std::unordered_map<CUdeviceptr, Allocation> g_by_ptr;
 std::unordered_map<CUmemGenericAllocationHandle, Allocation> g_by_handle;
 std::unordered_map<uintptr_t, Allocation> g_by_array;  // arrays, mipmaps
@@ -171,6 +174,7 @@ void ResetInChild() {
     g_vmem_lock_fd = open(lock_path, O_CREAT | O_RDWR | O_CLOEXEC, 0666);
   }
   for (auto& u : g_used) u = 0;
+  for (auto& u : g_peak) u = 0;
   g_by_ptr.clear();
   g_by_handle.clear();
   g_by_array.clear();
@@ -499,6 +503,7 @@ CUresult ReserveMemory(int slot, int64_t bytes) {
   if (!d) {
     std::lock_guard<std::mutex> lock(g_mu);
     g_used[slot] += bytes;
+    g_peak[slot] = std::max(g_peak[slot], g_used[slot]);
     return CUDA_SUCCESS;
   }
   MapLedgerOnce();
@@ -525,9 +530,16 @@ CUresult ReserveMemory(int slot, int64_t bytes) {
   {
     std::lock_guard<std::mutex> lock(g_mu);
     now_used = g_used[slot] += bytes;
+    g_peak[slot] = std::max(g_peak[slot], now_used);
   }
   RecordOwnBytes(slot, now_used);
   return CUDA_SUCCESS;
+}
+
+int64_t PeakBytes(int slot) {
+  if (slot < 0 || slot >= kMaxDevices) return 0;
+  std::lock_guard<std::mutex> lock(g_mu);
+  return g_peak[slot];
 }
 
 void UnreserveMemory(int slot, int64_t bytes) {

@@ -51,7 +51,19 @@
 // reference filters it; an isolated sample is discounted by the estimate,
 // capped at half its span (vtpu_obs_overhead_ns). An operator's
 // calibration, VTPU_OBS_OVERHEAD_US (enforce.cc:111), replaces the probe;
-// 0 turns the discount off.
+// 0 turns the discount off. The node's calibration replaces both
+// (manager/obs_calibrate.py; enforce.cc:87-240, 2773-2810): an excess
+// table of (idle gap, excess) points, from VTPU_OBS_EXCESS_TABLE (sorted,
+// kMaxExcessPoints kept with the last, parsing stops with a warning at a
+// malformed point) or from the feed's calibration block, which the tick
+// adopts under a local seqlock and which takes precedence. With a table
+// the probe does not run, and an isolated sample is discounted by the
+// table's excess at its gap plus the discount the previous sample got
+// (that sample's own inflation, which the gap observed from it lacks),
+// still capped at half its span. A sample's gap is the time from the
+// tenant's last return from a synchronisation (the device's last
+// completion it observed) to the sample's start, as the reference's
+// high-water of observed ends.
 //
 // Co-tenancy. Two contexts on a card without MPS take turns in time
 // slices, so the span of a kernel that ran beside a co-tenant's also holds
@@ -137,6 +149,38 @@
 // Bypass and fail-open. The first launch after more than 200 ms of idle
 // goes at once and its cost becomes debt (enforce.cc:2541); a launch that
 // has waited 10 s goes unthrottled (enforce.cc:2561-2571).
+//
+// Steps. Every tenant whose container has StepTelemetry writes one step
+// ring record per step (InitStepRingOnce:2395, RecordStepRing:2413), armed
+// at its first launch from VTPU_STEP_TELEMETRY=true, VTPU_STEP_RING_PATH
+// and VTPU_TRACE_ID. A PJRT Execute is one step; the driver API has none,
+// so here a step is:
+//   - opened by the first launch the interposer sees run (not captured)
+//     after the last boundary, and timed from that launch's call;
+//   - closed when the tenant's thread returns, successfully, from a
+//     host-blocking synchronisation (cuStreamSynchronize and its _ptsz,
+//     cuCtxSynchronize, cuEventSynchronize): loss.item() and
+//     torch.cuda.synchronize() reach one. A synchronisation with no launch
+//     since the last boundary writes nothing, and one that fails (as on a
+//     capturing stream) is no boundary;
+//   - closed at a launch, which opens the next, when the step already holds
+//     a graph replay and the launch is another (one replay is one step), or
+//     when the step is kStepCapNs old (a tenant that never synchronises
+//     still writes a record a second).
+// The interposer's own calls go through the real driver, never a boundary.
+// A record holds the step's start and duration, the throttle wait
+// (vtpu_throttle_wait_ns_total) since the last record, the slot's HBM
+// high-water (the most the cap granted at once) and `compiled` when the
+// step launched a CUfunction or CUgraphExec seen for the first time (a
+// kernel Triton or Inductor just loaded; the reference's first_execute).
+// One writer per ring: a Python writer arms after the interposer's on many
+// tenants (bench_steps launches before it calls step_telemetry()), so
+// runtime/client.py first calls vtpu_step_ring_release(), which closes this
+// writer and keeps it closed, and continues the ring's index; a writer that
+// finds the ring's lock held yields. Unarmed, a launch's ring check is
+// one load and a branch (a synchronisation's also asks whether a table is
+// active); armed, a launch takes a mutex and a set lookup, and a record is
+// mmap stores.
 
 #include <fcntl.h>
 #include <pthread.h>
@@ -151,9 +195,11 @@
 #include <cstring>
 #include <mutex>
 #include <unordered_map>
+#include <unordered_set>
 #include <vector>
 
 #include "shim.h"
+#include "vtpu_telemetry_abi.h"
 
 namespace vtpu_cuda {
 
@@ -227,6 +273,7 @@ struct DeviceBucket {
   std::atomic<int64_t> blind_cost_ns{0};
   std::atomic<uint64_t> vmem_retry_ns{0};
   std::atomic<int64_t> obs_overhead_ns{0};
+  std::atomic<int64_t> last_discount_us{0};  // the table's, last sample
   std::atomic<int> obs_samples{0};
   std::atomic<uint64_t> last_probe_ns{0};
 };
@@ -301,6 +348,7 @@ struct Sample {
   int slot = 0;
   int64_t charged_ns = 0;
   bool isolated = false;
+  int64_t gap_us = 0;     // isolated: idle time before it, as observed
   bool shared = false;
   bool windowed = false;  // taken in a window the co-tenants stood aside for
   bool clocked = false;   // taken by the slice clock
@@ -329,6 +377,143 @@ int64_t ObsOverheadNs(int slot) {
   return ns >= 0 ? ns
                  : g_bucket[slot].obs_overhead_ns.load(std::memory_order_relaxed);
 }
+
+// --- The excess table (see "Isolated samples" above) --------------------
+
+struct ExcessTable {
+  int n = 0;
+  int64_t gap_us[kMaxExcessPoints];
+  int64_t excess_us[kMaxExcessPoints];
+};
+
+// VTPU_OBS_EXCESS_TABLE, parsed once (enforce.cc:115-145).
+const ExcessTable& EnvExcessTable() {
+  static const ExcessTable table = [] {
+    ExcessTable t;
+    const char* v = getenv("VTPU_OBS_EXCESS_TABLE");
+    if (!v || !*v) return t;
+    std::vector<std::pair<int64_t, int64_t>> pts;
+    for (const char* p = v; *p;) {
+      char* end = nullptr;
+      long long gap = strtoll(p, &end, 10);
+      long long excess = 0;
+      bool ok = end != p && *end == ':';
+      if (ok) {
+        const char* q = end + 1;
+        excess = strtoll(q, &end, 10);
+        ok = end != q && (*end == ',' || *end == '\0');
+      }
+      if (!ok) {
+        Log(kLogWarn, "VTPU_OBS_EXCESS_TABLE malformed at \"%s\"; the points "
+            "from there on are ignored", p);
+        break;
+      }
+      pts.emplace_back(gap, excess);
+      p = *end == ',' ? end + 1 : end;
+    }
+    std::sort(pts.begin(), pts.end());
+    if ((int)pts.size() > kMaxExcessPoints) {
+      // the largest gap's point is the plateau long gaps clamp to
+      Log(kLogWarn, "excess table has %zu points; keeping the first %d and "
+          "the last", pts.size(), kMaxExcessPoints - 1);
+      auto last = pts.back();
+      pts.resize(kMaxExcessPoints - 1);
+      pts.push_back(last);
+    }
+    for (const auto& pt : pts) {
+      t.gap_us[t.n] = pt.first;
+      t.excess_us[t.n++] = pt.second;
+    }
+    return t;
+  }();
+  return table;
+}
+
+// The feed's table, copied by the tick under a local seqlock (even =
+// stable) and read by the drain.
+std::atomic<uint64_t> g_feed_cal_gen{0};
+std::atomic<int> g_feed_cal_n{0};
+int64_t g_feed_cal_gap[kMaxExcessPoints];
+int64_t g_feed_cal_excess[kMaxExcessPoints];
+uint64_t g_feed_cal_seen_seq = 0;  // the tick's own
+
+// The tick adopts a new calibration block (AdoptFeedCalibration:183).
+void AdoptFeedCalibration() {
+  const TcCalibration* cal = TcFeedCalibration();
+  if (!cal) return;
+  for (int r = 0; r < 4; r++) {
+    uint64_t s1 = __atomic_load_n(&cal->seq, __ATOMIC_ACQUIRE);
+    if (s1 & 1) continue;
+    int n = std::clamp(cal->n_points, 0, kMaxExcessPoints);
+    int64_t gap[kMaxExcessPoints], exc[kMaxExcessPoints];
+    for (int i = 0; i < n; i++) {
+      gap[i] = cal->gap_us[i];
+      exc[i] = cal->excess_us[i];
+    }
+    if (__atomic_load_n(&cal->seq, __ATOMIC_ACQUIRE) != s1) continue;
+    if (n == 0 || s1 == g_feed_cal_seen_seq) return;
+    g_feed_cal_seen_seq = s1;
+    g_feed_cal_gen.fetch_add(1, std::memory_order_acq_rel);  // odd
+    for (int i = 0; i < n; i++) {
+      g_feed_cal_gap[i] = gap[i];
+      g_feed_cal_excess[i] = exc[i];
+    }
+    g_feed_cal_n.store(n, std::memory_order_relaxed);
+    g_feed_cal_gen.fetch_add(1, std::memory_order_acq_rel);  // even
+    Log(kLogInfo, "feed calibration adopted: %d point(s), max %lld us", n,
+        (long long)exc[n - 1]);
+    return;
+  }
+}
+
+// Linear interpolation, clamped at the last point and anchored at an
+// implicit (0, 0) below the first (InterpExcess, enforce.cc:154).
+int64_t InterpExcess(const int64_t* gaps, const int64_t* excesses, int n,
+                     int64_t gap_us) {
+  if (n <= 0) return 0;
+  if (gap_us <= gaps[0]) {
+    if (gaps[0] <= 0 || gap_us <= 0) return gap_us >= gaps[0] ? excesses[0] : 0;
+    return excesses[0] * gap_us / gaps[0];
+  }
+  if (gap_us >= gaps[n - 1]) return excesses[n - 1];
+  for (int i = 1; i < n; i++) {
+    if (gap_us <= gaps[i]) {
+      int64_t g0 = gaps[i - 1], g1 = gaps[i];
+      return excesses[i - 1] + (excesses[i] - excesses[i - 1]) *
+                                   (gap_us - g0) / (g1 - g0 ? g1 - g0 : 1);
+    }
+  }
+  return excesses[n - 1];
+}
+
+bool HasActiveExcessTable() {
+  return g_feed_cal_n.load(std::memory_order_relaxed) > 0 ||
+         EnvExcessTable().n > 0;
+}
+
+// The active table's excess at `gap_us`: the feed's, else the
+// environment's (ActiveExcessAt:216).
+int64_t ActiveExcessAt(int64_t gap_us) {
+  for (int r = 0; r < 4; r++) {
+    uint64_t g1 = g_feed_cal_gen.load(std::memory_order_acquire);
+    if (g1 & 1) continue;
+    int n = g_feed_cal_n.load(std::memory_order_relaxed);
+    if (n == 0) break;
+    int64_t gap[kMaxExcessPoints], exc[kMaxExcessPoints];
+    for (int i = 0; i < n; i++) {
+      gap[i] = g_feed_cal_gap[i];
+      exc[i] = g_feed_cal_excess[i];
+    }
+    if (g_feed_cal_gen.load(std::memory_order_acquire) != g1) continue;
+    return InterpExcess(gap, exc, n, gap_us);
+  }
+  const ExcessTable& t = EnvExcessTable();
+  return InterpExcess(t.gap_us, t.excess_us, t.n, gap_us);
+}
+
+// When the tenant last returned from a synchronisation (the device's last
+// completion it observed); kept only while a table is active.
+std::atomic<uint64_t> g_last_done_ns{0};
 
 bool IsMetered(const DeviceLimits* d) {
   if (!d) return false;
@@ -570,6 +755,7 @@ void JudgeHorizon(int slot) {
 }
 
 void WatcherTick(uint64_t now, int64_t window_ns) {
+  AdoptFeedCalibration();
   for (int slot = 0; slot < kMaxDevices; slot++) {
     const DeviceLimits* d = Dev(slot);
     if (!IsMetered(d)) continue;
@@ -955,7 +1141,16 @@ void DrainLocked() {
       if (ok) {
         DeviceBucket& b = g_bucket[s.slot];
         if (s.isolated) {
-          dur -= std::min(ObsOverheadNs(s.slot), dur / 2);
+          int64_t disc = ObsOverheadNs(s.slot);
+          if (HasActiveExcessTable())
+            disc = 1000 * std::max<int64_t>(
+                0, ActiveExcessAt(s.gap_us + b.last_discount_us.load(
+                                                 std::memory_order_relaxed)));
+          disc = std::min(disc, dur / 2);
+          dur -= disc;
+          b.last_discount_us.store(disc / 1000, std::memory_order_relaxed);
+        } else {
+          b.last_discount_us.store(0, std::memory_order_relaxed);
         }
         b.observed_ns.fetch_add(dur, std::memory_order_relaxed);
         b.observed_n.fetch_add(1, std::memory_order_relaxed);
@@ -1236,19 +1431,114 @@ bool Capturing(CUstream stream) {
          status != CU_STREAM_CAPTURE_STATUS_NONE;
 }
 
+// --- The step ring (see "Steps" above) ----------------------------------
+
+constexpr uint64_t kStepCapNs = 1'000'000'000;
+
+enum RingState : int { kRingUnknown = 0, kRingArmed = 1, kRingOff = 2 };
+std::atomic<int> g_ring_state{kRingUnknown};
+std::mutex g_ring_mu;  // the writer and the open step
+StepRingWriter* g_ring = nullptr;
+uint64_t g_step_start_ns = 0;  // 0: no launch since the last boundary
+int g_step_slot = 0;
+bool g_step_compiled = false;
+bool g_step_replay = false;
+uint64_t g_step_wait_ns = 0;  // the throttle wait at the last record
+std::unordered_set<CostKey> g_step_keys;
+std::atomic<uint64_t> g_step_records{0};
+
+int ArmRing() {
+  std::lock_guard<std::mutex> lock(g_ring_mu);
+  int state = g_ring_state.load(std::memory_order_relaxed);
+  if (state != kRingUnknown) return state;
+  state = kRingOff;
+  const char* armed = getenv("VTPU_STEP_TELEMETRY");
+  const char* path = getenv("VTPU_STEP_RING_PATH");
+  if (armed && strcmp(armed, "true") == 0 && path && *path) {
+    auto* w = new StepRingWriter(path, getenv("VTPU_TRACE_ID"));
+    if (w->ok()) {
+      g_ring = w;
+      g_step_wait_ns = g_throttle_wait_ns.load(std::memory_order_relaxed);
+      state = kRingArmed;
+      Log(kLogInfo, "step ring %s: this process writes it from index %llu",
+          path, (unsigned long long)w->writes());
+    } else {
+      delete w;
+      Log(kLogInfo, "step ring %s: another writer holds it", path);
+    }
+  }
+  g_ring_state.store(state, std::memory_order_release);
+  return state;
+}
+
+// Publishes the open step as ending at `end_ns`. Caller holds g_ring_mu.
+void CloseStepLocked(uint64_t end_ns) {
+  if (!g_ring || g_step_start_ns == 0) return;
+  uint64_t wait = g_throttle_wait_ns.load(std::memory_order_relaxed);
+  uint64_t wait_delta = wait >= g_step_wait_ns ? wait - g_step_wait_ns : 0;
+  g_step_wait_ns = wait;
+  int64_t peak = PeakBytes(g_step_slot);
+  g_ring->Record(g_step_start_ns,
+                 end_ns > g_step_start_ns ? end_ns - g_step_start_ns : 0,
+                 wait_delta, peak > 0 ? (uint64_t)peak : 0, g_step_compiled);
+  g_step_records.fetch_add(1, std::memory_order_relaxed);
+  g_step_start_ns = 0;
+  g_step_compiled = false;
+  g_step_replay = false;
+}
+
+// A launch the interposer sees run: opens a step, or closes the open one
+// at this launch first (a second replay, or the cap).
+void StepLaunch(CostKey key, int slot, bool replay) {
+  int state = g_ring_state.load(std::memory_order_acquire);
+  if (state == kRingUnknown) state = ArmRing();
+  if (state != kRingArmed) return;
+  uint64_t now = NowNs();
+  std::lock_guard<std::mutex> lock(g_ring_mu);
+  if (g_step_start_ns != 0 &&
+      ((replay && g_step_replay) || now - g_step_start_ns >= kStepCapNs))
+    CloseStepLocked(now);
+  if (g_step_start_ns == 0) {
+    g_step_start_ns = now;
+    g_step_slot = slot;
+  }
+  g_step_compiled |= g_step_keys.insert(key).second;
+  g_step_replay |= replay;
+}
+
+// The return of a host-blocking synchronisation on the tenant's thread:
+// the device's last observed completion, and a step's end.
+CUresult StepBoundary(CUresult rc) {
+  if (rc != CUDA_SUCCESS) return rc;
+  if (HasActiveExcessTable())
+    g_last_done_ns.store(NowNs(), std::memory_order_relaxed);
+  if (g_ring_state.load(std::memory_order_acquire) != kRingArmed) return rc;
+  uint64_t now = NowNs();
+  std::lock_guard<std::mutex> lock(g_ring_mu);
+  CloseStepLocked(now);
+  return rc;
+}
+
 // Charges the launch to the bucket of `slot` (the current device when -1),
 // waiting out any debt, and, for a sampled launch, records the start
 // event; a launch on an idle stream may carry the observation probe
 // instead. A captured launch is counted and nothing more.
 void BeforeLaunch(CostKey key, CUstream stream, int slot, bool may_sample,
-                  bool may_clock, Ticket* t) {
+                  bool may_clock, Ticket* t, bool replay = false) {
   g_launches.fetch_add(1, std::memory_order_relaxed);
   if (slot < 0) slot = CurrentSlot();
-  if (!IsMetered(Dev(slot))) return;
+  if (!IsMetered(Dev(slot))) {
+    // an unthrottled tenant's steps are recorded too
+    if (g_ring_state.load(std::memory_order_relaxed) != kRingOff &&
+        !Capturing(stream))
+      StepLaunch(key, slot, replay);
+    return;
+  }
   if (Capturing(stream)) {
     g_captured.fetch_add(1, std::memory_order_relaxed);
     return;
   }
+  StepLaunch(key, slot, replay);
   RelaxedCaptureMode relaxed;
   StartWatcherOnce();
   DeviceBucket& b = g_bucket[slot];
@@ -1294,7 +1584,7 @@ void BeforeLaunch(CostKey key, CUstream stream, int slot, bool may_sample,
     probe = may_sample &&
             (c.ema_ns > 0 || c.low_ns > 0 || c.clean_ns > 0) &&
             !g_probe_off[slot] &&
-            ObsOverrideNs() < 0 &&
+            ObsOverrideNs() < 0 && !HasActiveExcessTable() &&
             since >= (b.obs_samples.load(std::memory_order_relaxed) <
                               kProbeConverged
                           ? kProbeFastNs
@@ -1364,6 +1654,11 @@ void BeforeLaunch(CostKey key, CUstream stream, int slot, bool may_sample,
   s.slot = slot;
   s.charged_ns = cost;
   s.isolated = idle && !clock;
+  if (s.isolated) {
+    uint64_t done = g_last_done_ns.load(std::memory_order_relaxed);
+    uint64_t at = NowNs();
+    s.gap_us = done && at > done ? (int64_t)((at - done) / 1000) : 0;
+  }
   s.shared = shared;
   s.windowed = windowed;
   s.clocked = clock;
@@ -1426,13 +1721,14 @@ bool Cooperative(const CUlaunchConfig* config) {
 
 template <typename Launch>
 CUresult Metered(CostKey key, CUstream stream, bool ptsz, bool may_clock,
-                 Launch launch) {
+                 Launch launch, bool replay = false) {
   // A null stream in a _ptsz launch is the per-thread default stream, and
   // the events must go on that stream too.
   CUstream ev_stream = (ptsz && stream == nullptr) ? CU_STREAM_PER_THREAD
                                                    : stream;
   Ticket t;
-  BeforeLaunch(key, ev_stream, -1, /*may_sample=*/true, may_clock, &t);
+  BeforeLaunch(key, ev_stream, -1, /*may_sample=*/true, may_clock, &t,
+               replay);
   CUresult rc = launch();
   AfterLaunch(rc, &t);
   return rc;
@@ -1546,16 +1842,41 @@ VTPU_EXPORT CUresult cuGraphLaunch(CUgraphExec exec, CUstream stream) {
   auto real = VTPU_REAL(cuGraphLaunch);
   if (!real) return CUDA_ERROR_NOT_INITIALIZED;
   g_graph_launches.fetch_add(1, std::memory_order_relaxed);
-  return Metered(exec, stream, false, true,
-                 [&] { return real(exec, stream); });
+  return Metered(
+      exec, stream, false, true, [&] { return real(exec, stream); }, true);
 }
 
 VTPU_EXPORT CUresult cuGraphLaunch_ptsz(CUgraphExec exec, CUstream stream) {
   auto real = VTPU_REAL(cuGraphLaunch_ptsz);
   if (!real) return CUDA_ERROR_NOT_INITIALIZED;
   g_graph_launches.fetch_add(1, std::memory_order_relaxed);
-  return Metered(exec, stream, true, true,
-                 [&] { return real(exec, stream); });
+  return Metered(
+      exec, stream, true, true, [&] { return real(exec, stream); }, true);
+}
+
+// The synchronisations that close a step (see "Steps" above).
+VTPU_EXPORT CUresult cuStreamSynchronize(CUstream stream) {
+  auto real = VTPU_REAL(cuStreamSynchronize);
+  if (!real) return CUDA_ERROR_NOT_INITIALIZED;
+  return StepBoundary(real(stream));
+}
+
+VTPU_EXPORT CUresult cuStreamSynchronize_ptsz(CUstream stream) {
+  auto real = VTPU_REAL(cuStreamSynchronize_ptsz);
+  if (!real) return CUDA_ERROR_NOT_INITIALIZED;
+  return StepBoundary(real(stream));
+}
+
+VTPU_EXPORT CUresult cuCtxSynchronize() {
+  auto real = VTPU_REAL(cuCtxSynchronize);
+  if (!real) return CUDA_ERROR_NOT_INITIALIZED;
+  return StepBoundary(real());
+}
+
+VTPU_EXPORT CUresult cuEventSynchronize(CUevent event) {
+  auto real = VTPU_REAL(cuEventSynchronize);
+  if (!real) return CUDA_ERROR_NOT_INITIALIZED;
+  return StepBoundary(real(event));
 }
 
 // Counters a tenant reads over ctypes. Every launch the hooks saw, graph
@@ -1611,6 +1932,31 @@ VTPU_EXPORT uint64_t vtpu_stand_aside_ns_total() {
 // Samples the slice clock measured (beside a context outside the ledger).
 VTPU_EXPORT uint64_t vtpu_clocked_total() {
   return g_clocked.load(std::memory_order_relaxed);
+}
+
+// The step ring: records this process wrote, and the handover to a Python
+// writer (runtime/client.py step_telemetry): closes the interposer's
+// writer, which drops the ring's lock, and keeps it closed. 1 when it had
+// the ring.
+VTPU_EXPORT uint64_t vtpu_step_records_total() {
+  return g_step_records.load(std::memory_order_relaxed);
+}
+
+VTPU_EXPORT int vtpu_step_ring_release() {
+  std::lock_guard<std::mutex> lock(g_ring_mu);
+  int had = g_ring != nullptr;
+  delete g_ring;
+  g_ring = nullptr;
+  g_step_start_ns = 0;
+  g_ring_state.store(kRingOff, std::memory_order_release);
+  return had;
+}
+
+// The active excess table at `gap_us` (the feed's, else the
+// environment's), or -1 with none: what an isolated sample after that gap
+// is discounted, before the half-span cap.
+VTPU_EXPORT int64_t vtpu_obs_excess_at_us(int64_t gap_us) {
+  return HasActiveExcessTable() ? ActiveExcessAt(gap_us) : -1;
 }
 
 // The probe's estimate of an isolated sample's overhead on device 0.

@@ -245,6 +245,10 @@ Route g_routes[] = {
      (void*)&cuLaunchCooperativeKernelMultiDevice, nullptr},
     {"cuGraphLaunch", (void*)&cuGraphLaunch, nullptr},
     {"cuGraphLaunch_ptsz", (void*)&cuGraphLaunch_ptsz, nullptr},
+    {"cuStreamSynchronize", (void*)&cuStreamSynchronize, nullptr},
+    {"cuStreamSynchronize_ptsz", (void*)&cuStreamSynchronize_ptsz, nullptr},
+    {"cuCtxSynchronize", (void*)&cuCtxSynchronize, nullptr},
+    {"cuEventSynchronize", (void*)&cuEventSynchronize, nullptr},
     {"cuMemAlloc_v2", (void*)&cuMemAlloc_v2, nullptr},
     {"cuMemAllocPitch_v2", (void*)&cuMemAllocPitch_v2, nullptr},
     {"cuMemAllocManaged", (void*)&cuMemAllocManaged, nullptr},
@@ -327,6 +331,10 @@ const DeviceLimits* Dev(int slot) {
   return c.dev[slot].present ? &c.dev[slot] : nullptr;
 }
 
+namespace {
+size_t g_feed_bytes = 0;  // the mapped feed's size, set once by TcFeed
+}  // namespace
+
 // The node watcher's feed (loader.cc:211-241), read-only: v1 (records
 // only) or v2 (records and the calibration block).
 const TcUtilFile* TcFeed() {
@@ -352,9 +360,17 @@ const TcUtilFile* TcFeed() {
       return nullptr;
     }
     Log(kLogInfo, "watcher feed mapped: %s (v%u)", path, f->version);
+    g_feed_bytes = (size_t)st.st_size;
     return f;
   }();
   return feed;
+}
+
+const TcCalibration* TcFeedCalibration() {
+  const TcUtilFile* f = TcFeed();
+  if (!f || g_feed_bytes != sizeof(TcUtilFile) + sizeof(TcCalibration))
+    return nullptr;
+  return reinterpret_cast<const TcCalibration*>(f + 1);
 }
 
 void Log(int level, const char* fmt, ...) {

@@ -39,6 +39,27 @@
 //   --stress         threads allocating, freeing and launching at once: the
 //                    cap holds at every moment, the ledger drains to zero
 //                    and every launch is counted
+//   --steps          a tenant with no Python, for the step ring: first a
+//                    launch into a capturing stream and a synchronisation
+//                    of it (no step), then SHIM_TEST_ITERS steps, each
+//                    SHIM_TEST_KERNELS launches of its own kernels
+//                    (SHIM_TEST_LAUNCH=graph: SHIM_TEST_REPLAYS replays of
+//                    one captured kernel) and one synchronisation
+//                    (SHIM_TEST_SYNC stream, stream_ptsz, ctx, event, or
+//                    none: SHIM_TEST_GAP_US of sleep instead), resolved
+//                    by SHIM_TEST_ROUTE (proc: cuGetProcAddress, dlsym:
+//                    the driver's handle, export: the global scope),
+//                    then a second synchronisation with no launch; step
+//                    SHIM_TEST_NEW_AT also launches a kernel never seen
+//                    before, and step i holds (i % 3 + 1) x
+//                    SHIM_TEST_STEP_ALLOC bytes. Prints STEP i start_ns
+//                    end_ns per step, then
+//                    STEPS records=<the interposer's> and COUNTERS
+//   --excess         SHIM_TEST_ITERS launch+synchronize steps (the watcher
+//                    ticks and adopts the feed's calibration), then
+//                    EXCESS gap_us=excess_us for each gap of SHIM_TEST_GAPS
+//                    (comma-separated us): the interposer's active table
+//                    (-1: none), and COUNTERS
 //
 // (The counterpart of library/test/shim_test.cc.)
 
@@ -214,6 +235,11 @@ int Routes() {
       {"cuMipmappedArrayCreate", 0, "cuMipmappedArrayCreate"},
       {"cuArrayDestroy", 0, "cuArrayDestroy"},
       {"cuMipmappedArrayDestroy", 0, "cuMipmappedArrayDestroy"},
+      // the synchronisations that close a step
+      {"cuStreamSynchronize", 0, "cuStreamSynchronize"},
+      {"cuStreamSynchronize", ptsz, "cuStreamSynchronize_ptsz"},
+      {"cuCtxSynchronize", 0, "cuCtxSynchronize"},
+      {"cuEventSynchronize", 0, "cuEventSynchronize"},
   };
   for (const Lookup& l : kMore) {
     char label[128];
@@ -231,6 +257,15 @@ int Routes() {
   ok &= Expect("proc-v1:cuGetProcAddress", (void*)v1, shim_base,
                "cuGetProcAddress");
   ok &= Expect("proc-v1:cuLaunchKernel", via_v1, shim_base, "cuLaunchKernel");
+  void* sync_v1 = nullptr;
+  if (v1) v1("cuStreamSynchronize", &sync_v1, 12000, 0);
+  ok &= Expect("proc-v1:cuStreamSynchronize", sync_v1, shim_base,
+               "cuStreamSynchronize");
+  ok &= Expect("dlsym:cuCtxSynchronize", dlsym(g_driver, "cuCtxSynchronize"),
+               shim_base, "cuCtxSynchronize");
+  ok &= Expect("dlsym:cuEventSynchronize",
+               dlsym(g_driver, "cuEventSynchronize"), shim_base,
+               "cuEventSynchronize");
   // every other symbol passes through to the real driver
   auto real_address =
       reinterpret_cast<AddressFn>(dlsym(g_driver, "fake_real_address"));
@@ -721,6 +756,154 @@ int Stress() {
   return 0;
 }
 
+
+// The step ring's boundaries from a tenant with no Python (see the header).
+int Steps() {
+  auto env_int = [](const char* name, int dflt) {
+    const char* v = getenv(name);
+    return v && *v ? atoi(v) : dflt;
+  };
+  auto env_str = [](const char* name, const char* dflt) {
+    const char* v = getenv(name);
+    return std::string(v && *v ? v : dflt);
+  };
+  int iters = env_int("SHIM_TEST_ITERS", 10);
+  int kernels = env_int("SHIM_TEST_KERNELS", 3);
+  int replays = env_int("SHIM_TEST_REPLAYS", 1);
+  int new_at = env_int("SHIM_TEST_NEW_AT", -1);
+  int gap_us = env_int("SHIM_TEST_GAP_US", 0);
+  size_t alloc_bytes = (size_t)env_int("SHIM_TEST_STEP_ALLOC", 0);
+  std::string kind = env_str("SHIM_TEST_LAUNCH", "kernel");
+  std::string sync_kind = env_str("SHIM_TEST_SYNC", "stream");
+  std::string route = env_str("SHIM_TEST_ROUTE", "proc");
+  bool ptsz = sync_kind == "stream_ptsz";
+  const char* name = sync_kind == "ctx"     ? "cuCtxSynchronize"
+                     : sync_kind == "event" ? "cuEventSynchronize"
+                     : ptsz && route != "proc" ? "cuStreamSynchronize_ptsz"
+                                               : "cuStreamSynchronize";
+  void* sync_fn =
+      route == "dlsym"    ? dlsym(g_driver, name)
+      : route == "export" ? dlsym(RTLD_DEFAULT, name)
+                          : Proc(name, ptsz
+                                 ? CU_GET_PROC_ADDRESS_PER_THREAD_DEFAULT_STREAM
+                                 : 0);
+  auto launch = reinterpret_cast<LaunchFn>(Proc("cuLaunchKernel"));
+  auto graph_launch = reinterpret_cast<GraphLaunchFn>(Proc("cuGraphLaunch"));
+  auto stream_sync = reinterpret_cast<SyncFn>(Proc("cuStreamSynchronize"));
+  auto begin = reinterpret_cast<BeginCaptureFn>(Proc("cuStreamBeginCapture"));
+  auto end = reinterpret_cast<EndCaptureFn>(Proc("cuStreamEndCapture"));
+  using EventCreateFn = CUresult (*)(CUevent*, unsigned);
+  using EventRecordFn = CUresult (*)(CUevent, CUstream);
+  auto ev_create = reinterpret_cast<EventCreateFn>(Proc("cuEventCreate"));
+  auto ev_record = reinterpret_cast<EventRecordFn>(Proc("cuEventRecord"));
+  auto alloc = reinterpret_cast<AllocFn>(Proc("cuMemAlloc"));
+  auto release_ptr = reinterpret_cast<FreeFn>(Proc("cuMemFree"));
+  if ((sync_kind != "none" && !sync_fn) || !launch || !graph_launch ||
+      !stream_sync || !begin || !end || !ev_create || !ev_record || !alloc ||
+      !release_ptr) {
+    fprintf(stderr, "driver entry points missing (%s via %s)\n", name,
+            route.c_str());
+    return 2;
+  }
+  CUevent ev = nullptr;
+  ev_create(&ev, 0);
+  auto sync = [&]() -> CUresult {
+    if (sync_kind == "ctx")
+      return reinterpret_cast<CUresult (*)()>(sync_fn)();
+    if (sync_kind == "event") {
+      ev_record(ev, kStream);
+      return reinterpret_cast<CUresult (*)(CUevent)>(sync_fn)(ev);
+    }
+    return reinterpret_cast<SyncFn>(sync_fn)(kStream);
+  };
+  // a captured launch and a synchronisation of the capturing stream (which
+  // fails): neither opens nor closes a step
+  CUgraph dropped = nullptr;
+  CUfunction captured = reinterpret_cast<CUfunction>(0x4fff);
+  if (begin(kStream2, CU_STREAM_CAPTURE_MODE_RELAXED) == CUDA_SUCCESS) {
+    launch(captured, 1, 1, 1, 1, 1, 1, 0, kStream2, nullptr, nullptr);
+    CUresult rc = stream_sync(kStream2);
+    end(kStream2, &dropped);
+    printf("CAPTURED sync_rc=%d\n", rc);
+  }
+  CUgraphExec exec = nullptr;
+  if (kind == "graph" &&
+      !(exec = CaptureOne(reinterpret_cast<CUfunction>(0x4ffe)))) {
+    fprintf(stderr, "capturing the graph failed\n");
+    return 1;
+  }
+  for (int i = 0; i < iters; i++) {
+    struct timespec ts;
+    clock_gettime(CLOCK_MONOTONIC, &ts);
+    uint64_t t0 = (uint64_t)ts.tv_sec * 1000000000ull + ts.tv_nsec;
+    // step i holds (i % 3 + 1) x SHIM_TEST_STEP_ALLOC bytes until its end
+    CUdeviceptr held = 0;
+    if (alloc_bytes &&
+        alloc(&held, alloc_bytes * (i % 3 + 1)) != CUDA_SUCCESS)
+      return 1;
+    int n = kind == "graph" ? replays : kernels;
+    for (int k = 0; k < n; k++) {
+      CUresult rc =
+          kind == "graph"
+              ? graph_launch(exec, kStream)
+              : launch(reinterpret_cast<CUfunction>(0x5000 + 16 * k), 1, 1, 1,
+                       1, 1, 1, 0, kStream, nullptr, nullptr);
+      if (rc != CUDA_SUCCESS) return 1;
+    }
+    if (i == new_at &&
+        launch(reinterpret_cast<CUfunction>(0x6000), 1, 1, 1, 1, 1, 1, 0,
+               kStream, nullptr, nullptr) != CUDA_SUCCESS)
+      return 1;
+    if (sync_kind == "none") {
+      usleep(gap_us);
+    } else if (sync() != CUDA_SUCCESS || sync() != CUDA_SUCCESS) {
+      return 1;
+    }
+    if (held) release_ptr(held);
+    clock_gettime(CLOCK_MONOTONIC, &ts);
+    uint64_t t1 = (uint64_t)ts.tv_sec * 1000000000ull + ts.tv_nsec;
+    printf("STEP %d %llu %llu\n", i, (unsigned long long)t0,
+           (unsigned long long)t1);
+  }
+  printf("STEPS records=%lld\n", (long long)Counter("vtpu_step_records_total"));
+  PrintCounters();
+  return 0;
+}
+
+// The interposer's active excess table, after a few metered steps.
+int Excess() {
+  const char* raw = getenv("SHIM_TEST_ITERS");
+  int iters = raw ? atoi(raw) : 20;
+  auto launch = reinterpret_cast<LaunchFn>(Proc("cuLaunchKernel"));
+  auto sync = reinterpret_cast<SyncFn>(Proc("cuStreamSynchronize"));
+  auto excess = reinterpret_cast<int64_t (*)(int64_t)>(
+      dlsym(RTLD_DEFAULT, "vtpu_obs_excess_at_us"));
+  if (!launch || !sync || !excess) {
+    fprintf(stderr, "entry points missing\n");
+    return 2;
+  }
+  CUfunction fn = reinterpret_cast<CUfunction>(0x1234);
+  for (int i = 0; i < iters; i++) {
+    if (launch(fn, 1, 1, 1, 1, 1, 1, 0, kStream, nullptr, nullptr) !=
+        CUDA_SUCCESS)
+      return 1;
+    sync(kStream);
+  }
+  usleep(50000);  // a few of the watcher's ticks
+  printf("EXCESS");
+  const char* gaps = getenv("SHIM_TEST_GAPS");
+  for (const char* p = gaps ? gaps : ""; *p;) {
+    char* end = nullptr;
+    long long gap = strtoll(p, &end, 10);
+    if (end == p) break;
+    printf(" %lld=%lld", gap, (long long)excess(gap));
+    p = *end == ',' ? end + 1 : end;
+  }
+  printf("\n");
+  PrintCounters();
+  return 0;
+}
+
 }  // namespace
 
 int main(int argc, char** argv) {
@@ -744,8 +927,10 @@ int main(int argc, char** argv) {
   if (strcmp(mode, "--alloc") == 0) return Alloc();
   if (strcmp(mode, "--capture") == 0) return Capture();
   if (strcmp(mode, "--entry-caps") == 0) return EntryCaps();
+  if (strcmp(mode, "--steps") == 0) return Steps();
+  if (strcmp(mode, "--excess") == 0) return Excess();
   fprintf(stderr, "usage: %s --routes|--caps|--throttle-only|--alloc|"
-          "--stress|--capture|--entry-caps\n",
+          "--stress|--capture|--entry-caps|--steps|--excess\n",
           argv[0]);
   return 2;
 }

@@ -746,7 +746,16 @@ FAKE_EXPORT CUresult cuGraphLaunch_ptsz(CUgraphExec exec, CUstream stream) {
   return GraphLaunch(exec, stream);
 }
 
-FAKE_EXPORT CUresult cuStreamSynchronize(CUstream) {
+FAKE_EXPORT CUresult cuStreamSynchronize(CUstream stream) {
+  {
+    // a capturing stream cannot be synchronised, and the call invalidates
+    // its capture
+    std::lock_guard<std::mutex> lock(g_mu);
+    if (CapturedLocked(stream)) {
+      g_capture.invalidated = true;
+      return CUDA_ERROR_STREAM_CAPTURE_UNSUPPORTED;
+    }
+  }
   if (Sliced()) {
     while (!IdleSliced()) usleep(50);
   } else {
@@ -763,6 +772,10 @@ FAKE_EXPORT CUresult cuStreamSynchronize(CUstream) {
 }
 
 FAKE_EXPORT CUresult cuCtxSynchronize() { return cuStreamSynchronize(nullptr); }
+
+FAKE_EXPORT CUresult cuStreamSynchronize_ptsz(CUstream stream) {
+  return cuStreamSynchronize(stream);
+}
 
 FAKE_EXPORT CUresult cuStreamQuery(CUstream stream) {
   std::lock_guard<std::mutex> lock(g_mu);
@@ -839,6 +852,15 @@ bool EventDone(FakeEvent* e) {
     e->seq = 0;
   }
   return NowNs() >= e->at_ns;
+}
+
+FAKE_EXPORT CUresult cuEventSynchronize(CUevent ev) {
+  auto* e = reinterpret_cast<FakeEvent*>(ev);
+  if (!e || !e->recorded) return CUDA_ERROR_INVALID_VALUE;
+  while (!EventDone(e)) usleep(50);
+  std::lock_guard<std::mutex> lock(g_mu);
+  ApplyClockLocked();
+  return CUDA_SUCCESS;
 }
 
 FAKE_EXPORT CUresult cuEventQuery(CUevent ev) {
@@ -1041,6 +1063,8 @@ FAKE_EXPORT void* fake_real_address(const char* name) {
       {"cuLaunchKernelEx_ptsz", (void*)&cuLaunchKernelEx_ptsz},
       {"cuStreamSynchronize", (void*)&cuStreamSynchronize},
       {"cuCtxSynchronize", (void*)&cuCtxSynchronize},
+      {"cuStreamSynchronize_ptsz", (void*)&cuStreamSynchronize_ptsz},
+      {"cuEventSynchronize", (void*)&cuEventSynchronize},
       {"cuStreamIsCapturing", (void*)&cuStreamIsCapturing},
       {"cuStreamQuery", (void*)&cuStreamQuery},
       {"cuMemsetD32Async", (void*)&cuMemsetD32Async},
@@ -1074,7 +1098,7 @@ FAKE_EXPORT CUresult cuGetProcAddress_v2(const char* symbol, void** pfn,
   static const char* kPtsz[] = {
       "cuLaunchKernel",  "cuLaunchKernelEx",          "cuMemAllocAsync",
       "cuMemFreeAsync",  "cuLaunchCooperativeKernel", "cuGraphLaunch",
-      "cuMemAllocFromPoolAsync"};
+      "cuMemAllocFromPoolAsync", "cuStreamSynchronize"};
   static const char* kV2[] = {
       "cuMemAlloc",       "cuMemFree",     "cuMemGetInfo",
       "cuDeviceTotalMem", "cuEventDestroy", "cuMemAllocPitch",

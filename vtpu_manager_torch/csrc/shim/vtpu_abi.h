@@ -145,8 +145,8 @@ struct TcUtilFile {
 static_assert(offsetof(TcUtilFile, records) == 16, "ABI");
 static_assert(sizeof(TcUtilFile) == 16 + 64 * (24 + 32 * 24), "ABI");
 
-// v2: one calibration block after the records (written by the node, not
-// adopted by this interposer yet).
+// v2: one calibration block after the records: the node's excess table
+// (manager/obs_calibrate.py), which the interposer adopts at its tick.
 struct TcCalibration {
   uint64_t seq;
   uint64_t timestamp_ns;

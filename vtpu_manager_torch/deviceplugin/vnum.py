@@ -533,6 +533,12 @@ class VnumPlugin(DevicePluginServicer):
                                      read_only=True))
         resp.envs[consts.ENV_REAL_CUDA_LIBRARY_PATH] = self.real_libcuda_path
         resp.envs[consts.ENV_CONFIG_PATH] = consts.CONTAINER_CONFIG
+        if self.manager.obs_excess_table is not None:
+            # the node's calibrated excess table: the interposer discounts
+            # an isolated sample by it in place of its own probe
+            # (manager/obs_calibrate.py)
+            resp.envs[consts.ENV_OBS_EXCESS_TABLE] = \
+                self.manager.obs_excess_table
         return resp
 
     # -- records and PreStartContainer ----------------------------------------

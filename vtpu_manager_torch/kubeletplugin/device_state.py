@@ -25,8 +25,9 @@ the JAX failpoints where they fire: `dra.prepare` after the idempotency
 check, before anything is written, and `dra.cdi_write` after the CDI spec
 lands and before the checkpoint, so a torn spec (partial-write) never
 backs a checkpointed claim and the retried Prepare writes it whole.
-`obs_excess_table` is a parameter that the entry point leaves None (no
-calibration yet).
+`obs_excess_table` is the card's calibrated excess table
+(`manager/obs_calibrate.py`), which `cmd/kubelet_plugin.py` measures at
+start-up; None (uncalibrated) leaves `VTPU_OBS_EXCESS_TABLE` out.
 """
 
 from __future__ import annotations

@@ -5,9 +5,10 @@ The port of the JAX package's `manager/device_manager.py:63-268`
 through `tpu/discovery.py` (NVML on a GPU node); the node config shapes the
 devices; `register_node` publishes the registry the scheduler reads and a
 heartbeat. A GPU's device node is `/dev/nvidia<minor>`, the minor from NVML.
-
-Not ported: the observation calibration (`obs_excess_table` stays None, so
-each tenant's interposer runs its own idle-time probe).
+`calibrate_obs_overhead` measures the card's excess table
+(`manager/obs_calibrate.py`), which Allocate hands each tenant's
+interposer; uncalibrated, `obs_excess_table` stays None and each
+interposer runs its own idle-time probe.
 """
 
 from __future__ import annotations
@@ -68,7 +69,7 @@ class DeviceManager:
         self.chips: list[ChipSpec] = []
         self.mesh: MeshSpec = MeshSpec()
         self.minors: dict[int, int] = {}     # host index -> device minor
-        # not calibrated: tenants' interposers use their own probe
+        # until calibrated, tenants' interposers use their own probe
         self.obs_excess_table: str | None = None
         self._health_listeners: list[Callable[[ChipSpec], None]] = []
         self._stop = threading.Event()
@@ -102,6 +103,27 @@ class DeviceManager:
             raise KeyError(f"device {host_index} has no device-node minor "
                            "(discover by NVML to name /dev/nvidia<minor>)")
         return f"/dev/nvidia{self.minors[host_index]}"
+
+    def calibrate_obs_overhead(self, table: str | None = "") -> str | None:
+        """Measures the card's excess table in a throwaway process (the
+        card must be free: call before serving) and publishes it on the
+        node for observation; `table` adopts a table measured elsewhere
+        instead (device_manager.py:114-131)."""
+        if table == "":
+            from vtpu_manager_torch.manager import obs_calibrate
+            table = obs_calibrate.calibrate_in_subprocess()
+        self.obs_excess_table = table
+        if table is not None:
+            try:
+                self.client.patch_node_annotations(
+                    self.node_name,
+                    {consts.node_obs_overhead_annotation(): table})
+            # the annotation is for observation only
+            except Exception:  # noqa: BLE001
+                log.warning("obs-overhead annotation patch failed (the "
+                            "table still reaches tenants through Allocate)",
+                            exc_info=True)
+        return table
 
     # -- registration / heartbeat --------------------------------------------
 

@@ -206,6 +206,13 @@ class TcWatcherDaemon:
         # tick; the token is in the key because pids are namespace-local
         self._last_activity: dict[tuple[int, int, int], int] = {}
 
+    def publish_calibration(self, table: list[tuple[int, int]]) -> None:
+        """Writes the node's excess table (manager/obs_calibrate.py) into
+        the feed's calibration block; running interposers adopt it at
+        their next tick, where the Allocate env reaches only tenants that
+        start after it (watcher.py:69-73)."""
+        self.tc_file.write_calibration(table)
+
     def tick(self, now_ns: int | None = None) -> None:
         now_ns = time.monotonic_ns() if now_ns is None else now_ns
         entries = self.vmem.entries() if self.vmem is not None else []

@@ -222,6 +222,21 @@ _step_telemetry = None
 _step_telemetry_checked = False
 
 
+def _take_ring_from_interposer() -> None:
+    """The interposer writes the ring itself for a tenant whose step loop
+    does not (`csrc/shim/enforce_rate.cc`, "Steps"), from its first launch
+    on. A Python writer takes over: the interposer's writer closes, which
+    drops the ring's lock, and stays closed; the Python writer continues
+    the ring's index. Without the interposer, nothing to do."""
+    try:
+        release = ctypes.CDLL(None).vtpu_step_ring_release
+    except (OSError, AttributeError):
+        return
+    release.restype = ctypes.c_int
+    release.argtypes = []
+    release()
+
+
 def step_telemetry():
     """The tenant's step-ring writer, or None when the device plugin did
     not arm StepTelemetry for this container. After the first call this is
@@ -237,6 +252,7 @@ def step_telemetry():
     path = os.environ.get(consts.ENV_STEP_RING_PATH) or os.path.join(
         consts.MANAGER_BASE_DIR, consts.TELEMETRY_SUBDIR,
         consts.STEP_RING_NAME)
+    _take_ring_from_interposer()
     try:
         _step_telemetry = stepring.StepRingWriter(
             path, trace_id=os.environ.get(consts.ENV_TRACE_ID, ""))

@@ -88,6 +88,7 @@ NVML_ERROR_NOT_SUPPORTED = 3
 NVML_ERROR_NOT_FOUND = 6
 NVML_ERROR_INSUFFICIENT_SIZE = 7
 NVML_VALUE_NOT_AVAILABLE = 2**64 - 1
+NVML_CLOCK_SM = 1
 
 
 class _NvmlProcessInfo(ctypes.Structure):
@@ -180,6 +181,30 @@ class Nvml:
         self._call("nvmlDeviceGetUtilizationRates", handle,
                    ctypes.byref(util))
         return int(util.gpu)
+
+    def sm_clock_mhz(self, handle) -> int:
+        """The SM clock now (nvmlDeviceGetClockInfo, NVML_CLOCK_SM)."""
+        n = ctypes.c_uint(0)
+        self._call("nvmlDeviceGetClockInfo", handle,
+                   ctypes.c_int(NVML_CLOCK_SM), ctypes.byref(n))
+        return n.value
+
+    def power_mw(self, handle) -> int:
+        """The card's power draw now, in milliwatts."""
+        n = ctypes.c_uint(0)
+        self._call("nvmlDeviceGetPowerUsage", handle, ctypes.byref(n))
+        return n.value
+
+    def clocks_event_reasons(self, handle) -> int:
+        """The bit mask of why the clocks are below their maximum now
+        (nvmlDeviceGetCurrentClocksEventReasons; the older name on a
+        driver that lacks it)."""
+        n = ctypes.c_ulonglong(0)
+        name = ("nvmlDeviceGetCurrentClocksEventReasons"
+                if hasattr(self.lib, "nvmlDeviceGetCurrentClocksEventReasons")
+                else "nvmlDeviceGetCurrentClocksThrottleReasons")
+        self._call(name, handle, ctypes.byref(n))
+        return n.value
 
     def compute_processes(self, handle) -> list[tuple[int, int]]:
         """(pid, bytes) of each process with a compute context on the

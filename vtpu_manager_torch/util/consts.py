@@ -122,6 +122,12 @@ def node_device_heartbeat_annotation() -> str:
     return _ann("node-device-heartbeat")
 
 
+def node_obs_overhead_annotation() -> str:
+    """The node's calibrated excess table ("gap_us:excess_us,...",
+    manager/obs_calibrate.py); for observation only."""
+    return _ann("node-obs-excess-table")
+
+
 def node_pressure_annotation() -> str:
     """The node's step-ring pressure rollup,
     `<throttle_frac>:<hbm_headroom>@<ts>` (telemetry/pressure.py), which

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from vtpu_manager_torch.util.torchplatform import resolve_device
+
 NEG_INF = float("-inf")
 
 
@@ -44,9 +46,11 @@ def merge_partials(o1, m1, l1, o2, m2, l2):
 
 
 def _block_bias(q_idx: int, k_idx: int, seq_shard: int, causal: bool,
-                device: torch.device | str = "cpu") -> torch.Tensor:
+                device: torch.device | str | None = None) -> torch.Tensor:
     """Additive bias for a (query-block, key-block) pair. Causal: key block
-    after query block is fully masked; same block gets the triangle."""
+    after query block is fully masked; same block gets the triangle. On the
+    card unless `device` says otherwise."""
+    device = resolve_device(device)
     if not causal or k_idx < q_idx:
         return torch.zeros((seq_shard, seq_shard), dtype=torch.float32,
                            device=device)
