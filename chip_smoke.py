@@ -171,7 +171,23 @@ result line:
    stream in its ring with an unbroken index. Its tenants' `attn_block`
    launches are added to the kernel record's. One `OBSERVATION {json}`
    line per check. The other phases start their plugins with
-   `VTPU_OBS_CALIBRATE=0`, as they were accepted.
+   `VTPU_OBS_CALIBRATE=0`, as they were accepted;
+14. distributed (`vtpu_manager_torch/graft_entry.py`): the multi-device
+   dry run on `torch.distributed`. World 1 over NCCL:
+   `dryrun_multichip(1)` at the trainer's default config (the sharded
+   step's loss finite and within 5e-2 of one process's, the ring within
+   3e-5 of exact attention, the pipeline and the MoE layer within 1e-5 of
+   their references). World 2 over gloo on this one card (NCCL refuses two
+   ranks on one device): two rank processes under the interposer as one
+   pod's two processes (q100, one 16 GiB cap), started with the phase and
+   held at a go file while world 1 runs. Each runs the causal ring with
+   the block-attention kernel as its block function at the attention
+   probe's shape per rank (8, 16, 512, 128), 1024 tokens in all: 2 kernel
+   launches per rank, each one launch to the rank's interposer, the output
+   within 1e-4 of the plain ring and of exact attention; then the pipeline
+   and MoE checks over both ranks and the sharded step at (data 2, model
+   1) and (data 1, model 2) against one process. Its kernel launches are
+   added to the kernel record's. `DISTRIBUTED` lines.
 
 The last three lines are the nvidia-smi line, the kernels JSON and the
 result JSON.
@@ -682,6 +698,115 @@ def observation(torch, shim: str) -> dict:
             + late["attn_block_launches"]}
 
 
+def shared_card_rank(rank, shape=(8, 16, 1024, 128), tol: float = 1e-4
+                     ) -> dict:
+    """One of several ranks sharing the card over gloo (a
+    `workloads/ranks.py` job, which the rank processes import from the
+    repo's root): the causal ring with the block-attention kernel as its
+    block function on full q, k, v of `shape` (the attention probe's shard
+    per rank at two ranks), held within `tol` of the plain ring and of
+    `reference_attention` (the kernel's tolerance, absolute); the kernel's
+    launches as its wrapper counts them and, under the interposer, as the
+    interposer counts each one; then the pipeline and MoE checks over
+    every rank, and the sharded step at (data n, model 1) and (data 1,
+    model n) against one process."""
+    import torch
+    import torch.distributed as dist
+
+    from vtpu_manager_torch import graft_entry as ge
+    from vtpu_manager_torch.bench_quota import shim_counters
+    from vtpu_manager_torch.util.torchplatform import exact_fp32
+    from vtpu_manager_torch.workloads import block_attention as ba, trainer
+
+    exact_fp32()
+    dev, n = rank.device, rank.world
+    world = dist.group.WORLD
+    kernel = ba.make_block_fn()
+    shim_deltas = []
+
+    def counted(*args):
+        before = shim_counters().get("vtpu_launches_total")
+        out = kernel(*args)
+        if before is not None:
+            shim_deltas.append(shim_counters()["vtpu_launches_total"]
+                               - before)
+        return out
+
+    shape = tuple(shape)
+    ba.reset_launches()
+    t0 = time.perf_counter()
+    ref_err, out = ge.check_ring(world, shape, dev, tol, 0.0,
+                                 block_fn=counted)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    ring_s = time.perf_counter() - t0
+    launches = ba.LAUNCHES["attn_block"]
+    plain_err, plain = ge.check_ring(world, shape, dev, tol, 0.0)
+    plain_diff = float((out - plain).abs().max())
+    if plain_diff > tol:
+        raise AssertionError(f"kernel ring off the plain ring: {plain_diff}")
+    steps = {}
+    for data, model in ((n, 1), (1, n)):
+        mesh = trainer.make_mesh(dev.type, data=data, model=model)
+        steps[f"{data}x{model}"] = ge.check_step(
+            mesh, trainer.model_config(), dev)
+    return {"ring_err_ref": ref_err * tol, "ring_plain_err_ref":
+            plain_err * tol, "ring_diff_plain": plain_diff,
+            "ring_s": ring_s, "attn_block_launches": launches,
+            "shim_launch_deltas": shim_deltas,
+            "pipeline_err": ge.check_pipeline(world, dev),
+            "moe_err": ge.check_moe(world, dev), "steps": steps,
+            "device": str(dev)}
+
+
+def distributed(torch, shim: str) -> dict:
+    """World 1 over NCCL: `dryrun_multichip(1)` at the trainer's default
+    config. World 2 over gloo on this one card (NCCL refuses two ranks on
+    one device): two rank processes under the interposer as one pod's two
+    processes (its identity, q100, one 16 GiB cap), started before world 1
+    runs and held at a go file until it is done."""
+    import tempfile
+    from pathlib import Path
+
+    from vtpu_manager_torch import bench_quota as bq, graft_entry
+    from vtpu_manager_torch.workloads import ranks, trainer
+
+    props = torch.cuda.get_device_properties(0)
+    with tempfile.TemporaryDirectory(prefix="vtpu-node-") as root:
+        world = bq.World(root)
+        env = world.env(shim, "pod-dist", cap=16 << 30,
+                        real_memory=int(props.total_memory))
+        go = world.go_file("distributed")
+        t0 = time.perf_counter()
+        with ranks.Ranks("chip_smoke:shared_card_rank",
+                         2, device="cuda", backend="gloo", env=env,
+                         go_file=go) as pair:
+            one = graft_entry.dryrun_multichip(
+                1, cfg=trainer.model_config(), timeout=300)
+            t1 = time.perf_counter()
+            Path(go).touch()
+            two = pair.results(timeout=300)
+        t2 = time.perf_counter()
+    for rank, r in enumerate(two):
+        log(f"DISTRIBUTED rank {rank} " + json.dumps(r))
+    bad = [i for i, r in enumerate(two)
+           if r["attn_block_launches"] != 2
+           or r["shim_launch_deltas"] != [1, 1]]
+    if bad:
+        raise AssertionError(f"ranks {bad}: the kernel ring did not launch "
+                             f"attn_block twice, each seen by the "
+                             f"interposer: {two}")
+    report = {"world1": one[0], "world1_s": t1 - t0, "world2_s": t2 - t1,
+              "ring_diff_plain": max(r["ring_diff_plain"] for r in two),
+              "ring_err_ref": max(r["ring_err_ref"] for r in two),
+              "ring_s": [r["ring_s"] for r in two],
+              "steps": [r["steps"] for r in two],
+              "attn_block_launches": sum(r["attn_block_launches"]
+                                         for r in two)}
+    log("DISTRIBUTED report " + json.dumps(report))
+    return report
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -756,9 +881,14 @@ def main() -> int:
                                   str(paths["shim"]))
     summary["observation"] = phase("observation", observation, torch,
                                    str(paths["shim"]))
-    if record is not None and summary["observation"] is not None:
-        # the observation phase's tenants launch the kernel on their path
-        record["launches"] += summary["observation"]["attn_block_launches"]
+    summary["distributed"] = phase("distributed", distributed, torch,
+                                   str(paths["shim"]))
+    if record is not None:
+        # the observation phase's tenants and the distributed phase's ranks
+        # launch the kernel on their paths
+        for name in ("observation", "distributed"):
+            if summary[name] is not None:
+                record["launches"] += summary[name]["attn_block_launches"]
     log("SUMMARY " + json.dumps(summary, default=str))
     if failures or record is None:
         print(f"chip_smoke: failed phases: {failures}", file=sys.stderr)

@@ -465,3 +465,39 @@ def test_dra_card_path_runs_without_grpc_protobuf_or_yaml(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
     assert "LOADED []" in res.stdout
+
+
+# --- the multi-device dry run (graft_entry.dryrun_multichip) ------------
+
+def test_dryrun_multichip_on_four_cpu_ranks(capsys):
+    # the JAX entry's checks at its shapes and tolerances, on four gloo
+    # ranks: a (data 2, model 2) mesh, the ring over "data", the pipeline
+    # and the MoE layer over all four
+    from vtpu_manager_torch import graft_entry
+    records = graft_entry.dryrun_multichip(4, device="cpu", timeout=240)
+    verdict = capsys.readouterr().out
+    assert ("dryrun_multichip(4): mesh={'data': 2, 'model': 2}" in verdict
+            and "ring-attention OK pipeline OK moe OK" in verdict), verdict
+    assert len(records) == 4 and len({r["loss"] for r in records}) == 1
+    for r in records:
+        assert r["device"] == "cpu"
+        assert abs(r["loss"] - r["single_loss"]) < 5e-2     # bf16 bound
+        # each error in units of its tolerance: within at <= 1
+        assert max(r["ring_err"], r["pipeline_err"], r["moe_err"]) <= 1
+
+
+def test_dryrun_multichip_never_drops_to_the_cpu():
+    # no card here: ranks asked for the card fail, and the run with them
+    from vtpu_manager_torch import graft_entry
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        graft_entry.dryrun_multichip(2, timeout=120)
+
+
+def test_rank_device_rule():
+    from vtpu_manager_torch.workloads import ranks
+    assert ranks.default_backend("cpu") == "gloo"
+    assert ranks.rank_device(3, "cpu", "gloo").type == "cpu"
+    with pytest.raises(ValueError):
+        ranks.rank_device(0, "cpu", "nccl")     # NCCL ranks hold a card
+    with pytest.raises(ValueError):
+        ranks.rank_device(0, "cpu", "mpi")

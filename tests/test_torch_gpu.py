@@ -542,3 +542,19 @@ def test_cold_node_fetches_the_compiled_step_from_a_warm_peer(card, tmp_path,
                                                       key)]
     for x, y in zip(outs["a"], outs["b"]):
         assert (x.float() - y.float()).abs().max().item() <= TOL
+
+
+@pytest.mark.gpu
+def test_two_gloo_ranks_on_the_card_run_the_kernel_ring(card):
+    # NCCL refuses two ranks on one device; gloo shares the card, staging
+    # the K/V rotation through pinned host buffers. The job is the card
+    # phase's own (chip_smoke.py, importable from the repo's root), at a
+    # smaller ring.
+    from vtpu_manager_torch.workloads import ranks
+    results = ranks.launch("chip_smoke:shared_card_rank", 2, device="cuda",
+                           backend="gloo", args={"shape": [2, 4, 256, 64],
+                                                 "tol": TOL}, timeout=300)
+    for r in results:
+        assert r["ring_diff_plain"] <= TOL, results
+        assert r["ring_err_ref"] <= TOL, results
+        assert r["attn_block_launches"] == 2, results    # one per ring step

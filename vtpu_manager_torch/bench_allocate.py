@@ -491,7 +491,7 @@ class Phase:
 def _tenant(args) -> None:
     import torch
 
-    from vtpu_manager_torch.bench_quota import (_shim_counters, _wait_file,
+    from vtpu_manager_torch.bench_quota import (shim_counters, _wait_file,
                                                 kernel_launch_once)
     from vtpu_manager_torch.bench_steps import quota_step_measure
     from vtpu_manager_torch.runtime.client import effective_limits
@@ -516,7 +516,7 @@ def _tenant(args) -> None:
         "pid": os.getpid(), "ms_per_step": ms,
         "steps": args.warmup + args.steps, "source": limits.source,
         "claim": claim, "free": free, "total": total, "over_claim": verdict,
-        **kernel_launch_once(), **_shim_counters()}), flush=True)
+        **kernel_launch_once(), **shim_counters()}), flush=True)
 
 
 def main(argv=None) -> None:

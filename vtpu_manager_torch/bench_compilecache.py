@@ -418,7 +418,7 @@ def _tenant(args) -> None:
     rt.install()
     import torch
 
-    from vtpu_manager_torch.bench_quota import _shim_counters, _wait_file
+    from vtpu_manager_torch.bench_quota import shim_counters, _wait_file
     from vtpu_manager_torch.workloads import block_attention as attn
     from vtpu_manager_torch.workloads import compiled_step as cs
 
@@ -459,10 +459,10 @@ def _tenant(args) -> None:
     torch.save([y[::64, ::64].float().cpu(), a[:, :, ::8].cpu()], args.out)
     # one more call of the operator, between two reads of the interposer's
     # launch counter
-    before = _shim_counters().get("vtpu_launches_total", 0)
+    before = shim_counters().get("vtpu_launches_total", 0)
     torch.ops.vtpu.attn_block(*inputs[1:])
     torch.cuda.synchronize()
-    shim_delta = _shim_counters().get("vtpu_launches_total", 0) - before
+    shim_delta = shim_counters().get("vtpu_launches_total", 0) - before
     # the container's ring holds a record per replica that ran in it; this
     # one's is the last
     ring_compiled = False

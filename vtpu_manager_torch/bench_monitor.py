@@ -686,7 +686,7 @@ class Phase:
 def _tenant(args) -> None:
     import torch
 
-    from vtpu_manager_torch.bench_quota import _shim_counters, _wait_file
+    from vtpu_manager_torch.bench_quota import shim_counters, _wait_file
     from vtpu_manager_torch.bench_steps import (ATTN_SHAPE, _quota_input,
                                                 _quota_step)
     from vtpu_manager_torch.runtime.client import step_telemetry
@@ -716,7 +716,7 @@ def _tenant(args) -> None:
         steps += 1
 
     def charged() -> int:
-        return _shim_counters().get("vtpu_charged_ns_total", 0)
+        return shim_counters().get("vtpu_charged_ns_total", 0)
 
     for _ in range(WARMUP):
         step()
@@ -737,7 +737,7 @@ def _tenant(args) -> None:
     print("WORKER " + json.dumps({
         "pid": os.getpid(), "records": steps, "hold_bytes": hold.numel(),
         "attn_launches": attn.LAUNCHES["attn_block"],
-        **_shim_counters()}), flush=True)
+        **shim_counters()}), flush=True)
 
 
 # --- F4's pair ---------------------------------------------------------------
@@ -949,7 +949,7 @@ def _pair_worker(args) -> None:
 
     import torch
 
-    from vtpu_manager_torch.bench_quota import _shim_counters
+    from vtpu_manager_torch.bench_quota import shim_counters
     from vtpu_manager_torch.bench_steps import _quota_input, _quota_step
     dev = torch.device("cuda")
     x = _quota_input(args.dim, dev)
@@ -991,7 +991,7 @@ def _pair_worker(args) -> None:
                               charged() if charged else 0))
             print("RUN " + json.dumps({"marks": marks}), flush=True)
         elif cmd == "COUNTERS":
-            print("COUNTERS " + json.dumps(_shim_counters()), flush=True)
+            print("COUNTERS " + json.dumps(shim_counters()), flush=True)
 
 
 def main(argv=None) -> int:

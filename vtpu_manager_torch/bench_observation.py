@@ -314,7 +314,7 @@ class Phase:
 def _tenant(args) -> None:
     import torch
 
-    from vtpu_manager_torch.bench_quota import _shim_counters, _wait_file
+    from vtpu_manager_torch.bench_quota import shim_counters, _wait_file
 
     from vtpu_manager_torch.bench_steps import (ATTN_SHAPE, _quota_input,
                                                 _quota_step)
@@ -357,7 +357,7 @@ def _tenant(args) -> None:
         "excess_at": {str(g): int(lib.vtpu_obs_excess_at_us(g))
                       for g in (0, *(1000 * g for g in GAPS_MS))},
         "attn_block_launches": attn.LAUNCHES["attn_block"],
-        **_shim_counters()}), flush=True)
+        **shim_counters()}), flush=True)
 
 
 def excess_effect(shim: str, table: str, quota: int = 25,

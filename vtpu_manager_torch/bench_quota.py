@@ -13,7 +13,9 @@ that subprocess only):
   averaged over the throttled quotas;
 - memory cap: under a 64 MiB cap the card must report a 64 MiB total and
   a 256 MiB tensor must fail with torch.cuda.OutOfMemoryError;
-- fake sweep: the same quotas against the fake driver, with no card;
+- fake sweep: the same quotas against the fake driver, with no card,
+  unpaired (`run_fake_sweep`) or paired as the card's sweep is
+  (`paired_fake_sweep`);
 - co-tenancy (`World`, `run_tenants`): tenants that each read their limits
   from their own `vtpu.config` (`tenant_config`, fields as the device
   plugin writes them, `deviceplugin/vnum.py:370-399`) and share one memory
@@ -306,6 +308,26 @@ def run_fake_sweep(iters: int = 100, exec_us: int = 2000,
     return out if len(out) == len(quotas) else None
 
 
+def paired_fake_sweep() -> tuple[dict[int, float], dict[int, float]] | None:
+    """(ms/step, share %) per quota against the fake driver, paired as the
+    card's sweep is (`paired_quota_sweep`): each rep runs (t100, tq) back to
+    back, and the pair with the least summed wall gives the share. The
+    throttled runs are paced by the interposer; the unthrottled run is not,
+    so on a loaded host its wall carries the host's stalls, and one stalled
+    t100 of a single unpaired run moves both shares by as much."""
+    iters = 100
+
+    def run(quota: int) -> dict | None:
+        res = run_fake_harness(
+            "--throttle-only", VTPU_CORE_LIMIT_0=quota if quota < 100 else 0,
+            FAKE_EXEC_US=2000, SHIM_TEST_ITERS=iters)
+        return ({"ms_per_step": res["wall_ms"] / iters} if "wall_ms" in res
+                else None)
+
+    times, shares, _ = paired_quota_sweep(run, QUOTAS, reps=5)
+    return (times, shares) if len(shares) == len(QUOTAS) else None
+
+
 COUNTERS = ("vtpu_launches_total", "vtpu_sampled_launches_total",
             "vtpu_throttle_wait_ns_total", "vtpu_charged_ns_total",
             "vtpu_gap_bypass_total", "vtpu_fail_open_total",
@@ -486,7 +508,7 @@ def run_tenants(world: World, specs: list[tuple[str, list[str], dict]],
             t.stop()
 
 
-def _shim_counters() -> dict:
+def shim_counters() -> dict:
     """The preloaded interposer's exported counters (those its build
     has); none without it."""
     path = os.environ.get("LD_PRELOAD", "").split(":")[0]
@@ -576,7 +598,7 @@ def _cross_capture_worker(args) -> None:
     def thread_b() -> None:
         try:
             capturing.wait(60)
-            before = _shim_counters()
+            before = shim_counters()
             rcs = []
             for _ in range(args.steps):
                 if args.cross_launches == "raw":
@@ -587,7 +609,7 @@ def _cross_capture_worker(args) -> None:
                     with torch.cuda.stream(side_b):
                         _quota_step(xb)
             b_rec["b_failed_launches"] = sum(rc != 0 for rc in rcs)
-            after = _shim_counters()
+            after = shim_counters()
             b_rec.update({f"b_{k}": after[k] - before[k] for k in (
                 "vtpu_launches_total", "vtpu_sampled_launches_total",
                 "vtpu_captured_launches_total") if k in after})
@@ -618,7 +640,7 @@ def _cross_capture_worker(args) -> None:
         out["max_abs_err"] = max(
             (y.float() - eager_y.float()).abs().max().item(),
             max((a - b).abs().max().item() for a, b in zip(o, eager_o)))
-    print("WORKER " + json.dumps({**out, **_shim_counters()}), flush=True)
+    print("WORKER " + json.dumps({**out, **shim_counters()}), flush=True)
 
 
 def _worker(args) -> None:
@@ -636,7 +658,7 @@ def _worker(args) -> None:
             quota_step_measure(dim=args.dim, warmup=0, steps=5)
         print("READY", flush=True)
         _wait_file(args.go_file)
-        at_start.update(_shim_counters(), t=time.monotonic())
+        at_start.update(shim_counters(), t=time.monotonic())
 
     if args.graph:
         # eager at quota 100 (the pair's reference), a graph below it
@@ -647,9 +669,9 @@ def _worker(args) -> None:
         def around_capture(when: str) -> None:
             # the interposer's counters across the capture alone
             if when == "before":
-                at_capture.update(_shim_counters())
+                at_capture.update(shim_counters())
             else:
-                now = _shim_counters()
+                now = shim_counters()
                 capture.update({f"capture_{k}": now[k] - at_capture[k]
                                 for k in CAPTURE_COUNTERS if k in now})
 
@@ -664,7 +686,7 @@ def _worker(args) -> None:
     out = {"ms_per_step": ms, "steps": args.warmup + args.steps,
            "timed_steps": args.steps, "t_start": at_start["t"],
            "t_end": t_end, "source": effective_limits().source,
-           "graph": bool(capture), **capture, **_shim_counters()}
+           "graph": bool(capture), **capture, **shim_counters()}
     if "vtpu_graph_launches_total" in at_start:
         out["graph_launches_timed"] = (
             out["vtpu_graph_launches_total"]
@@ -674,12 +696,12 @@ def _worker(args) -> None:
             out["vtpu_charged_ns_total"]
             - at_start["vtpu_charged_ns_total"]) / args.steps
     if args.device_times:
-        before = _shim_counters().get("vtpu_throttle_wait_ns_total", 0)
+        before = shim_counters().get("vtpu_throttle_wait_ns_total", 0)
         times = step_device_times(args.dim, args.device_times, pause_s=0.3)
         out.update(times)
         out["isolated_span_ms"] = statistics.median(times["isolated_ms"])
         out["device_ms_per_step"] = times["loop_kernel_ms"]
-        out["device_times_wait_ns"] = (_shim_counters().get(
+        out["device_times_wait_ns"] = (shim_counters().get(
             "vtpu_throttle_wait_ns_total", 0) - before)
     if args.kernel:
         out.update(kernel_launch_once())
@@ -699,12 +721,12 @@ def kernel_launch_once() -> dict:
                for _ in range(3))
     bias = torch.zeros((512, 512), device="cuda")
     torch.cuda.synchronize()
-    before = _shim_counters()["vtpu_launches_total"]
+    before = shim_counters()["vtpu_launches_total"]
     kernel_before = ba.LAUNCHES["attn_block"]
     ba.attention_block(q, k, v, bias)
     torch.cuda.synchronize()
     return {"kernel_shim_launches_delta":
-            _shim_counters()["vtpu_launches_total"] - before,
+            shim_counters()["vtpu_launches_total"] - before,
             "kernel_launches_delta": ba.LAUNCHES["attn_block"] - kernel_before}
 
 
@@ -741,13 +763,13 @@ def cooperative_launch_once() -> dict:
         rc = cu.cuModuleGetFunction(ctypes.byref(fn), module, b"vtpu_noop")
     launch = cu.cuLaunchCooperativeKernel
     launch.argtypes = [vp] + [ctypes.c_uint] * 7 + [vp, vp]
-    before = _shim_counters().get("vtpu_launches_total", 0)
+    before = shim_counters().get("vtpu_launches_total", 0)
     if rc == 0:
         rc = launch(fn, 1, 1, 1, 32, 1, 1, 0,
                     vp(torch.cuda.current_stream().cuda_stream), None)
     torch.cuda.synchronize()
     return {"cooperative_rc": rc, "cooperative_shim_launches_delta":
-            _shim_counters().get("vtpu_launches_total", 0) - before}
+            shim_counters().get("vtpu_launches_total", 0) - before}
 
 
 ENTRY_CHECKS = ("managed", "pitch", "pool")
@@ -802,7 +824,7 @@ def _entry_worker() -> None:
                       "again": again, "free_while_held": free_at_hold}
     free, total = torch.cuda.mem_get_info()
     print("ENTRIES " + json.dumps({"entries": out, "free": free,
-                                   "total": total, **_shim_counters()}),
+                                   "total": total, **shim_counters()}),
           flush=True)
 
 
@@ -843,7 +865,7 @@ def _hold_worker(args) -> None:
     print("HOLD " + json.dumps({
         "verdicts": verdicts, "granted_at": granted_at, "free": free,
         "total": total, "source": effective_limits().source,
-        **_shim_counters()}), flush=True)
+        **shim_counters()}), flush=True)
     _wait_file(args.hold_file)
 
 

@@ -430,7 +430,7 @@ def _alloc_verdict(torch, gib: float):
 def _tenant(args) -> None:
     import torch
 
-    from vtpu_manager_torch.bench_quota import _shim_counters, _wait_file
+    from vtpu_manager_torch.bench_quota import shim_counters, _wait_file
     from vtpu_manager_torch.runtime.client import effective_limits
 
     if args.tenant == "cap":
@@ -464,12 +464,12 @@ def _tenant(args) -> None:
     print("READY", flush=True)
     _wait_file(args.go_file)
     blk.reset_launches()
-    before = _shim_counters()
+    before = shim_counters()
     t0 = time.perf_counter()
     for _ in range(args.steps):
         x = step(x)
     ms = 1000 * (time.perf_counter() - t0) / args.steps
-    after = _shim_counters()
+    after = shim_counters()
     limits = effective_limits()
     free, total = torch.cuda.mem_get_info()
     print("STEPPED " + json.dumps({

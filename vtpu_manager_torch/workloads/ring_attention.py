@@ -1,17 +1,29 @@
-"""Ring attention's single-device parts: flash partials and their merge.
+"""Ring attention: sequence-parallel exact attention over a process group.
 
-Ports `vtpu_manager/workloads/ring_attention.py` (`block_partials:26`,
-`merge_partials:41`, `_block_bias:52`, `reference_attention:139`). The K/V
-ring over ranks (`ring_attention_sharded:67`, `make_ring_attention:112`)
-comes with the distributed slice. Layout as in the JAX package:
-[batch, heads, seq, head_dim].
+Ports `vtpu_manager/workloads/ring_attention.py` whole: `block_partials:26`,
+`merge_partials:41`, `_block_bias:52`, `ring_attention_sharded:67`,
+`make_ring_attention:112`, `reference_attention:139`. Layout as in the JAX
+package: [batch, heads, seq, head_dim], the sequence sharded over the
+group's ranks in rank order.
+
+Each rank holds its query block and passes its K/V block around the ring:
+n - 1 rounds of compute-then-rotate, then the last block with no dead
+rotation, the partials combined by the online-softmax merge. The mesh axis
+of the JAX code is a process group here, and `ppermute` one
+`batch_isend_irecv` (`collectives.Shift`). Point-to-point calls carry no
+gradient, so the rotation's backward sends the gradient one hop back, and
+gradients flow through the ring as through JAX's.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
+import torch.distributed as dist
 
 from vtpu_manager_torch.util.torchplatform import resolve_device
+from vtpu_manager_torch.workloads.collectives import Shift
 
 NEG_INF = float("-inf")
 
@@ -75,3 +87,55 @@ def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              torch.full_like(scores, NEG_INF))
     probs = torch.softmax(scores, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", probs, v.float()).to(q.dtype)
+
+
+def ring_attention_sharded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           group, causal: bool = True,
+                           block_fn=None) -> torch.Tensor:
+    """One rank's part: q, k, v are this rank's sequence shards
+    [B, H, S_local, D]; returns its shard of the output. `block_fn`
+    computes one block's flash partials (default `block_partials`; the
+    kernel, `block_attention.attention_block`, is the drop-in)."""
+    if block_fn is None:
+        block_fn = block_partials
+    n = dist.get_world_size(group)
+    me = dist.get_rank(group)
+    seq_shard = q.shape[2]
+    qf = q.float()
+    o = torch.zeros_like(qf)
+    m = torch.full_like(qf[..., 0], NEG_INF)
+    l = torch.zeros_like(qf[..., 0])
+    kv = torch.stack((k, v))
+    for step in range(n):
+        if step:
+            # rotate K/V one hop around the ring: n - 1 rotations, none
+            # after the last block (its transfer would be discarded)
+            kv = Shift.apply(kv, group, 1)
+        k_idx = (me - step) % n            # whose K/V this rank holds now
+        bias = _block_bias(me, k_idx, seq_shard, causal, device=q.device)
+        o2, m2, l2 = block_fn(qf, kv[0].float(), kv[1].float(), bias)
+        o, m, l = merge_partials(o, m, l, o2, m2, l2)
+    l = torch.where(l == 0.0, torch.ones_like(l), l)   # masked rows stay 0
+    return (o / l[..., None]).to(q.dtype)
+
+
+def make_ring_attention(group, causal: bool = True, use_pallas: bool = False):
+    """Ring attention over `group` (the JAX mesh axis): a function of this
+    rank's q, k, v shards that returns its output shard. `use_pallas`
+    swaps the per-block compute for the block-attention kernel (on CPU
+    tensors its plain version, as the wrapper's rule says)."""
+    block_fn = None
+    if use_pallas:
+        from vtpu_manager_torch.workloads.block_attention import make_block_fn
+        block_fn = make_block_fn()
+    return functools.partial(ring_attention_sharded, group=group,
+                             causal=causal, block_fn=block_fn)
+
+
+def sequence_shard(t: torch.Tensor, index: int, count: int) -> torch.Tensor:
+    """Rank `index`'s block of a [B, H, S, D] tensor's sequence, as the
+    JAX spec P(None, None, axis, None) lays it out."""
+    if t.shape[2] % count:
+        raise ValueError(f"sequence {t.shape[2]} does not split into {count}")
+    s = t.shape[2] // count
+    return t[:, :, index * s:(index + 1) * s].contiguous()
