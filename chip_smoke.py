@@ -173,21 +173,35 @@ result line:
    line per check. The other phases start their plugins with
    `VTPU_OBS_CALIBRATE=0`, as they were accepted;
 14. distributed (`vtpu_manager_torch/graft_entry.py`): the multi-device
-   dry run on `torch.distributed`. World 1 over NCCL:
-   `dryrun_multichip(1)` at the trainer's default config (the sharded
-   step's loss finite and within 5e-2 of one process's, the ring within
-   3e-5 of exact attention, the pipeline and the MoE layer within 1e-5 of
-   their references). World 2 over gloo on this one card (NCCL refuses two
-   ranks on one device): two rank processes under the interposer as one
-   pod's two processes (q100, one 16 GiB cap), started with the phase and
-   held at a go file while world 1 runs. Each runs the causal ring with
-   the block-attention kernel as its block function at the attention
-   probe's shape per rank (8, 16, 512, 128), 1024 tokens in all: 2 kernel
+   dry run on `torch.distributed`, every rank under the interposer with
+   CommTelemetry armed as the device plugin's Allocate arms it (the step
+   ring's env and `VTPU_COMM_TELEMETRY=true`). World 1 over NCCL:
+   `graft_entry.dryrun_multichip(1)` at the trainer's default config on
+   its default device (the sharded step's loss finite and within 5e-2 of
+   one process's, the ring within 3e-5 of exact attention, the pipeline
+   and the MoE layer within 1e-5 of their references), its rank armed, the
+   comm block of its ring read after; beside it the same rank
+   (`graft_entry.dryrun_rank`) under torch.profiler in a rank process of
+   its own: the collectives its interposer counted equal the NCCL kernels
+   the profiler lists. World 2 over gloo on this one card (NCCL
+   refuses two ranks on one device): two rank processes as one pod's two
+   containers (q100, one 16 GiB cap), started with the phase and held at a
+   go file while world 1 runs. Each runs the causal ring with the
+   block-attention kernel as its block function at the attention probe's
+   shape per rank (8, 16, 512, 128), 1024 tokens in all: 2 kernel
    launches per rank, each one launch to the rank's interposer, the output
-   within 1e-4 of the plain ring and of exact attention; then the pipeline
-   and MoE checks over both ranks and the sharded step at (data 2, model
-   1) and (data 1, model 2) against one process. Its kernel launches are
-   added to the kernel record's. `DISTRIBUTED` lines.
+   within 1e-4 of the plain ring and of exact attention. Across that call
+   the rank's interposer counts at least the bytes the rank staged
+   through the host for gloo (its n - 1 hops of the K/V shard stack, each
+   to the host and back), and no more
+   than `COMM_SLACK_BYTES` above them, comm time above 0 and within the
+   call's wall, no collective, and the comm block of the records its ring
+   gained sums to those deltas. Then the pipeline and MoE checks over both
+   ranks and the sharded step at (data 2, model 1) and (data 1, model 2)
+   against one process. The port's collector with CommTelemetry renders
+   `vtpu_tenant_comm_*` for both ranks' rings, and none with the gate
+   off. Its kernel launches are added to the kernel record's.
+   `DISTRIBUTED` lines, one `DISTRIBUTED comm {json}` per rank.
 
 The last three lines are the nvidia-smi line, the kernels JSON and the
 result JSON.
@@ -199,6 +213,7 @@ import ctypes
 import functools
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -698,6 +713,71 @@ def observation(torch, shim: str) -> dict:
             + late["attn_block_launches"]}
 
 
+# what a gloo rank's ring call may move between host and card beyond what
+# it staged for gloo: the error's scalar readbacks, a few bytes each
+COMM_SLACK_BYTES = 4096
+
+
+def _comm_totals():
+    """The interposer's three comm totals (time ns, bytes, collectives) of
+    this process, or None without an armed interposer."""
+    from vtpu_manager_torch.bench_quota import shim_counters
+    from vtpu_manager_torch.util import consts
+
+    c = shim_counters()
+    if os.environ.get(consts.ENV_COMM_TELEMETRY) != "true" or \
+            "vtpu_collectives_total" not in c:
+        return None
+    return (c["vtpu_comm_time_ns_total"], c["vtpu_comm_bytes_total"],
+            c["vtpu_collectives_total"])
+
+
+def staged_bytes(shape, n: int) -> int:
+    """What one rank of `check_ring` over gloo stages through the host
+    (`collectives.shift`): n - 1 hops of its K/V shard stack, each copied
+    to the host and back onto the card, fp32."""
+    b, h, s, d = shape
+    return (n - 1) * 2 * (2 * b * h * (s // n) * d * 4)
+
+
+def _comm_entries() -> str:
+    """The copy entries the interposer of this process saw while armed."""
+    try:
+        fn = ctypes.CDLL(None).vtpu_comm_entries
+    except AttributeError:
+        return ""
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_char_p, ctypes.c_int]
+    buf = ctypes.create_string_buffer(1024)
+    fn(buf, 1024)
+    return buf.value.decode()
+
+
+def nccl_comm_rank(rank, cfg: dict | None = None) -> dict:
+    """World 1 over NCCL under the armed interposer (a `workloads/ranks.py`
+    job): the dry run's rank under torch.profiler, and the collectives the
+    interposer counted beside the NCCL kernels the profiler lists for the
+    same calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from vtpu_manager_torch import graft_entry as ge
+
+    before = _comm_totals()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = ge.dryrun_rank(rank, cfg=cfg)
+        torch.cuda.synchronize()
+    after = _comm_totals()
+    nccl = {e.key: e.count for e in prof.key_averages()
+            if e.device_type.name == "CUDA" and "nccl" in e.key.lower()}
+    return {**out, "comm": {
+        "collectives": None if before is None else after[2] - before[2],
+        "time_ns": None if before is None else after[0] - before[0],
+        "bytes": None if before is None else after[1] - before[1],
+        "nccl_kernels": sum(nccl.values()), "nccl_names": sorted(nccl),
+        "entries": _comm_entries()}}
+
+
 def shared_card_rank(rank, shape=(8, 16, 1024, 128), tol: float = 1e-4
                      ) -> dict:
     """One of several ranks sharing the card over gloo (a
@@ -715,11 +795,18 @@ def shared_card_rank(rank, shape=(8, 16, 1024, 128), tol: float = 1e-4
 
     from vtpu_manager_torch import graft_entry as ge
     from vtpu_manager_torch.bench_quota import shim_counters
+    from vtpu_manager_torch.telemetry.stepring import StepRingReader
     from vtpu_manager_torch.util.torchplatform import exact_fp32
     from vtpu_manager_torch.workloads import block_attention as ba, trainer
 
     exact_fp32()
     dev, n = rank.device, rank.world
+    # each rank process writes a ring of its own (the interposer arms its
+    # writer at the first launch, after this)
+    ring_path = os.environ.get("VTPU_STEP_RING_PATH", "").format(
+        rank=rank.rank)
+    if ring_path:
+        os.environ["VTPU_STEP_RING_PATH"] = ring_path
     world = dist.group.WORLD
     kernel = ba.make_block_fn()
     shim_deltas = []
@@ -732,14 +819,48 @@ def shared_card_rank(rank, shape=(8, 16, 1024, 128), tol: float = 1e-4
                                - before)
         return out
 
+    def close_step() -> int:
+        """A launch and a synchronisation: the interposer closes the step
+        and its ring record takes what the comm window held. The ring's
+        head after."""
+        if dev.type == "cuda":
+            torch.zeros(1, device=dev).add_(1)
+            torch.cuda.synchronize(dev)
+        if not os.path.exists(ring_path):
+            return 0
+        reader = StepRingReader(ring_path)
+        try:
+            return reader.poll(0)[1]
+        finally:
+            reader.close()
+
     shape = tuple(shape)
     ba.reset_launches()
+    head0 = close_step()
+    comm0 = _comm_totals()
     t0 = time.perf_counter()
     ref_err, out = ge.check_ring(world, shape, dev, tol, 0.0,
                                  block_fn=counted)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     ring_s = time.perf_counter() - t0
+    head1 = close_step()
+    comm1 = _comm_totals()
+    comm = {"staged": staged_bytes(shape, n), "ring_s": ring_s,
+            "entries": _comm_entries()}
+    if comm0 is not None:
+        comm.update(time_ns=comm1[0] - comm0[0], bytes=comm1[1] - comm0[1],
+                    collectives=comm1[2] - comm0[2])
+    if os.path.exists(ring_path):
+        reader = StepRingReader(ring_path)
+        try:
+            records = reader.poll(head0)[0]
+        finally:
+            reader.close()
+        comm.update(ring_records=head1 - head0, ring_sum=[
+            sum(r.comm_time_ns for r in records),
+            sum(r.bytes_transferred for r in records),
+            sum(r.collective_count for r in records)])
     launches = ba.LAUNCHES["attn_block"]
     plain_err, plain = ge.check_ring(world, shape, dev, tol, 0.0)
     plain_diff = float((out - plain).abs().max())
@@ -756,37 +877,158 @@ def shared_card_rank(rank, shape=(8, 16, 1024, 128), tol: float = 1e-4
             "shim_launch_deltas": shim_deltas,
             "pipeline_err": ge.check_pipeline(world, dev),
             "moe_err": ge.check_moe(world, dev), "steps": steps,
-            "device": str(dev)}
+            "comm": comm, "device": str(dev)}
 
 
-def distributed(torch, shim: str) -> dict:
+def comm_env(world, shim: str, pod: str, base: str, **config) -> dict:
+    """A rank's environment as the device plugin's Allocate writes it for
+    a pod with StepTelemetry and CommTelemetry: the step ring (under
+    `base`, per container, `{rank}` filled in by the rank) and
+    `VTPU_COMM_TELEMETRY=true`."""
+    from vtpu_manager_torch.util import consts
+
+    env = world.env(shim, pod, **config)
+    env.update({consts.ENV_STEP_TELEMETRY: "true",
+                consts.ENV_STEP_RING_PATH: os.path.join(
+                    base, pod + "_rank{rank}", consts.TELEMETRY_SUBDIR,
+                    consts.STEP_RING_NAME),
+                consts.ENV_COMM_TELEMETRY: "true"})
+    return env
+
+
+def comm_exported(base: str, pod: str, ranks: int) -> dict:
+    """The port's collector over the ranks' rings with CommTelemetry on and
+    off: per rank, the comm families it renders."""
+    from vtpu_manager_torch.metrics.collector import NodeCollector
+    from vtpu_manager_torch.tpu.discovery import FakeBackend
+
+    out = {}
+    for gate in (True, False):
+        text = NodeCollector(
+            "n1", FakeBackend(1).discover().chips, base_dir=base,
+            tc_path=os.path.join(base, "no-tc"),
+            vmem_path=os.path.join(base, "no-vmem"),
+            pod_resources_socket=os.path.join(base, "no.sock"),
+            kubelet_checkpoint=os.path.join(base, "no.ckpt"),
+            comm_enabled=gate).render()
+        out["on" if gate else "off"] = {
+            f"rank{r}": sorted({line.split("{", 1)[0] for line in
+                                text.splitlines()
+                                if line.startswith("vtpu_tenant_comm")
+                                and f'container="rank{r}"' in line})
+            for r in range(ranks)}
+        out["off_any"] = "vtpu_tenant_comm" in text
+    return out
+
+
+def check_comm(two: list[dict], world1: dict, exported: dict) -> list[str]:
+    """What the comm accounting must show (phase 14); the failures."""
+    bad = []
+    for i, r in enumerate(two):
+        c = r["comm"]
+        staged = c["staged"]
+        if c.get("bytes") is None:
+            bad.append(f"rank {i}: no armed interposer")
+            continue
+        if not staged <= c["bytes"] <= staged + COMM_SLACK_BYTES:
+            bad.append(f"rank {i}: {c['bytes']} bytes counted against "
+                       f"{staged} staged (slack {COMM_SLACK_BYTES})")
+        if not 0 < c["time_ns"] <= c["ring_s"] * 1e9:
+            bad.append(f"rank {i}: comm time {c['time_ns']} ns against the "
+                       f"call's {c['ring_s']} s")
+        if c["collectives"] != 0:
+            bad.append(f"rank {i}: {c['collectives']} collectives over gloo")
+        if c.get("ring_sum") != [c["time_ns"], c["bytes"], c["collectives"]]:
+            bad.append(f"rank {i}: the ring's comm block {c.get('ring_sum')}"
+                       f" is not the interposer's delta")
+        if exported["on"][f"rank{i}"] != [
+                "vtpu_tenant_comm_bytes_bucket",
+                "vtpu_tenant_comm_bytes_count", "vtpu_tenant_comm_bytes_sum",
+                "vtpu_tenant_comm_time_fraction",
+                "vtpu_tenant_comm_time_seconds_bucket",
+                "vtpu_tenant_comm_time_seconds_count",
+                "vtpu_tenant_comm_time_seconds_sum"]:
+            bad.append(f"rank {i}: the exporter rendered "
+                       f"{exported['on'][f'rank{i}']}")
+    if exported["off_any"]:
+        bad.append("the exporter rendered comm series with the gate off")
+    c = world1["comm"]
+    if c["collectives"] is None or c["collectives"] != c["nccl_kernels"]:
+        bad.append(f"world 1: {c['collectives']} collectives counted "
+                   f"against {c['nccl_kernels']} NCCL kernels")
+    return bad
+
+
+def ring_sums(path: str) -> dict:
+    """The records of a step ring and the sums of their comm blocks."""
+    from vtpu_manager_torch.telemetry.stepring import StepRingReader
+
+    reader = StepRingReader(path)
+    try:
+        records = reader.poll(0)[0]
+    finally:
+        reader.close()
+    return {"records": len(records),
+            "time_ns": sum(r.comm_time_ns for r in records),
+            "bytes": sum(r.bytes_transferred for r in records),
+            "collectives": sum(r.collective_count for r in records)}
+
+
+def distributed(torch, shim: str, smi: str = "") -> dict:
     """World 1 over NCCL: `dryrun_multichip(1)` at the trainer's default
-    config. World 2 over gloo on this one card (NCCL refuses two ranks on
-    one device): two rank processes under the interposer as one pod's two
-    processes (its identity, q100, one 16 GiB cap), started before world 1
-    runs and held at a go file until it is done."""
+    config, its rank under the interposer, and beside it the same rank
+    under torch.profiler (`nccl_comm_rank`). World 2 over gloo on
+    this one card (NCCL refuses two ranks on one device): two rank
+    processes under the interposer as one pod's two containers (its
+    identity, q100, one 16 GiB cap), started before world 1 runs and held
+    at a go file until it is done. Every rank with CommTelemetry armed."""
     import tempfile
+    from concurrent.futures import ThreadPoolExecutor
     from pathlib import Path
 
     from vtpu_manager_torch import bench_quota as bq, graft_entry
+    from vtpu_manager_torch.util import consts
     from vtpu_manager_torch.workloads import ranks, trainer
 
     props = torch.cuda.get_device_properties(0)
     with tempfile.TemporaryDirectory(prefix="vtpu-node-") as root:
         world = bq.World(root)
-        env = world.env(shim, "pod-dist", cap=16 << 30,
-                        real_memory=int(props.total_memory))
+        base = os.path.join(root, "mgr")
+        for r in range(2):
+            os.makedirs(os.path.join(base, f"pod-dist_rank{r}", "telemetry"))
+        for pod in ("pod-nccl", "pod-entry"):
+            os.makedirs(os.path.join(base, f"{pod}_rank0", "telemetry"))
+        entry_env = comm_env(world, shim, "pod-entry", base,
+                             real_memory=int(props.total_memory))
+        entry_ring = entry_env[consts.ENV_STEP_RING_PATH].format(rank=0)
+        entry_env[consts.ENV_STEP_RING_PATH] = entry_ring
+        env = comm_env(world, shim, "pod-dist", base, cap=16 << 30,
+                       real_memory=int(props.total_memory))
         go = world.go_file("distributed")
         t0 = time.perf_counter()
         with ranks.Ranks("chip_smoke:shared_card_rank",
                          2, device="cuda", backend="gloo", env=env,
                          go_file=go) as pair:
-            one = graft_entry.dryrun_multichip(
-                1, cfg=trainer.model_config(), timeout=300)
+            # the entry point and the profiled rank side by side: each
+            # its own process and NCCL group on the card
+            with ThreadPoolExecutor(1) as pool:
+                entry = pool.submit(
+                    graft_entry.dryrun_multichip, 1,
+                    cfg=trainer.model_config(), timeout=300,
+                    env=entry_env)
+                one = ranks.launch(
+                    "chip_smoke:nccl_comm_rank", 1, device="cuda",
+                    args={"cfg": trainer.model_config()},
+                    env=comm_env(world, shim, "pod-nccl", base,
+                                 real_memory=int(props.total_memory)),
+                    timeout=300)
+                entry = entry.result()
+            entry_comm = ring_sums(entry_ring)
             t1 = time.perf_counter()
             Path(go).touch()
             two = pair.results(timeout=300)
         t2 = time.perf_counter()
+        exported = comm_exported(base, "pod-dist", 2)
     for rank, r in enumerate(two):
         log(f"DISTRIBUTED rank {rank} " + json.dumps(r))
     bad = [i for i, r in enumerate(two)
@@ -796,7 +1038,22 @@ def distributed(torch, shim: str) -> dict:
         raise AssertionError(f"ranks {bad}: the kernel ring did not launch "
                              f"attn_block twice, each seen by the "
                              f"interposer: {two}")
-    report = {"world1": one[0], "world1_s": t1 - t0, "world2_s": t2 - t1,
+    for rank, r in enumerate(two):
+        log("DISTRIBUTED comm " + json.dumps(
+            {"world": 2, "rank": rank, "card": smi, **r["comm"],
+             "slack_bytes": COMM_SLACK_BYTES,
+             "exported": exported["on"][f"rank{rank}"]}))
+    log("DISTRIBUTED comm " + json.dumps(
+        {"world": 1, "rank": 0, "card": smi, **one[0]["comm"],
+         "entry_ring": entry_comm}))
+    failed = check_comm(two, one[0], exported)
+    if entry_comm["records"] == 0:
+        failed.append("world 1: dryrun_multichip's armed rank wrote no ring"
+                      " record")
+    if failed:
+        raise AssertionError("comm accounting: " + "; ".join(failed))
+    report = {"world1": entry[0], "world1_s": t1 - t0,
+              "world2_s": t2 - t1,
               "ring_diff_plain": max(r["ring_diff_plain"] for r in two),
               "ring_err_ref": max(r["ring_err_ref"] for r in two),
               "ring_s": [r["ring_s"] for r in two],
@@ -882,7 +1139,7 @@ def main() -> int:
     summary["observation"] = phase("observation", observation, torch,
                                    str(paths["shim"]))
     summary["distributed"] = phase("distributed", distributed, torch,
-                                   str(paths["shim"]))
+                                   str(paths["shim"]), smi)
     if record is not None:
         # the observation phase's tenants and the distributed phase's ranks
         # launch the kernel on their paths

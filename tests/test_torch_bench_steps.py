@@ -98,3 +98,49 @@ def test_exact_fp32_turns_tf32_off():
     torchplatform.exact_fp32()
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
+
+
+class _Event:
+    """A torch.profiler event as `kernel_reading` reads it."""
+
+    def __init__(self, name, us, device="CUDA"):
+        self.name = name
+        self.device_type = type("D", (), {"name": device})()
+        self.time_range = type("R", (), {"start": 0, "end": us})()
+
+
+@pytest.mark.parametrize("case", ["whole", "repeated", "dropped", "slow"])
+def test_kernel_reading_tells_events_from_slow_runs(case):
+    """Over 4 steps of a 1000 us, a 100 us and two 50 us kernels: the
+    median reading holds where the profile repeats or drops an event, the
+    sum does not, and the counts and the longest run say which of those
+    happened; the interposer's own slice-clock kernel is left out."""
+    gemm = [1000.0] * 4
+    if case == "repeated":
+        gemm.append(1000.0)
+    elif case == "dropped":
+        gemm.pop()
+    elif case == "slow":
+        gemm[0] = 1400.0
+    long = "void at::native::elementwise_kernel<128, 4, at::native::gpu_"
+    events = ([_Event("gemm", us) for us in gemm]
+              + [_Event("add", 100.0) for _ in range(4)]
+              + [_Event(long + "mul", 50.0) for _ in range(4)]
+              + [_Event(long + "div", 50.0) for _ in range(4)]
+              + [_Event("Memcpy HtoD", 500.0), _Event("cpu_op", 9e9, "CPU"),
+                 _Event("vtpu_slice_watch", 1300.0)])
+    prof = type("P", (), {"events": lambda self: events})()
+    r = bench_steps.kernel_reading(prof, steps=4)
+    assert r["median_ms"] == pytest.approx(1.2)
+    assert r["kernels"]["add"] == [4, 0.1, pytest.approx(0.1), 0.1]
+    count, median, _, longest = r["kernels"]["gemm"]
+    assert (count, median) == ({"whole": 4, "repeated": 5, "dropped": 3,
+                                "slow": 4}[case], 1.0)
+    assert longest == (1.4 if case == "slow" else 1.0)
+    assert r["sum_ms"] == pytest.approx(
+        {"whole": 1.2, "repeated": 1.45, "dropped": 0.95,
+         "slow": 1.3}[case])
+    # two kernels alike in their first 60 characters each keep a line
+    assert sorted(k for k in r["kernels"] if k.startswith(long)) == [
+        long, long + "#1"]
+    assert "vtpu_slice_watch" not in r["kernels"]

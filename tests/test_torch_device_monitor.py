@@ -274,9 +274,10 @@ def test_unported_gates_exit_2(tmp_path, gate, caplog):
 
 def test_gates_the_port_knows_or_leaves_off_pass():
     spec, refused = dm.split_gates(
-        "StepTelemetry=true, UtilizationLedger=false,CommTelemetry=true")
-    assert refused == ["CommTelemetry"]
-    assert spec == "StepTelemetry=true"
+        "StepTelemetry=true, UtilizationLedger=false,HealthPlane=true,"
+        "CommTelemetry=true")
+    assert refused == ["HealthPlane"]
+    assert spec == "StepTelemetry=true,CommTelemetry=true"
     with pytest.raises(SystemExit):
         dm.parse_args(["--fake-client"])
 

@@ -558,3 +558,65 @@ def test_two_gloo_ranks_on_the_card_run_the_kernel_ring(card):
         assert r["ring_diff_plain"] <= TOL, results
         assert r["ring_err_ref"] <= TOL, results
         assert r["attn_block_launches"] == 2, results    # one per ring step
+
+
+# --- communication accounting on the card -------------------------------------
+
+_COPIES = """
+import ctypes, json, torch
+n = 1 << 20                       # 4 MiB of fp32 per copy
+x = torch.arange(n, dtype=torch.float32)
+y = x.to("cuda")                  # host to card, pageable
+z = y.cpu()                       # card to host, pageable
+pinned = torch.empty(n, dtype=torch.float32, pin_memory=True)
+pinned.copy_(y)                   # card to host, pinned
+w = pinned.to("cuda", non_blocking=True)   # host to card, asynchronous
+d = torch.empty_like(y).copy_(y)  # card to card: not counted
+torch.cuda.synchronize()
+lib = ctypes.CDLL(None)
+out = {}
+for name in ("vtpu_comm_time_ns_total", "vtpu_comm_bytes_total",
+             "vtpu_collectives_total"):
+    fn = getattr(lib, name)
+    fn.restype = ctypes.c_uint64
+    out[name] = fn()
+buf = ctypes.create_string_buffer(1024)
+lib.vtpu_comm_entries(buf, 1024)
+out["entries"] = buf.value.decode()
+# read after the totals: the comparisons copy to the host themselves
+assert torch.equal(z, x) and torch.equal(w, y) and torch.equal(d, y)
+print("COMM " + json.dumps(out))
+"""
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("armed", [True, False])
+def test_copies_are_counted_by_direction(card, tmp_path, armed):
+    """A tenant's four host-card copies of 4 MiB (pageable and pinned, to
+    and from the card; the last one asynchronous) and one card-to-card
+    copy under the interposer: armed, exactly 16 MiB counted with a span
+    and no collective; unarmed, nothing."""
+    import json
+    import subprocess
+    import sys
+
+    from vtpu_manager_torch import bench_quota as bq
+    from vtpu_manager_torch import build
+    world = bq.World(str(tmp_path / "node"))
+    env = world.env(str(build.build_shim()), "pod-comm")
+    if armed:
+        env["VTPU_COMM_TELEMETRY"] = "true"
+    res = subprocess.run([sys.executable, "-c", _COPIES], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    out = json.loads(next(line for line in res.stdout.splitlines()
+                          if line.startswith("COMM "))[5:])
+    if armed:
+        assert out["vtpu_comm_bytes_total"] == 4 * 4 * 2**20, out
+        assert out["vtpu_comm_time_ns_total"] > 0, out
+        assert out["vtpu_collectives_total"] == 0, out
+        assert out["entries"], out
+    else:
+        assert (out["vtpu_comm_time_ns_total"], out["vtpu_comm_bytes_total"],
+                out["vtpu_collectives_total"], out["entries"]) == \
+            (0, 0, 0, ""), out

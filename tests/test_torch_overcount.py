@@ -41,3 +41,18 @@ def test_share_tracks_quota_with_submission_latency():
         FAKE_SUBMIT_LATENCY_US=300, SHIM_TEST_ITERS=ITERS)
     share = 100.0 * ITERS * EXEC_US / 1000 / out["wall_ms"]
     assert share == pytest.approx(25, abs=2.5), out
+
+
+@pytest.mark.parametrize("quota", [25, 50])
+def test_the_probe_takes_a_kernels_way_not_a_memsets(quota):
+    # a memset reaches the card by a shorter way than a kernel (on a copy
+    # engine): a probe that timed one discounted each isolated launch by
+    # too little, and a throttled tenant paid the difference every launch
+    out = bench_quota.run_fake_harness(
+        "--throttle-only", VTPU_CORE_LIMIT_0=quota, FAKE_EXEC_US=EXEC_US,
+        FAKE_SUBMIT_LATENCY_US=300, FAKE_MEMSET_LATENCY_US=60,
+        SHIM_TEST_ITERS=ITERS)
+    assert out["rc"] == 0, out["stderr"]
+    per_launch = out["vtpu_charged_ns_total"] / out["vtpu_launches_total"]
+    assert per_launch == pytest.approx(EXEC_US * 1000, rel=0.03), out
+    assert out["vtpu_obs_overhead_ns"] == pytest.approx(300_000, abs=100_000)

@@ -128,7 +128,9 @@ def run_pair(tmp_path, shim: str, fake: str, slice_us: int,
              exec_us: int = EXEC_US, unmetered: int | None = None,
              extra: list | None = None,
              outside_iters: int | None = None,
-             per_process_util: bool = True) -> dict:
+             per_process_util: bool = True,
+             fake_env: dict | None = None,
+             exec_by_quota: dict | None = None) -> dict:
     """The q50 + q25 pair, the same seconds of work in kernels of
     `exec_us`; `window` (until_ns, owner) is planted first. The tenant of
     quota `unmetered` runs without the interposer (no ledger entry, no
@@ -136,8 +138,11 @@ def run_pair(tmp_path, shim: str, fake: str, slice_us: int,
     (processes on the card that run nothing); with `outside_iters` a third
     process without the interposer starts first and runs that many
     kernels; `per_process_util` False hides each process's utilization
-    from the watcher."""
-    iters = {q: n * EXEC_US // exec_us for q, n in ITERS.items()}
+    from the watcher; `fake_env` is added to every process's environment
+    (the fake driver's knobs); `exec_by_quota` gives a tenant kernels of
+    its own length."""
+    execs = {q: (exec_by_quota or {}).get(q, exec_us) for q in ITERS}
+    iters = {q: n * EXEC_US // execs[q] for q, n in ITERS.items()}
     world = bench_quota.World(str(tmp_path / "node"))
     if window is not None:
         plant_window(world.lock_dir, *window)
@@ -170,9 +175,9 @@ def run_pair(tmp_path, shim: str, fake: str, slice_us: int,
             env.update({"SHIM_PATH": env["LD_PRELOAD"],
                         "VTPU_REAL_CUDA_LIBRARY_PATH": fake,
                         "FAKE_SHARED_STATE": state,
-                        "FAKE_EXEC_US": str(exec_us),
+                        "FAKE_EXEC_US": str(execs[quota]),
                         "FAKE_TIMESLICE_US": str(slice_us),
-                        "SHIM_TEST_ITERS": str(n)})
+                        "SHIM_TEST_ITERS": str(n), **(fake_env or {})})
             if quota == unmetered:
                 env.pop("LD_PRELOAD")
                 env["SHIM_PATH"] = fake
@@ -192,10 +197,16 @@ def run_pair(tmp_path, shim: str, fake: str, slice_us: int,
             outside.wait()
         watcher.stop()
     for quota, o in out.items():
-        o["share"] = 100.0 * iters[quota] * exec_us / 1000 / o["wall_ms"]
+        o["share"] = (100.0 * iters[quota] * execs[quota] / 1000
+                      / o["wall_ms"])
         if quota != unmetered:
-            own_ns = o["vtpu_launches_total"] * exec_us * 1000
+            own_ns = o["vtpu_launches_total"] * execs[quota] * 1000
             o["charge_rel"] = o["vtpu_charged_ns_total"] / own_ns - 1.0
+            # against its own busy time on the card, the switches' cost
+            # (FAKE_SWITCH_US) included
+            if o.get("own_busy_ns", 0) > 0:
+                o["own_rel"] = (o["vtpu_charged_ns_total"] / o["own_busy_ns"]
+                                - 1.0)
     return out
 
 
@@ -267,15 +278,17 @@ def test_a_tenant_beside_a_process_of_unknown_use_is_charged_its_own_time(
 
 
 def test_no_window_beside_an_outside_resident(tmp_path):
-    """Both tenants metered, and a process outside the ledger already
-    running kernels on the card when they start: beside it neither tenant
+    """Both tenants metered, and a process outside the ledger running
+    kernels on the card from before they start until after they end (300
+    kernels: once it has left, a tenant may open windows again): beside it
+    neither tenant
     opens a window or stands aside for one, and each is charged its own
     kernel time by its slice clock. (No share band: while the unthrottled
     process runs, the card's round robin gives each of the three a third,
     less than q50's quota.)"""
     out = run_pair(tmp_path, str(build.build_shim()),
                    str(build.build_fake_driver()), SLICE_US,
-                   outside_iters=150)
+                   outside_iters=300)
     for o in out.values():
         assert o["vtpu_windows_total"] == 0, out
         assert o["vtpu_stand_aside_ns_total"] == 0, out
@@ -295,6 +308,48 @@ def test_an_idle_context_outside_the_ledger_leaves_the_windows(tmp_path):
         assert o["vtpu_windows_total"] > 0, out
         assert abs(o["share"] - quota) <= QUOTA_BAND, out
         assert abs(o["charge_rel"]) <= CHARGE_REL, out
+
+
+PIN_PAIRS = 3
+
+
+def test_a_void_window_beside_an_idle_context_of_unknown_use_keeps_windows(
+        tmp_path):
+    """F5's pin. The card machine's NVML reads no process's use, so every
+    phase's own idle context is on the card as a resident of unknown use
+    beside the ledger tenants. q25's kernels (40 ms) outlast q50's drain
+    budget (24 ms), so now and then a q50 window finds no idle card: a
+    busy card, given up as any other. The parent's interposer took one
+    such window for proof of the unknown context's slices, put q50 on the
+    slice clock, and kept it there while the clock's gaps (q25's slices)
+    renewed the mark; the clock's samples beside a busy co-tenant hold the
+    switches' cost (here 300 us a switch, as the card runs a kernel slower
+    beside another busy context), so q50 was charged 5-10 % over its
+    kernels' time alone in 21 of 24 pairs on the fake driver. Now the
+    clock takes over only after kVoidsForSlices windows in a row void,
+    its gaps mark the card sliced only where no ledger co-tenant explains
+    them, and a window's sample replaces what the clock learned.
+
+    PIN_PAIRS pairs in turn (a pair without a void window passes either
+    interposer), each held: q50's charge within 5 % of its kernels' time
+    alone (what its windows measure); q25's, whose few 40 ms kernels are
+    sampled beside q50 as well as in windows, no less than 5 % under its
+    kernels' time alone and no more than 5 % over its own busy time with
+    the switches' cost (the fake's account of the process); and the
+    shares, which the switches' cost takes from both tenants, in their
+    order."""
+    shim, fake = str(build.build_shim()), str(build.build_fake_driver())
+    for i in range(PIN_PAIRS):
+        out = run_pair(tmp_path / f"pair{i}", shim, fake, SLICE_US,
+                       extra=[ProcReading(pid=2**22 + 9, util=UTIL_UNKNOWN,
+                                          mem=1 << 30)],
+                       per_process_util=False,
+                       fake_env={"FAKE_SWITCH_US": "300"},
+                       exec_by_quota={25: 40_000})
+        assert abs(out[50]["charge_rel"]) <= CHARGE_REL, (i, out)
+        assert out[25]["charge_rel"] >= -CHARGE_REL, (i, out)
+        assert out[25]["own_rel"] <= CHARGE_REL, (i, out)
+        assert out[50]["share"] > out[25]["share"], (i, out)
 
 
 def test_the_fake_reports_the_layout_it_uses():

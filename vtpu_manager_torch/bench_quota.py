@@ -267,12 +267,16 @@ def fake_harness_env(**extra) -> dict:
 
 
 def parse_harness(stdout: str) -> dict:
-    """wall_ms, VERDICT lines by label and the COUNTERS line's values."""
+    """wall_ms (and the fake's own_busy_ns beside it), VERDICT lines by
+    label and the COUNTERS line's values."""
     out: dict = {"verdicts": {}}
     for line in stdout.splitlines():
         parts = line.split()
         if line.startswith("wall="):
             out["wall_ms"] = float(line.split("=")[1].split("ms")[0])
+            for f in parts[1:]:
+                if f.startswith("own_busy_ns="):
+                    out["own_busy_ns"] = int(f.split("=")[1])
         elif parts and parts[0] == "VERDICT":
             out["verdicts"][parts[1]] = int(parts[2])
         elif parts and parts[0] == "COUNTERS":
@@ -308,19 +312,21 @@ def run_fake_sweep(iters: int = 100, exec_us: int = 2000,
     return out if len(out) == len(quotas) else None
 
 
-def paired_fake_sweep() -> tuple[dict[int, float], dict[int, float]] | None:
+def paired_fake_sweep(**env) -> tuple[dict[int, float],
+                                      dict[int, float]] | None:
     """(ms/step, share %) per quota against the fake driver, paired as the
     card's sweep is (`paired_quota_sweep`): each rep runs (t100, tq) back to
     back, and the pair with the least summed wall gives the share. The
     throttled runs are paced by the interposer; the unthrottled run is not,
     so on a loaded host its wall carries the host's stalls, and one stalled
-    t100 of a single unpaired run moves both shares by as much."""
+    t100 of a single unpaired run moves both shares by as much. `env` is
+    added to every run's environment (a gate the interposer reads)."""
     iters = 100
 
     def run(quota: int) -> dict | None:
         res = run_fake_harness(
             "--throttle-only", VTPU_CORE_LIMIT_0=quota if quota < 100 else 0,
-            FAKE_EXEC_US=2000, SHIM_TEST_ITERS=iters)
+            FAKE_EXEC_US=2000, SHIM_TEST_ITERS=iters, **env)
         return ({"ms_per_step": res["wall_ms"] / iters} if "wall_ms" in res
                 else None)
 
@@ -336,7 +342,10 @@ COUNTERS = ("vtpu_launches_total", "vtpu_sampled_launches_total",
             "vtpu_watcher_fallback_total", "vtpu_blind_ticks_total",
             "vtpu_oom_rejected_total", "vtpu_graph_launches_total",
             "vtpu_captured_launches_total", "vtpu_windows_total",
-            "vtpu_stand_aside_ns_total", "vtpu_clocked_total")
+            "vtpu_stand_aside_ns_total", "vtpu_clocked_total",
+            # CommTelemetry's totals (0 unarmed)
+            "vtpu_comm_time_ns_total", "vtpu_comm_bytes_total",
+            "vtpu_collectives_total")
 SIGNED = ("vtpu_charged_ns_total", "vtpu_obs_overhead_ns")
 # what a graph tenant reports across its capture
 CAPTURE_COUNTERS = ("vtpu_launches_total", "vtpu_sampled_launches_total",
@@ -470,11 +479,12 @@ class Tenant:
 
 def worker_args(steps: int, *, go_file: str | None = None,
                 warmup_s: float = 0.0, device_times: int = 0,
-                dim: int = 8192) -> list[str]:
+                dim: int = 8192, profile_timed: bool = False) -> list[str]:
     args = ["-m", "vtpu_manager_torch.bench_quota", "--worker", "--dim",
             str(dim), "--warmup", "10", "--steps", str(steps),
             "--device-times", str(device_times), "--warmup-s", str(warmup_s)]
-    return args + (["--go-file", go_file] if go_file else [])
+    return (args + (["--go-file", go_file] if go_file else [])
+            + (["--profile-timed"] if profile_timed else []))
 
 
 def hold_args(alloc_gib: str, go_file: str, hold_file: str,
@@ -647,10 +657,12 @@ def _worker(args) -> None:
     import torch
 
     from vtpu_manager_torch.bench_steps import (graph_step_measure,
+                                                kernel_reading,
                                                 quota_step_measure,
                                                 step_device_times)
     at_start = {}
     capture = {}
+    timed_profile = []
 
     def before_timed():
         until = time.monotonic() + args.warmup_s   # balance mode's climb
@@ -658,6 +670,10 @@ def _worker(args) -> None:
             quota_step_measure(dim=args.dim, warmup=0, steps=5)
         print("READY", flush=True)
         _wait_file(args.go_file)
+        if args.profile_timed:
+            from torch.profiler import ProfilerActivity, profile
+            timed_profile.append(profile(activities=[ProfilerActivity.CUDA]))
+            timed_profile[0].start()
         at_start.update(shim_counters(), t=time.monotonic())
 
     if args.graph:
@@ -683,10 +699,18 @@ def _worker(args) -> None:
         ms = quota_step_measure(dim=args.dim, warmup=args.warmup,
                                 steps=args.steps, before_timed=before_timed)
     t_end = time.monotonic()
+    stretch = {}
+    if timed_profile:
+        torch.cuda.synchronize()
+        timed_profile[0].stop()
+        reading = kernel_reading(timed_profile[0], args.steps)
+        stretch = {"stretch_kernel_ms": reading["median_ms"],
+                   "stretch_kernel_ms_sum": reading["sum_ms"],
+                   "stretch_kernels": reading["kernels"]}
     out = {"ms_per_step": ms, "steps": args.warmup + args.steps,
            "timed_steps": args.steps, "t_start": at_start["t"],
            "t_end": t_end, "source": effective_limits().source,
-           "graph": bool(capture), **capture, **shim_counters()}
+           "graph": bool(capture), **capture, **stretch, **shim_counters()}
     if "vtpu_graph_launches_total" in at_start:
         out["graph_launches_timed"] = (
             out["vtpu_graph_launches_total"]
@@ -911,6 +935,9 @@ def main(argv=None) -> None:
     ap.add_argument("--device-times", type=int, default=0,
                     help="after the loop, the step's device time "
                     "(bench_steps.step_device_times, this many loop steps)")
+    ap.add_argument("--profile-timed", action="store_true",
+                    help="the timed steps under torch.profiler: the "
+                    "kernels' time in the stretch the charge covers")
     ap.add_argument("--cross-capture-worker", action="store_true")
     ap.add_argument("--cross-launches", default="raw",
                     choices=("raw", "torch"))

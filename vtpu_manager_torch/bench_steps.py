@@ -187,6 +187,51 @@ def kernel_ms(fn) -> float:
     return total_us / 1000
 
 
+def kernel_reading(prof, steps: int) -> dict:
+    """The device time per step of the kernels in a torch.profiler run
+    over `steps` steps (copies, memsets and the interposer's own
+    slice-clock kernels, `vtpu_*`, which run beside the tenant's, left
+    out), two ways: per kernel
+    name, its median duration times its launches per step rounded to a
+    whole number (`median_ms`), which holds where the profiler drops or
+    repeats some of a profile's events; and every kernel event's time
+    summed over the steps (`sum_ms`, `kernel_ms`'s reading). `kernels`:
+    per name (its first 60 characters, `#n` added where two names begin
+    alike), the events the profile holds
+    (against `steps` times the launches per step), and their median, mean
+    and longest duration in ms, which tell a dropped or repeated event
+    from a slow run."""
+    durs: dict[str, list[float]] = {}
+    for e in prof.events():
+        if e.device_type.name != "CUDA" or e.name.startswith(
+                ("Memcpy", "Memset", "vtpu_")):
+            continue
+        durs.setdefault(e.name, []).append(
+            (e.time_range.end - e.time_range.start) / 1e3)
+    robust = sum(sorted(d)[len(d) // 2] * round(len(d) / steps)
+                 for d in durs.values())
+    kernels = {}
+    for name, d in sorted(durs.items()):
+        key, n = name[:60], 1
+        while key in kernels:
+            key, n = f"{name[:60]}#{n}", n + 1
+        kernels[key] = [len(d), sorted(d)[len(d) // 2], sum(d) / len(d),
+                        max(d)]
+    return {"median_ms": robust,
+            "sum_ms": sum(sum(d) for d in durs.values()) / steps,
+            "kernels": kernels}
+
+
+def kernel_ms_per_step(fn, steps: int) -> dict:
+    """`kernel_reading` of the kernels `fn()` launches over `steps`
+    steps."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return kernel_reading(prof, steps)
+
+
 def step_device_times(dim: int, steps: int, pause_s: float,
                       device: str | torch.device | None = None) -> dict:
     """Two views of one quota step's device time on the card:
@@ -198,7 +243,10 @@ def step_device_times(dim: int, steps: int, pause_s: float,
       so each step runs unthrottled inside a throttled tenant;
     - loop: `steps` steps back to back as the tenant's loop runs them
       (throttled, under the interposer), the profiler's kernel time per
-      step."""
+      step (`kernel_reading`: each kernel's median times its launches per
+      step, and beside it the events' sum, which moved between runs of
+      the same step on the H100 while the charge and the isolated kernel
+      time held: ROADMAP F5; and each kernel's events)."""
     dev = resolve_device(device)
     if dev.type != "cuda":
         raise ValueError("device spans are measured on the card")
@@ -226,8 +274,11 @@ def step_device_times(dim: int, steps: int, pause_s: float,
             _ = float(loss)
 
     isolated_kernel = kernel_ms(isolated) / len(spans)
+    reading = kernel_ms_per_step(loop, steps)
     return {"isolated_ms": spans, "isolated_kernel_ms": isolated_kernel,
-            "loop_kernel_ms": kernel_ms(loop) / steps}
+            "loop_kernel_ms": reading["median_ms"],
+            "loop_kernel_ms_sum": reading["sum_ms"],
+            "loop_kernels": reading["kernels"]}
 
 
 def mfu_measure(n: int, inner: int, reads: int,

@@ -96,7 +96,7 @@ def build_shim() -> Path:
     return _compile(
         "libvtpu-cuda-control", ".so",
         [SHIM_SRC / "loader.cc", SHIM_SRC / "enforce_mem.cc",
-         SHIM_SRC / "enforce_rate.cc"],
+         SHIM_SRC / "enforce_rate.cc", SHIM_SRC / "enforce_comm.cc"],
         [SHIM_SRC / "shim.h", SHIM_SRC / "cuda_subset.h",
          SHIM_SRC / "vtpu_abi.h", SHIM_SRC / "vtpu_telemetry_abi.h"],
         ["g++", "-std=c++17", "-O2", "-Wall", "-fPIC", "-shared",

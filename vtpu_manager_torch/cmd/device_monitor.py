@@ -3,6 +3,7 @@ Prometheus metrics.
 
     python -m vtpu_manager_torch.cmd.device_monitor --node-name n1 \\
         [--port 9394] [--metrics-token-file <file>] [--fake-chips 1]
+        [--feature-gates CommTelemetry=true]
 
 The port of the JAX package's `cmd/device_monitor.py`, served over the
 standard library (`http.server.ThreadingHTTPServer`; the card machine has
@@ -23,6 +24,9 @@ no aiohttp, grpc or protobuf):
   token as `/metrics`. A key that is not 64 lowercase hex gets 400; a
   missing entry 404, and a corrupt one is quarantined and gets 404. With
   the gate off there is no route (404).
+
+CommTelemetry renders the tenants' `vtpu_tenant_comm_*` families from
+the step rings' comm block (JAX `metrics/collector.py:78, 111-115`).
 
 FaultInjection arms the failpoint registry from `VTPU_FAILPOINTS` (seed
 `VTPU_FAILPOINTS_SEED`), as the JAX monitor does; a malformed spec exits
@@ -69,7 +73,6 @@ NOT_PORTED_GATES = {
     "FragObservatory": "the fragmentation observatory and /fragmentation",
     "QuotaMarket": "the quota market",
     "HBMOvercommit": "memory over-commit (the spill series)",
-    "CommTelemetry": "the comm telemetry series",
     "HealthPlane": "the health plane",
 }
 
@@ -292,7 +295,8 @@ def main(argv: list[str] | None = None) -> int:
         node_name, chips, base_dir=args.base_dir,
         tc_path=args.tc_path, vmem_path=args.vmem_path,
         pod_resources_socket=args.pod_resources_socket,
-        kubelet_checkpoint=args.kubelet_checkpoint)
+        kubelet_checkpoint=args.kubelet_checkpoint,
+        comm_enabled=gates.enabled(fg.COMM_TELEMETRY))
     cache_root = (os.path.join(args.base_dir, consts.COMPILE_CACHE_SUBDIR)
                   if gates.enabled(fg.CLUSTER_COMPILE_CACHE) else None)
     server = ThreadingHTTPServer(

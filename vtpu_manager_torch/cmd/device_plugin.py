@@ -2,6 +2,7 @@
 
     python -m vtpu_manager_torch.cmd.device_plugin --node-name n1 \\
         [--fake-client] [--fake-chips 2] [--feature-gates StepTelemetry=true]
+        [--feature-gates StepTelemetry=true,CommTelemetry=true]
         [--feature-gates CompileCache=true --compile-cache-budget-mb 4096]
         [--feature-gates CompileCache=true,ClusterCompileCache=true
          --cache-advertise-endpoint 10.0.0.7:9394 --cache-ad-max-pairs 8]
@@ -17,7 +18,10 @@ vtpu-number plugin served to kubelet and registered with it (again after
 a kubelet restart), the health watcher, and behind gates the vtpu-cores
 and vtpu-memory reporters (CorePlugin, MemoryPlugin), the memory ledger
 (VMemoryNode), the node's utilization watcher fed by NVML (TCWatcher), the
-step rings' pressure annotation (StepTelemetry) and the node compile
+step rings' pressure annotation (StepTelemetry; with CommTelemetry as
+well, Allocate arms the interposer's copies and collectives into the
+rings' comm block, and CommTelemetry without StepTelemetry logs a warning
+and stays off) and the node compile
 cache (CompileCache: Allocate mounts `<base-dir>/compilecache` into every
 tenant, and this agent evicts it to `--compile-cache-budget-mb` every
 `--compile-cache-evict-interval` seconds; with ClusterCompileCache as
@@ -175,6 +179,20 @@ def serve_metrics(port: int, host: str = "0.0.0.0"):
     return server
 
 
+def comm_telemetry_on(gates) -> bool:
+    """Whether Allocate arms CommTelemetry (JAX `cmd/device_plugin.py:
+    236-246`): the step ring is the comm block's wire, so the gate without
+    StepTelemetry is a configuration error, said loudly, and stays off."""
+    from vtpu_manager_torch.util import featuregates as fg
+    on = gates.enabled(fg.COMM_TELEMETRY)
+    if on and not gates.enabled(fg.STEP_TELEMETRY):
+        logging.getLogger("vtpu-device-plugin").warning(
+            "CommTelemetry=true requires StepTelemetry=true (the step ring "
+            "is the comm block's wire); the comm plane stays disarmed")
+        on = False
+    return on
+
+
 def start_cache_evictor(root: str, budget_bytes: int, interval_s: float,
                         stop: threading.Event) -> bool:
     """The node compile cache's janitor (JAX `cmd/device_plugin.py:
@@ -330,6 +348,7 @@ def main(argv: list[str] | None = None) -> int:
                       watcher_dir=args.watcher_dir)
     vnum.preferred_allocation_available = gates.enabled(fg.HONOR_PREALLOC_IDS)
     vnum.step_telemetry_enabled = gates.enabled(fg.STEP_TELEMETRY)
+    vnum.comm_telemetry_enabled = comm_telemetry_on(gates)
     vnum.compile_cache_enabled = gates.enabled(fg.COMPILE_CACHE)
     # the cluster tier lands its fetches in the node store: without it the
     # gate is a configuration error, said loudly, and stays off

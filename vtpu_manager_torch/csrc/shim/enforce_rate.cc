@@ -46,8 +46,10 @@
 // event is stamped at once, the kernel starts later. A throttled tenant's
 // launches nearly all land on an idle stream, so without a correction it is
 // over-charged and settles below its quota. An idle-time probe measures
-// that overhead (two events around a 4-byte cuMemsetD32Async issued through
-// the real driver on an idle stream, never charged), min-filtered as the
+// that overhead (two events around an empty kernel launched through the
+// real driver on an idle stream, never charged: a kernel's way to the
+// card, as the sample's kernel takes it, where the reference times a
+// transfer, its executions' way), min-filtered as the
 // reference filters it; an isolated sample is discounted by the estimate,
 // capped at half its span (vtpu_obs_overhead_ns). An operator's
 // calibration, VTPU_OBS_OVERHEAD_US (enforce.cc:111), replaces the probe;
@@ -112,13 +114,19 @@
 // span between the stamps less those gaps. The watch sleeps between reads
 // (nanosleep) so that it takes next to nothing from the SM it shares with
 // the kernel. A clocked sample with gaps over 1/kSlicedFrac of its span
-// marks the card sliced for kSlicedHoldNs, as does a window that found no
-// idle card beside a context of unknown use; while sliced the tenant is
+// marks the card sliced for kSlicedHoldNs; while sliced the tenant is
 // charged, and its samples settle to, the EMA of its clocked samples, as
 // beside a ledger co-tenant to its windowed ones, and balance mode stays
-// at hard_core. Beside co-tenants that are all in the ledger, the windows
-// above are unchanged. Cooperative launches are not clocked (the watch
-// takes a block's room on one SM).
+// at hard_core. Beside co-tenants in the ledger the windows above are
+// unchanged, whatever else is on the card: a window that finds no idle
+// card there is a busy card, given up as any other, even beside a context
+// of unknown use (on the card machine, where NVML reads no process's use,
+// every phase's own idle context is one). Taking such a window for that
+// context's slices put the tenant on the clock, and the clock's samples
+// beside a busy ledger co-tenant hold the switches' cost (about 10 %: a
+// kernel runs slower beside another busy context, F4), which the windows
+// leave out (F5). Cooperative launches are not clocked (the watch takes a
+// block's room on one SM).
 //
 // Refill and the tick. A watcher thread refills every 10 ms window (the
 // GPU's kernels are micro- to milliseconds long, where the TPU's 100 ms
@@ -205,6 +213,14 @@ namespace vtpu_cuda {
 
 using namespace vtpu_abi;
 
+bool Capturing(CUstream stream) {
+  auto capturing = VTPU_REAL_AS(PFN_cuStreamIsCapturing, "cuStreamIsCapturing");
+  if (!capturing) return false;
+  CUstreamCaptureStatus status = CU_STREAM_CAPTURE_STATUS_NONE;
+  return capturing(stream, &status) != CUDA_SUCCESS ||
+         status != CU_STREAM_CAPTURE_STATUS_NONE;
+}
+
 namespace {
 
 constexpr int64_t kWindowNs = 10'000'000;
@@ -223,6 +239,7 @@ constexpr int64_t kSampleAllNs = 1'000'000;  // a cost this long: every launch
 constexpr int64_t kIdleHostNs = 300'000;  // the idle probe on an idle card
 constexpr int64_t kIdlePollNs = 20'000;
 constexpr int kGateBackoff = 4;
+constexpr int kVoidsForSlices = 3;
 constexpr uint64_t kGateEvery = 8;
 constexpr uint64_t kGateRefresh = 64;
 constexpr double kDisagree = 0.1;
@@ -323,6 +340,7 @@ struct FnCost {
   bool inflight = false;
   bool agree = false;    // the last shared span outside a window ~ clean_ns
   int gate_backoff = 0;  // window chances to skip after a drain timed out
+  int voids = 0;         // windows in a row whose drain timed out
 };
 
 // What a launch is charged. Beside a co-tenant: the windowed EMA, else
@@ -360,7 +378,6 @@ std::mutex g_cost_mu;
 std::unordered_map<CostKey, FnCost> g_costs;
 std::vector<Sample> g_pending;
 std::vector<CUevent> g_event_pool;
-void* g_probe_word[kMaxDevices] = {};
 bool g_probe_off[kMaxDevices] = {};
 
 // The operator's overhead in ns, or -1 when the probe measures it.
@@ -1080,7 +1097,12 @@ bool SettleClockedLocked(const Sample& s, bool ran) {
   }
   DeviceBucket& b = g_bucket[s.slot];
   int64_t span = (int64_t)(t1 - t0), own = span - (int64_t)gap;
-  if ((int64_t)gap * kSlicedFrac > span)
+  // beside ledger co-tenants the gaps may be theirs, and their windows
+  // measure the kernel alone: the card is sliced by something else only
+  // where none is there, or a busy process outside the ledger is (F5)
+  if ((int64_t)gap * kSlicedFrac > span &&
+      (!b.shared.load(std::memory_order_relaxed) ||
+       b.outside.load(std::memory_order_relaxed)))
     b.sliced_until_ns.store(NowNs() + kSlicedHoldNs,
                             std::memory_order_relaxed);
   b.observed_ns.fetch_add(own, std::memory_order_relaxed);
@@ -1163,9 +1185,13 @@ void DrainLocked() {
                          : c.low_ns + (dur - c.low_ns) / 16;
         } else {
           int64_t& ema = s.windowed ? c.clean_ns : c.ema_ns;
-          ema = ema == 0 ? dur
-                         : (int64_t)(kCostEmaAlpha * dur +
-                                     (1 - kCostEmaAlpha) * ema);
+          // a window's sample replaces what the clock learned, as the
+          // clock's first replaces the windows': the kernel ran alone in
+          // it, where the clock's ran beside a busy context (F5)
+          ema = (ema == 0 || (s.windowed && c.clean_clocked))
+                    ? dur
+                    : (int64_t)(kCostEmaAlpha * dur +
+                                (1 - kCostEmaAlpha) * ema);
           if (s.windowed) c.clean_clocked = false;
         }
         if (!s.windowed && c.clean_ns > 0)
@@ -1178,43 +1204,6 @@ void DrainLocked() {
     GiveEvents(s);
   }
   g_pending.resize(keep);
-}
-
-// Two events around a 4-byte memset on an idle stream: the time from an
-// event's stamp to the next operation's start. The word is pinned host
-// memory, written through its mapped address, so the probe holds no
-// device memory. Caller holds g_cost_mu.
-void ProbeLocked(int slot, CUstream stream, PFN_cuEventRecord record) {
-  auto memset32 = VTPU_REAL_AS(PFN_cuMemsetD32Async, "cuMemsetD32Async");
-  if (!g_probe_word[slot]) {
-    auto alloc_host = VTPU_REAL_AS(PFN_cuMemAllocHost, "cuMemAllocHost_v2");
-    if (!memset32 || !alloc_host ||
-        alloc_host(&g_probe_word[slot], 4) != CUDA_SUCCESS) {
-      g_probe_word[slot] = nullptr;
-      g_probe_off[slot] = true;
-      Log(kLogWarn, "device %d: no observation probe; isolated samples are "
-          "not discounted", slot);
-      return;
-    }
-  }
-  Sample s;
-  s.slot = slot;
-  s.shared = g_bucket[slot].shared.load(std::memory_order_relaxed);
-  s.start = TakeEvent();
-  s.end = TakeEvent();
-  bool ok = s.start && s.end && record(s.start, stream) == CUDA_SUCCESS;
-  if (ok && memset32((CUdeviceptr)g_probe_word[slot], 0, 1, stream) !=
-                CUDA_SUCCESS) {
-    g_probe_off[slot] = true;
-    Log(kLogWarn, "device %d: the probe's memset failed; isolated samples "
-        "are not discounted", slot);
-    ok = false;
-  }
-  ok = ok && record(s.end, stream) == CUDA_SUCCESS;
-  if (ok && g_pending.size() < kMaxPending)
-    g_pending.push_back(s);
-  else
-    GiveEvents(s);
 }
 
 // The idle probe: an empty kernel, work for the compute engine, which a
@@ -1238,10 +1227,39 @@ CUfunction IdleKernelLocked(int slot) {
       g_idle_fn[slot] = nullptr;
       g_idle_fn_off[slot] = true;
       Log(kLogWarn, "device %d: the idle probe's kernel did not load; "
-          "co-tenant samples wait for no idle card", slot);
+          "co-tenant samples wait for no idle card and isolated samples "
+          "are not discounted", slot);
     }
   }
   return g_idle_fn[slot];
+}
+
+// Two events around the empty kernel on an idle stream: the time from an
+// event's stamp to a kernel's start, the way every isolated sample's
+// kernel takes. A memset, which the card may run on a copy engine, takes
+// 5-10 us less than a kernel launch on an H100, and a throttled step of 8
+// kernels was over-charged by that much a launch (F6). Caller holds
+// g_cost_mu.
+void ProbeLocked(int slot, CUstream stream, PFN_cuEventRecord record) {
+  CUfunction fn = IdleKernelLocked(slot);
+  auto launch = VTPU_REAL(cuLaunchKernel);
+  if (!fn || !launch) {
+    g_probe_off[slot] = true;
+    return;
+  }
+  Sample s;
+  s.slot = slot;
+  s.shared = g_bucket[slot].shared.load(std::memory_order_relaxed);
+  s.start = TakeEvent();
+  s.end = TakeEvent();
+  bool ok = s.start && s.end && record(s.start, stream) == CUDA_SUCCESS &&
+            launch(fn, 1, 1, 1, 1, 1, 1, 0, stream, nullptr, nullptr) ==
+                CUDA_SUCCESS &&
+            record(s.end, stream) == CUDA_SUCCESS;
+  if (ok && g_pending.size() < kMaxPending)
+    g_pending.push_back(s);
+  else
+    GiveEvents(s);
 }
 
 // Launches the empty kernel on `stream` until two in a row finish within
@@ -1392,44 +1410,12 @@ void CloseWindowAfter(int slot, CUevent end, uint64_t until) {
   SetWindow(slot, 0);
 }
 
-// The calling thread in the relaxed capture mode for the guard's lifetime,
-// its own mode restored after: the interposer's event queries then never
-// invalidate another thread's global-mode capture.
-class RelaxedCaptureMode {
- public:
-  RelaxedCaptureMode()
-      : exchange_(VTPU_REAL_AS(PFN_cuThreadExchangeStreamCaptureMode,
-                               "cuThreadExchangeStreamCaptureMode")) {
-    if (exchange_ && exchange_(&mode_) != CUDA_SUCCESS) exchange_ = nullptr;
-  }
-  ~RelaxedCaptureMode() {
-    if (exchange_) exchange_(&mode_);
-  }
-  RelaxedCaptureMode(const RelaxedCaptureMode&) = delete;
-  RelaxedCaptureMode& operator=(const RelaxedCaptureMode&) = delete;
-
- private:
-  PFN_cuThreadExchangeStreamCaptureMode exchange_;
-  CUstreamCaptureMode mode_ = CU_STREAM_CAPTURE_MODE_RELAXED;
-};
-
 struct Ticket {
   bool sampled = false;
   Sample sample;
   CUstream stream = nullptr;
   uint64_t window_until = 0;  // a windowed sample: when its window ends
 };
-
-// Whether a launch into `stream` is captured rather than run: the stream
-// is capturing, or the driver refuses to say (the legacy stream while
-// another stream captures in the global mode).
-bool Capturing(CUstream stream) {
-  auto capturing = VTPU_REAL_AS(PFN_cuStreamIsCapturing, "cuStreamIsCapturing");
-  if (!capturing) return false;
-  CUstreamCaptureStatus status = CU_STREAM_CAPTURE_STATUS_NONE;
-  return capturing(stream, &status) != CUDA_SUCCESS ||
-         status != CU_STREAM_CAPTURE_STATUS_NONE;
-}
 
 // --- The step ring (see "Steps" above) ----------------------------------
 
@@ -1478,9 +1464,12 @@ void CloseStepLocked(uint64_t end_ns) {
   uint64_t wait_delta = wait >= g_step_wait_ns ? wait - g_step_wait_ns : 0;
   g_step_wait_ns = wait;
   int64_t peak = PeakBytes(g_step_slot);
+  // the comm block: what was moved since the last record (zeros unarmed)
+  CommWindow comm = TakeCommWindow();
   g_ring->Record(g_step_start_ns,
                  end_ns > g_step_start_ns ? end_ns - g_step_start_ns : 0,
-                 wait_delta, peak > 0 ? (uint64_t)peak : 0, g_step_compiled);
+                 wait_delta, peak > 0 ? (uint64_t)peak : 0, g_step_compiled,
+                 comm.time_ns, comm.bytes, comm.collectives);
   g_step_records.fetch_add(1, std::memory_order_relaxed);
   g_step_start_ns = 0;
   g_step_compiled = false;
@@ -1620,9 +1609,12 @@ void BeforeLaunch(CostKey key, CUstream stream, int slot, bool may_sample,
     if (!windowed) {
       // another tenant's window is no reason to wait; a busy card is
       if (opened) c.gate_backoff = kGateBackoff;
-      // beside a context of unknown use the drain that never came is its
-      // work: its slices are in the spans, and the clock takes the sample
-      if (opened && unseen) {
+      // beside a context of unknown use the drains that keep not coming
+      // are its work: its slices are in the spans, and the clock takes
+      // the sample. One that does not come may be a ledger co-tenant's
+      // queued work, which its windows leave out (F5)
+      c.voids = opened ? c.voids + 1 : c.voids;
+      if (opened && unseen && c.voids >= kVoidsForSlices) {
         b.sliced_until_ns.store(NowNs() + kSlicedHoldNs,
                                 std::memory_order_relaxed);
         shared = true;
@@ -1632,6 +1624,8 @@ void BeforeLaunch(CostKey key, CUstream stream, int slot, bool may_sample,
         c.inflight = false;
         sample = false;
       }
+    } else {
+      c.voids = 0;
     }
   }
   if (!sample && !probe) return;
@@ -1729,7 +1723,12 @@ CUresult Metered(CostKey key, CUstream stream, bool ptsz, bool may_clock,
   Ticket t;
   BeforeLaunch(key, ev_stream, -1, /*may_sample=*/true, may_clock, &t,
                replay);
+  // a collective's span starts after the bucket's wait, as its kernel,
+  // and ends before AfterLaunch, which waits out a window's kernel
+  bool collective = !replay && IsCollective(key);
+  CommBracket comm = collective ? OpenComm(ev_stream) : CommBracket{};
   CUresult rc = launch();
+  if (collective) CloseComm(comm, rc == CUDA_SUCCESS, 0, true);
   AfterLaunch(rc, &t);
   return rc;
 }

@@ -269,6 +269,18 @@ Route g_routes[] = {
     {"cuMemRelease", (void*)&cuMemRelease, nullptr},
     {"cuMemGetInfo_v2", (void*)&cuMemGetInfo_v2, nullptr},
     {"cuDeviceTotalMem_v2", (void*)&cuDeviceTotalMem_v2, nullptr},
+    {"cuMemcpyHtoD_v2", (void*)&cuMemcpyHtoD_v2, nullptr},
+    {"cuMemcpyHtoD_v2_ptds", (void*)&cuMemcpyHtoD_v2_ptds, nullptr},
+    {"cuMemcpyDtoH_v2", (void*)&cuMemcpyDtoH_v2, nullptr},
+    {"cuMemcpyDtoH_v2_ptds", (void*)&cuMemcpyDtoH_v2_ptds, nullptr},
+    {"cuMemcpyHtoDAsync_v2", (void*)&cuMemcpyHtoDAsync_v2, nullptr},
+    {"cuMemcpyHtoDAsync_v2_ptsz", (void*)&cuMemcpyHtoDAsync_v2_ptsz, nullptr},
+    {"cuMemcpyDtoHAsync_v2", (void*)&cuMemcpyDtoHAsync_v2, nullptr},
+    {"cuMemcpyDtoHAsync_v2_ptsz", (void*)&cuMemcpyDtoHAsync_v2_ptsz, nullptr},
+    {"cuMemcpy", (void*)&cuMemcpy, nullptr},
+    {"cuMemcpy_ptds", (void*)&cuMemcpy_ptds, nullptr},
+    {"cuMemcpyAsync", (void*)&cuMemcpyAsync, nullptr},
+    {"cuMemcpyAsync_ptsz", (void*)&cuMemcpyAsync_ptsz, nullptr},
     {"cuGetProcAddress", (void*)&cuGetProcAddress, nullptr},
     {"cuGetProcAddress_v2", (void*)&cuGetProcAddress_v2, nullptr},
 };

@@ -10,7 +10,8 @@
 //   --caps           cap verdicts under, at and over VTPU_MEM_LIMIT_0, the
 //                    credit a free returns, and the capped memory view
 //   --throttle-only  SHIM_TEST_ITERS launch+synchronize steps; prints wall=
-//                    and the interposer's counters (COUNTERS name=value ...).
+//                    (with the fake's own_busy_ns= on its sliced card) and
+//                    the interposer's counters (COUNTERS name=value ...).
 //                    SHIM_TEST_LAUNCH picks the path: kernel (cuLaunchKernel,
 //                    the default), graph (one captured kernel, replayed by
 //                    cuGraphLaunch) or coop (cuLaunchCooperativeKernel)
@@ -60,6 +61,23 @@
 //                    EXCESS gap_us=excess_us for each gap of SHIM_TEST_GAPS
 //                    (comma-separated us): the interposer's active table
 //                    (-1: none), and COUNTERS
+//   --comm           the copies and launches of SHIM_TEST_COMM, a
+//                    comma-separated list of op:bytes (htod, dtoh, htod_async,
+//                    dtoh_async, dtod_async, unified_htod, unified_dtoh,
+//                    unified_async_htod, unified_async_dtoh, unified_dtod
+//                    and unified_hh, the bytes copied; nccl: a launch of an
+//                    NCCL-named CUfunction, nccl_kernel: of an NCCL-named
+//                    CUkernel, kernel: of another, the number in place of
+//                    bytes), each on kStream, resolved with
+//                    SHIM_TEST_PTDS=1 as the per-thread default stream
+//                    forms (null stream), each followed by a launch and a
+//                    synchronisation of kStream (one step, whose ring record
+//                    holds what the op moved); then, with
+//                    SHIM_TEST_CAPTURE=1, an async copy and an NCCL launch
+//                    into a stream captured in the global mode. Prints
+//                    COMM comm_time_ns=.. comm_bytes=.. collectives=..
+//                    copies=<the fake's> capture_rc=<cuStreamEndCapture's>
+//                    records=<the interposer's ring records>
 //
 // (The counterpart of library/test/shim_test.cc.)
 
@@ -240,6 +258,19 @@ int Routes() {
       {"cuStreamSynchronize", ptsz, "cuStreamSynchronize_ptsz"},
       {"cuCtxSynchronize", 0, "cuCtxSynchronize"},
       {"cuEventSynchronize", 0, "cuEventSynchronize"},
+      // the copies CommTelemetry counts
+      {"cuMemcpyHtoD", 0, "cuMemcpyHtoD_v2"},
+      {"cuMemcpyHtoD", ptsz, "cuMemcpyHtoD_v2_ptds"},
+      {"cuMemcpyDtoH", 0, "cuMemcpyDtoH_v2"},
+      {"cuMemcpyDtoH", ptsz, "cuMemcpyDtoH_v2_ptds"},
+      {"cuMemcpyHtoDAsync", 0, "cuMemcpyHtoDAsync_v2"},
+      {"cuMemcpyHtoDAsync", ptsz, "cuMemcpyHtoDAsync_v2_ptsz"},
+      {"cuMemcpyDtoHAsync", 0, "cuMemcpyDtoHAsync_v2"},
+      {"cuMemcpyDtoHAsync", ptsz, "cuMemcpyDtoHAsync_v2_ptsz"},
+      {"cuMemcpy", 0, "cuMemcpy"},
+      {"cuMemcpy", ptsz, "cuMemcpy_ptds"},
+      {"cuMemcpyAsync", 0, "cuMemcpyAsync"},
+      {"cuMemcpyAsync", ptsz, "cuMemcpyAsync_ptsz"},
   };
   for (const Lookup& l : kMore) {
     char label[128];
@@ -408,6 +439,8 @@ CUgraphExec CaptureOne(CUfunction fn) {
   return exec;
 }
 
+int64_t Driver(const char* name);  // a fake driver's counter (-1: none)
+
 int ThrottleOnly() {
   const char* raw = getenv("SHIM_TEST_ITERS");
   int iters = raw ? atoi(raw) : 100;
@@ -441,8 +474,9 @@ int ThrottleOnly() {
   double wall = NowMs() - t0;
   auto launches = reinterpret_cast<CounterFn>(dlsym(RTLD_DEFAULT,
                                                     "vtpu_launches_total"));
-  printf("wall=%.3fms iters=%d shim_launches=%llu\n", wall, iters,
-         launches ? (unsigned long long)launches() : 0ull);
+  printf("wall=%.3fms iters=%d shim_launches=%llu own_busy_ns=%lld\n", wall,
+         iters, launches ? (unsigned long long)launches() : 0ull,
+         (long long)Driver("fake_own_busy_ns"));
   PrintCounters();
   return 0;
 }
@@ -870,6 +904,137 @@ int Steps() {
   return 0;
 }
 
+int Comm() {
+  const char* spec_raw = getenv("SHIM_TEST_COMM");
+  std::string spec = spec_raw ? spec_raw : "";
+  const char* ptds_raw = getenv("SHIM_TEST_PTDS");
+  bool ptds = ptds_raw && strcmp(ptds_raw, "1") == 0;
+  const char* cap_raw = getenv("SHIM_TEST_CAPTURE");
+  bool capture = cap_raw && strcmp(cap_raw, "1") == 0;
+  cuuint64_t flags = ptds ? CU_GET_PROC_ADDRESS_PER_THREAD_DEFAULT_STREAM : 0;
+  using HtoDFn = CUresult (*)(CUdeviceptr, const void*, size_t);
+  using DtoHFn = CUresult (*)(void*, CUdeviceptr, size_t);
+  using HtoDAsyncFn = CUresult (*)(CUdeviceptr, const void*, size_t,
+                                   CUstream);
+  using DtoHAsyncFn = CUresult (*)(void*, CUdeviceptr, size_t, CUstream);
+  using UnifiedFn = CUresult (*)(CUdeviceptr, CUdeviceptr, size_t);
+  using UnifiedAsyncFn = CUresult (*)(CUdeviceptr, CUdeviceptr, size_t,
+                                      CUstream);
+  auto htod = reinterpret_cast<HtoDFn>(Proc("cuMemcpyHtoD", flags));
+  auto dtoh = reinterpret_cast<DtoHFn>(Proc("cuMemcpyDtoH", flags));
+  auto htod_async =
+      reinterpret_cast<HtoDAsyncFn>(Proc("cuMemcpyHtoDAsync", flags));
+  auto dtoh_async =
+      reinterpret_cast<DtoHAsyncFn>(Proc("cuMemcpyDtoHAsync", flags));
+  auto unified = reinterpret_cast<UnifiedFn>(Proc("cuMemcpy", flags));
+  auto unified_async =
+      reinterpret_cast<UnifiedAsyncFn>(Proc("cuMemcpyAsync", flags));
+  auto launch = reinterpret_cast<LaunchFn>(Proc("cuLaunchKernel", flags));
+  auto launch_ex = reinterpret_cast<LaunchExFn>(Proc("cuLaunchKernelEx",
+                                                     flags));
+  auto sync = reinterpret_cast<SyncFn>(Proc("cuStreamSynchronize", flags));
+  auto alloc = reinterpret_cast<AllocFn>(Proc("cuMemAlloc"));
+  auto begin = reinterpret_cast<BeginCaptureFn>(Proc("cuStreamBeginCapture"));
+  auto end = reinterpret_cast<EndCaptureFn>(Proc("cuStreamEndCapture"));
+  if (!htod || !dtoh || !htod_async || !dtoh_async || !unified ||
+      !unified_async || !launch || !launch_ex || !sync || !alloc || !begin ||
+      !end) {
+    fprintf(stderr, "driver entry points missing\n");
+    return 2;
+  }
+  CUstream stream = ptds ? nullptr : kStream;
+  CUdeviceptr dev = 0, dev2 = 0;
+  if (alloc(&dev, 1 << 24) != CUDA_SUCCESS ||
+      alloc(&dev2, 1 << 24) != CUDA_SUCCESS)
+    return 1;
+  std::vector<char> host(1 << 24), host2(1 << 24);
+  auto host_ptr = [](void* p) { return (CUdeviceptr)(uintptr_t)p; };
+  CUfunction fn = reinterpret_cast<CUfunction>(0x1234);
+  size_t pos = 0;
+  while (pos < spec.size()) {
+    size_t comma = spec.find(',', pos);
+    std::string item = spec.substr(pos, comma == std::string::npos
+                                            ? std::string::npos
+                                            : comma - pos);
+    pos = comma == std::string::npos ? spec.size() : comma + 1;
+    size_t colon = item.find(':');
+    std::string op = item.substr(0, colon);
+    size_t n = colon == std::string::npos ? 1 : strtoull(
+        item.c_str() + colon + 1, nullptr, 10);
+    CUresult rc = CUDA_SUCCESS;
+    if (op == "htod") {
+      rc = htod(dev, host.data(), n);
+    } else if (op == "dtoh") {
+      rc = dtoh(host.data(), dev, n);
+    } else if (op == "htod_async") {
+      rc = htod_async(dev, host.data(), n, stream);
+    } else if (op == "dtoh_async") {
+      rc = dtoh_async(host.data(), dev, n, stream);
+    } else if (op == "dtod_async" || op == "unified_dtod") {
+      rc = op == "unified_dtod" ? unified(dev2, dev, n)
+                                : unified_async(dev2, dev, n, stream);
+    } else if (op == "unified_htod") {
+      rc = unified(dev, host_ptr(host.data()), n);
+    } else if (op == "unified_dtoh") {
+      rc = unified(host_ptr(host.data()), dev + 16, n);
+    } else if (op == "unified_async_htod") {
+      rc = unified_async(dev, host_ptr(host.data()), n, stream);
+    } else if (op == "unified_async_dtoh") {
+      rc = unified_async(host_ptr(host.data()), dev, n, stream);
+    } else if (op == "unified_hh") {
+      rc = unified(host_ptr(host2.data()), host_ptr(host.data()), n);
+    } else if (op == "nccl" || op == "kernel") {
+      CUfunction f = reinterpret_cast<CUfunction>(op == "nccl" ? 0x9000
+                                                               : 0x1238);
+      for (size_t i = 0; i < n && rc == CUDA_SUCCESS; i++)
+        rc = launch(f, 1, 1, 1, 1, 1, 1, 0, stream, nullptr, nullptr);
+    } else if (op == "nccl_kernel") {
+      CUlaunchConfig config = {};
+      config.gridDimX = config.gridDimY = config.gridDimZ = 1;
+      config.blockDimX = config.blockDimY = config.blockDimZ = 1;
+      config.hStream = stream;
+      for (size_t i = 0; i < n && rc == CUDA_SUCCESS; i++)
+        rc = launch_ex(&config, reinterpret_cast<CUfunction>(0xa000),
+                       nullptr, nullptr);
+    } else {
+      fprintf(stderr, "unknown op %s\n", op.c_str());
+      return 2;
+    }
+    // one step: the op, a launch and a synchronisation
+    if (rc != CUDA_SUCCESS ||
+        launch(fn, 1, 1, 1, 1, 1, 1, 0, stream, nullptr, nullptr) !=
+            CUDA_SUCCESS ||
+        sync(stream) != CUDA_SUCCESS) {
+      fprintf(stderr, "op %s failed (rc=%d)\n", op.c_str(), rc);
+      return 1;
+    }
+  }
+  CUresult capture_rc = CUDA_SUCCESS;
+  if (capture) {
+    CUgraph graph = nullptr;
+    if (begin(kStream2, CU_STREAM_CAPTURE_MODE_GLOBAL) != CUDA_SUCCESS)
+      return 1;
+    htod_async(dev, host.data(), 4096, kStream2);
+    launch(reinterpret_cast<CUfunction>(0x9000), 1, 1, 1, 1, 1, 1, 0,
+           kStream2, nullptr, nullptr);
+    capture_rc = end(kStream2, &graph);
+    // the graph is never replayed; one more step closes the ring's record
+    if (launch(fn, 1, 1, 1, 1, 1, 1, 0, stream, nullptr, nullptr) !=
+            CUDA_SUCCESS ||
+        sync(stream) != CUDA_SUCCESS)
+      return 1;
+  }
+  printf("COMM comm_time_ns=%lld comm_bytes=%lld collectives=%lld "
+         "copies=%lld capture_rc=%d records=%lld\n",
+         (long long)Counter("vtpu_comm_time_ns_total"),
+         (long long)Counter("vtpu_comm_bytes_total"),
+         (long long)Counter("vtpu_collectives_total"),
+         (long long)Driver("fake_copies_total"), (int)capture_rc,
+         (long long)Counter("vtpu_step_records_total"));
+  PrintCounters();
+  return 0;
+}
+
 // The interposer's active excess table, after a few metered steps.
 int Excess() {
   const char* raw = getenv("SHIM_TEST_ITERS");
@@ -929,8 +1094,9 @@ int main(int argc, char** argv) {
   if (strcmp(mode, "--entry-caps") == 0) return EntryCaps();
   if (strcmp(mode, "--steps") == 0) return Steps();
   if (strcmp(mode, "--excess") == 0) return Excess();
+  if (strcmp(mode, "--comm") == 0) return Comm();
   fprintf(stderr, "usage: %s --routes|--caps|--throttle-only|--alloc|"
-          "--stress|--capture|--entry-caps|--steps|--excess\n",
+          "--stress|--capture|--entry-caps|--steps|--excess|--comm\n",
           argv[0]);
   return 2;
 }

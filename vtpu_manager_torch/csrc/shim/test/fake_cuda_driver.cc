@@ -13,6 +13,9 @@
 //                           after the call; an event recorded on an idle
 //                           stream is stamped at once (a card's way from
 //                           the launch call to the kernel's start)
+//   FAKE_MEMSET_LATENCY_US  the same for a memset (default: the above), as
+//                           a card runs it on a copy engine, whose way is
+//                           shorter than a kernel's
 //   FAKE_SHARED_STATE=path  one device for every process naming the path:
 //                           an flock on <path>.lock guards a shared timeline
 //                           (kernels of all processes run one at a time, in
@@ -32,6 +35,28 @@
 //                           card's total: NVML's per-process utilization
 //                           for a test playing the watcher, which finds
 //                           the layout through fake_slice_layout().
+//   FAKE_SWITCH_US=n        with FAKE_TIMESLICE_US: a slice handed from one
+//                           process to another costs the incoming process
+//                           n microseconds of its own work (the context's
+//                           state restored), as the card runs a kernel
+//                           slower beside another busy context (F4's
+//                           inflation); none after an idle card.
+//                           fake_own_busy_ns() is this process's busy ns,
+//                           the switches' cost included: its own time on
+//                           the card.
+//
+// Copies: cuMemcpyHtoD/DtoH (_v2, _v2_ptds), their Async forms (_v2,
+// _v2_ptsz) and the unified cuMemcpy (_ptds) / cuMemcpyAsync (_ptsz) take
+// the device for 1 us plus 0.1 ns a byte (10 GB/s); an asynchronous one
+// goes on its stream like a launch (a node of a capturing stream's graph),
+// a blocking one returns when the device has run it. cuPointerGetAttribute
+// tells the memory type of a pointer inside one of the fake's allocations
+// (the card's) and refuses any other (a host pointer the driver does not
+// know). Kernel names: cuFuncGetName names handles 0x9000-0x9fff NCCL's
+// kernel (kNcclFunctionName) and any other "vtpu_fake_kernel"; handles
+// 0xa000-0xafff are CUkernels of a library, which cuFuncGetName refuses
+// and cuKernelGetName names (kNcclKernelName). fake_copies_total() counts
+// the copies that ran.
 //
 // Stream capture follows the driver's rules as far as the interposer meets
 // them: a launch into a capturing stream becomes a node of the graph and
@@ -94,6 +119,10 @@ std::map<uintptr_t, uint64_t> g_arrays;  // arrays and mipmapped arrays
 uintptr_t g_next_array = 0x7000;
 uint64_t g_graph_launches = 0;
 uint64_t g_coop_launches = 0;
+uint64_t g_copies = 0;
+const char kNcclFunctionName[] =
+    "_Z39ncclDevKernel_AllReduce_Sum_f32_RING_LL24ncclDevKernelArgs4K";
+const char kNcclKernelName[] = "ncclKernel_AllGather_RING_LL_Sum_int8_t";
 
 // The process's one capture (enough for the harness and the interposer).
 struct FakeCapture {
@@ -126,6 +155,11 @@ uint64_t EnvU64(const char* name, uint64_t fallback) {
 uint64_t ExecNs() { return EnvU64("FAKE_EXEC_US", 1000) * 1000; }
 uint64_t TotalMem() { return EnvU64("FAKE_TOTAL_MEM", 16ull << 30); }
 uint64_t LatencyNs() { return EnvU64("FAKE_SUBMIT_LATENCY_US", 0) * 1000; }
+uint64_t MemsetLatencyNs() {
+  return getenv("FAKE_MEMSET_LATENCY_US")
+             ? EnvU64("FAKE_MEMSET_LATENCY_US", 0) * 1000
+             : LatencyNs();
+}
 bool LyingEvents() { return EnvU64("FAKE_LYING_EVENTS", 0) != 0; }
 
 // The time-sliced card's per-process queue: work items by sequence
@@ -181,6 +215,7 @@ void InitSharedChip() {
 }
 
 uint64_t SliceNs() { return EnvU64("FAKE_TIMESLICE_US", 0) * 1000; }
+uint64_t SwitchNs() { return EnvU64("FAKE_SWITCH_US", 0) * 1000; }
 
 bool Sliced() {
   static std::once_flag once;
@@ -233,6 +268,10 @@ void AdvanceLocked(uint64_t now) {
         c.sim_ns = std::max(next, t);
         continue;
       }
+      // another process's context leaves the card: the incoming one
+      // restores its own
+      if (c.current >= 0 && pick != c.current)
+        c.procs[pick].head_left_ns += SwitchNs();
       c.current = pick;
       c.slice_end_ns = t + SliceNs();
     }
@@ -280,7 +319,8 @@ __attribute__((destructor)) void LeaveSlicedCard() {
   g_shared->procs[g_slice_slot].pid = 0;
 }
 
-CUresult SubmitSliced(uint64_t exec_ns, uint64_t* seq_out = nullptr) {
+CUresult SubmitSliced(uint64_t exec_ns, uint64_t* seq_out = nullptr,
+                      uint64_t latency_ns = LatencyNs()) {
   for (;;) {
     {
       ChipLock lock;
@@ -291,7 +331,7 @@ CUresult SubmitSliced(uint64_t exec_ns, uint64_t* seq_out = nullptr) {
         uint64_t seq = ++p.next_seq;
         p.exec_ns[seq % kSliceRing] = exec_ns;
         p.ready_ns[seq % kSliceRing] =
-            Pending(p) == 1 ? now + LatencyNs() : now;
+            Pending(p) == 1 ? now + latency_ns : now;
         if (Pending(p) == 1) p.head_left_ns = exec_ns;
         if (seq_out) *seq_out = seq;
         return CUDA_SUCCESS;
@@ -335,13 +375,13 @@ void SleepUntil(uint64_t t) {
 
 // Queues `exec_ns` of work: on an idle device it starts after the
 // submission latency, else when the device frees up.
-CUresult Submit(uint64_t exec_ns) {
-  if (Sliced()) return SubmitSliced(exec_ns);
+CUresult Submit(uint64_t exec_ns, uint64_t latency_ns = LatencyNs()) {
+  if (Sliced()) return SubmitSliced(exec_ns, nullptr, latency_ns);
   std::lock_guard<std::mutex> lock(g_mu);
   if (g_shared) flock(g_shared_lock_fd, LOCK_EX);
   uint64_t now = NowNs();
   uint64_t device_free = g_shared ? g_shared->free_at_ns : g_free_at_ns;
-  uint64_t start = device_free > now ? device_free : now + LatencyNs();
+  uint64_t start = device_free > now ? device_free : now + latency_ns;
   g_free_at_ns = start + exec_ns;
   if (g_shared) {
     g_shared->free_at_ns = g_free_at_ns;
@@ -476,7 +516,7 @@ CUresult ClockLaunch(CUfunction f, void** params) {
 }
 
 CUresult Launch(CUstream stream, uint64_t nodes = 1,
-                uint64_t exec_ns = ExecNs()) {
+                uint64_t exec_ns = ExecNs(), bool counted = true) {
   {
     std::lock_guard<std::mutex> lock(g_mu);
     if (ImplicitLocked(stream)) {
@@ -487,9 +527,36 @@ CUresult Launch(CUstream stream, uint64_t nodes = 1,
       g_capture.nodes += nodes;
       return CUDA_SUCCESS;
     }
-    g_launches++;
+    if (counted) g_launches++;
   }
   return Submit(nodes * exec_ns);
+}
+
+uint64_t CopyNs(size_t bytes) { return 1000 + bytes / 10; }
+
+// An asynchronous copy on `stream`, as a launch of its own length.
+CUresult CopyAsync(CUstream stream, size_t bytes) {
+  CUresult rc = Launch(stream, 1, CopyNs(bytes));
+  std::lock_guard<std::mutex> lock(g_mu);
+  if (rc == CUDA_SUCCESS && !CapturedLocked(stream)) g_copies++;
+  return rc;
+}
+
+// A blocking copy: queued on the legacy stream, returns once run.
+CUresult CopyBlocking(size_t bytes) {
+  CUresult rc = CopyAsync(nullptr, bytes);
+  if (rc != CUDA_SUCCESS) return rc;
+  uint64_t t;
+  {
+    std::lock_guard<std::mutex> lock(g_mu);
+    t = g_free_at_ns;
+  }
+  if (Sliced()) {
+    while (!IdleSliced()) usleep(50);
+  } else {
+    SleepUntil(t);
+  }
+  return CUDA_SUCCESS;
 }
 
 // Allocations the fake does not tell apart from cuMemAlloc_v2.
@@ -585,7 +652,9 @@ FAKE_EXPORT CUresult cuLaunchKernel(CUfunction f, unsigned, unsigned,
                                     unsigned, CUstream stream, void** params,
                                     void**) {
   if (f == kWatchKernel || f == kStampKernel) return ClockLaunch(f, params);
-  return Launch(stream, 1, f == kEmptyKernel ? 0 : ExecNs());
+  // the interposer's own empty kernel is not a launch it forwarded
+  if (f == kEmptyKernel) return Launch(stream, 1, 0, /*counted=*/false);
+  return Launch(stream, 1, ExecNs());
 }
 
 FAKE_EXPORT CUresult cuModuleLoadData(CUmodule* module, const void* image) {
@@ -625,6 +694,15 @@ FAKE_EXPORT int fake_slice_layout(uint64_t* out, int n) {
   const int count = (int)(sizeof(v) / sizeof(v[0]));
   for (int i = 0; out && i < n && i < count; i++) out[i] = v[i];
   return count;
+}
+
+// This process's busy ns on the sliced card (0 off it): what its work
+// took, the switches' cost included.
+FAKE_EXPORT uint64_t fake_own_busy_ns() {
+  if (!Sliced()) return 0;
+  ChipLock lock;
+  AdvanceLocked(NowNs());
+  return g_slice_slot < 0 ? 0 : g_shared->procs[g_slice_slot].busy_ns;
 }
 
 FAKE_EXPORT CUresult cuLaunchKernel_ptsz(CUfunction, unsigned, unsigned,
@@ -795,7 +873,7 @@ FAKE_EXPORT CUresult cuMemAllocHost_v2(void** pp, size_t bytes) {
 
 FAKE_EXPORT CUresult cuMemsetD32Async(CUdeviceptr, unsigned, size_t,
                                       CUstream) {
-  return Submit(0);
+  return Submit(0, MemsetLatencyNs());
 }
 
 FAKE_EXPORT CUresult cuStreamIsCapturing(CUstream stream,
@@ -887,6 +965,89 @@ FAKE_EXPORT CUresult cuEventElapsedTime(float* ms, CUevent a, CUevent b) {
   if ((ea->seq && !EventDone(ea)) || (eb->seq && !EventDone(eb)))
     return CUDA_ERROR_NOT_READY;
   *ms = (float)((double)(eb->at_ns - ea->at_ns) / 1e6);
+  return CUDA_SUCCESS;
+}
+
+FAKE_EXPORT CUresult cuMemcpyHtoD_v2(CUdeviceptr, const void*, size_t n) {
+  return CopyBlocking(n);
+}
+
+FAKE_EXPORT CUresult cuMemcpyHtoD_v2_ptds(CUdeviceptr, const void*,
+                                          size_t n) {
+  return CopyBlocking(n);
+}
+
+FAKE_EXPORT CUresult cuMemcpyDtoH_v2(void*, CUdeviceptr, size_t n) {
+  return CopyBlocking(n);
+}
+
+FAKE_EXPORT CUresult cuMemcpyDtoH_v2_ptds(void*, CUdeviceptr, size_t n) {
+  return CopyBlocking(n);
+}
+
+FAKE_EXPORT CUresult cuMemcpyHtoDAsync_v2(CUdeviceptr, const void*, size_t n,
+                                          CUstream stream) {
+  return CopyAsync(stream, n);
+}
+
+FAKE_EXPORT CUresult cuMemcpyHtoDAsync_v2_ptsz(CUdeviceptr, const void*,
+                                               size_t n, CUstream stream) {
+  return CopyAsync(stream, n);
+}
+
+FAKE_EXPORT CUresult cuMemcpyDtoHAsync_v2(void*, CUdeviceptr, size_t n,
+                                          CUstream stream) {
+  return CopyAsync(stream, n);
+}
+
+FAKE_EXPORT CUresult cuMemcpyDtoHAsync_v2_ptsz(void*, CUdeviceptr, size_t n,
+                                               CUstream stream) {
+  return CopyAsync(stream, n);
+}
+
+FAKE_EXPORT CUresult cuMemcpy(CUdeviceptr, CUdeviceptr, size_t n) {
+  return CopyBlocking(n);
+}
+
+FAKE_EXPORT CUresult cuMemcpy_ptds(CUdeviceptr, CUdeviceptr, size_t n) {
+  return CopyBlocking(n);
+}
+
+FAKE_EXPORT CUresult cuMemcpyAsync(CUdeviceptr, CUdeviceptr, size_t n,
+                                   CUstream stream) {
+  return CopyAsync(stream, n);
+}
+
+FAKE_EXPORT CUresult cuMemcpyAsync_ptsz(CUdeviceptr, CUdeviceptr, size_t n,
+                                        CUstream stream) {
+  return CopyAsync(stream, n);
+}
+
+FAKE_EXPORT CUresult cuPointerGetAttribute(void* data, int attribute,
+                                           CUdeviceptr p) {
+  constexpr int kMemoryType = 2;
+  if (!data || attribute != kMemoryType) return CUDA_ERROR_INVALID_VALUE;
+  std::lock_guard<std::mutex> lock(g_mu);
+  auto it = g_ptrs.upper_bound(p);
+  if (it == g_ptrs.begin()) return CUDA_ERROR_INVALID_VALUE;
+  --it;
+  if (p >= it->first + std::max<uint64_t>(it->second, 1))
+    return CUDA_ERROR_INVALID_VALUE;
+  *static_cast<unsigned*>(data) = 2;  // CU_MEMORYTYPE_DEVICE
+  return CUDA_SUCCESS;
+}
+
+FAKE_EXPORT CUresult cuFuncGetName(const char** name, CUfunction f) {
+  uintptr_t h = reinterpret_cast<uintptr_t>(f);
+  if (!name || !f || (h >= 0xa000 && h < 0xb000)) return 400;
+  *name = h >= 0x9000 && h < 0xa000 ? kNcclFunctionName : "vtpu_fake_kernel";
+  return CUDA_SUCCESS;
+}
+
+FAKE_EXPORT CUresult cuKernelGetName(const char** name, const void* kernel) {
+  uintptr_t h = reinterpret_cast<uintptr_t>(kernel);
+  if (!name || h < 0xa000 || h >= 0xb000) return 400;
+  *name = kNcclKernelName;
   return CUDA_SUCCESS;
 }
 
@@ -1084,6 +1245,21 @@ FAKE_EXPORT void* fake_real_address(const char* name) {
       {"cuMemRelease", (void*)&cuMemRelease},
       {"cuMemGetInfo_v2", (void*)&cuMemGetInfo_v2},
       {"cuDeviceTotalMem_v2", (void*)&cuDeviceTotalMem_v2},
+      {"cuMemcpyHtoD_v2", (void*)&cuMemcpyHtoD_v2},
+      {"cuMemcpyHtoD_v2_ptds", (void*)&cuMemcpyHtoD_v2_ptds},
+      {"cuMemcpyDtoH_v2", (void*)&cuMemcpyDtoH_v2},
+      {"cuMemcpyDtoH_v2_ptds", (void*)&cuMemcpyDtoH_v2_ptds},
+      {"cuMemcpyHtoDAsync_v2", (void*)&cuMemcpyHtoDAsync_v2},
+      {"cuMemcpyHtoDAsync_v2_ptsz", (void*)&cuMemcpyHtoDAsync_v2_ptsz},
+      {"cuMemcpyDtoHAsync_v2", (void*)&cuMemcpyDtoHAsync_v2},
+      {"cuMemcpyDtoHAsync_v2_ptsz", (void*)&cuMemcpyDtoHAsync_v2_ptsz},
+      {"cuMemcpy", (void*)&cuMemcpy},
+      {"cuMemcpy_ptds", (void*)&cuMemcpy_ptds},
+      {"cuMemcpyAsync", (void*)&cuMemcpyAsync},
+      {"cuMemcpyAsync_ptsz", (void*)&cuMemcpyAsync_ptsz},
+      {"cuPointerGetAttribute", (void*)&cuPointerGetAttribute},
+      {"cuFuncGetName", (void*)&cuFuncGetName},
+      {"cuKernelGetName", (void*)&cuKernelGetName},
       {"cuGetProcAddress", (void*)&cuGetProcAddress},
       {"cuGetProcAddress_v2", (void*)&cuGetProcAddress_v2},
   };
@@ -1103,16 +1279,26 @@ FAKE_EXPORT CUresult cuGetProcAddress_v2(const char* symbol, void** pfn,
       "cuMemAlloc",       "cuMemFree",     "cuMemGetInfo",
       "cuDeviceTotalMem", "cuEventDestroy", "cuMemAllocPitch",
       "cuArrayCreate",    "cuArray3DCreate", "cuCtxPushCurrent",
-      "cuCtxPopCurrent",  "cuStreamBeginCapture"};
+      "cuCtxPopCurrent",  "cuStreamBeginCapture", "cuMemcpyHtoD",
+      "cuMemcpyDtoH",     "cuMemcpyHtoDAsync", "cuMemcpyDtoHAsync"};
+  // the blocking copies' per-thread forms are _ptds
+  static const char* kPtds[] = {"cuMemcpyHtoD", "cuMemcpyDtoH", "cuMemcpy"};
+  static const char* kPtszCopies[] = {"cuMemcpyHtoDAsync",
+                                      "cuMemcpyDtoHAsync", "cuMemcpyAsync"};
   char name[128];
   strncpy(name, symbol, sizeof(name) - 16);
   name[sizeof(name) - 16] = '\0';
-  if (flags & CU_GET_PROC_ADDRESS_PER_THREAD_DEFAULT_STREAM)
-    for (const char* p : kPtsz)
-      if (strcmp(p, symbol) == 0) strcat(name, "_ptsz");
   if (version >= 3020)
     for (const char* v : kV2)
       if (strcmp(v, symbol) == 0) strcat(name, "_v2");
+  if (flags & CU_GET_PROC_ADDRESS_PER_THREAD_DEFAULT_STREAM) {
+    for (const char* p : kPtsz)
+      if (strcmp(p, symbol) == 0) strcat(name, "_ptsz");
+    for (const char* p : kPtszCopies)
+      if (strcmp(p, symbol) == 0) strcat(name, "_ptsz");
+    for (const char* p : kPtds)
+      if (strcmp(p, symbol) == 0) strcat(name, "_ptds");
+  }
   if (strcmp(symbol, "cuGetProcAddress") == 0 && version >= 12000)
     strcat(name, "_v2");
   *pfn = fake_real_address(name);
@@ -1138,6 +1324,11 @@ FAKE_EXPORT uint64_t fake_graph_launches_total() {
 FAKE_EXPORT uint64_t fake_cooperative_launches_total() {
   std::lock_guard<std::mutex> lock(g_mu);
   return g_coop_launches;
+}
+
+FAKE_EXPORT uint64_t fake_copies_total() {
+  std::lock_guard<std::mutex> lock(g_mu);
+  return g_copies;
 }
 
 FAKE_EXPORT uint64_t fake_used_bytes() {

@@ -30,6 +30,9 @@ read-write at the same container path for every tenant, and do
 `VTPU_COMPILE_CACHE` / `VTPU_COMPILE_CACHE_DIR` arm the runtime client;
 ClusterCompileCache (`cluster_cache_enabled`, `vnum.py:61, 537-543`) adds
 `VTPU_CLUSTER_CACHE=true` only on top of that mounted node cache.
+CommTelemetry (`comm_telemetry_enabled`, `vnum.py:560-567`) adds
+`VTPU_COMM_TELEMETRY=true` only beside the ring's env: the ring is the
+wire.
 Tracing (`vnum.py:256-258, 424-431, 462, 511-523`): once
 `trace.configure` ran, Allocate records the `plugin.allocate` span and,
 inside it, `plugin.config`, for a pod whose annotations carry a trace id;
@@ -144,6 +147,7 @@ class VnumPlugin(DevicePluginServicer):
     step_telemetry_enabled = False           # gated: StepTelemetry
     compile_cache_enabled = False            # gated: CompileCache
     cluster_cache_enabled = False            # gated: ClusterCompileCache
+    comm_telemetry_enabled = False           # gated: CommTelemetry
 
     def __init__(self, manager: DeviceManager, client: KubeClient,
                  node_name: str, node_config: NodeConfig | None = None,
@@ -517,6 +521,10 @@ class VnumPlugin(DevicePluginServicer):
                 resp.envs[consts.ENV_STEP_TELEMETRY] = "true"
                 resp.envs[consts.ENV_STEP_RING_PATH] = os.path.join(
                     tel_cont, consts.STEP_RING_NAME)
+                if self.comm_telemetry_enabled:
+                    # the interposer's copies and collectives into the
+                    # ring's comm block
+                    resp.envs[consts.ENV_COMM_TELEMETRY] = "true"
             except OSError as e:
                 log.warning("telemetry dir %s unavailable (%s); tenant "
                             "%s/%s runs untelemetered", tel_host, e, uid,

@@ -161,16 +161,17 @@ def dryrun_rank(rank, cfg: dict | None = None) -> dict:
 
 
 def dryrun_multichip(n_devices: int, device: str | torch.device | None = None,
-                     cfg: dict | None = None, timeout: float = 600.0
-                     ) -> list[dict]:
+                     cfg: dict | None = None, timeout: float = 600.0,
+                     env: dict | None = None) -> list[dict]:
     """Runs the dry run on n rank processes and prints the JAX entry's
     one-line verdict; returns every rank's record. A rank that fails
-    fails the run."""
+    fails the run. `env` is every rank's environment (what the device
+    plugin's Allocate gives a pod's containers), the caller's by default."""
     from vtpu_manager_torch.workloads import ranks
 
     results = ranks.launch("vtpu_manager_torch.graft_entry:dryrun_rank",
                            n_devices, device=device, args={"cfg": cfg},
-                           timeout=timeout)
+                           env=env, timeout=timeout)
     losses = {r["loss"] for r in results}
     if len(losses) != 1:
         raise AssertionError(f"ranks disagree on the loss: {losses}")

@@ -3,14 +3,15 @@ what it uses, as Prometheus gauges.
 
 The port of the JAX package's `metrics/collector.py:19-651`, less the
 planes that are not ported (the utilization ledger, memory over-commit,
-SLO attribution, the comm families). One scrape reads, all node-local:
+SLO attribution). One scrape reads, all node-local:
 each container's `vtpu.config` (its limits), the memory ledger (bytes in
 use, per process), the watcher's feed (the card's duty cycle and each
 tenant's attributed share, the calibration block), kubelet's view of who
 holds devices (the pod-resources socket and the checkpoint, to flag a
 config directory kubelet does not vouch for), the step rings (per-pod
-histograms and the node's pressure), the compile cache's counters, and
-its own duration and per-feed read errors.
+histograms and the node's pressure; with `comm_enabled`, CommTelemetry's
+`vtpu_tenant_comm_*` families from the rings' comm block), the compile
+cache's counters, and its own duration and per-feed read errors.
 """
 
 from __future__ import annotations
@@ -75,7 +76,8 @@ class NodeCollector:
                  tc_path: str = consts.TC_UTIL_CONFIG,
                  vmem_path: str = consts.VMEM_NODE_CONFIG,
                  pod_resources_socket: str | None = None,
-                 kubelet_checkpoint: str | None = None):
+                 kubelet_checkpoint: str | None = None,
+                 comm_enabled: bool = False):
         self.node_name = node_name
         self.chips = chips
         self.base_dir = base_dir
@@ -102,8 +104,11 @@ class NodeCollector:
             os.environ.get("VTPU_KUBELET_VIEW_TTL_S", "10"))
         # the step rings, tailed by cursor and folded into cumulative
         # per-pod histograms across scrapes (a ring remembers only its
-        # last RING_CAPACITY steps); the comm block stays off
-        self.telemetry = TenantStepTelemetry(base_dir)
+        # last RING_CAPACITY steps); with CommTelemetry the same fold
+        # takes the comm block into the vtpu_tenant_comm_* families, and
+        # off renders none of them (the gate-off contract)
+        self.comm_enabled = comm_enabled
+        self.telemetry = TenantStepTelemetry(base_dir, comm=comm_enabled)
         # per-feed last-read-error flags: a wedged file must show, not
         # serve stale gauges silently
         self._feed_errors: dict[str, float] = {

@@ -184,22 +184,53 @@ def _interposer_counter(symbol: str):
     return fn
 
 
+def _interposer_comm_sources():
+    """(comm time ns, bytes, collectives) total accessors of the
+    interposer (JAX `runtime/client.py:211 _shim_comm_sources`), or None
+    when CommTelemetry did not arm this container or the interposer lacks
+    the exports: the ring's comm block then stays zeros. All three or
+    none, so that a record's comm fields never disagree."""
+    if os.environ.get(consts.ENV_COMM_TELEMETRY) != "true":
+        return None
+    fns = tuple(_interposer_counter(sym) for sym in
+                ("vtpu_comm_time_ns_total", "vtpu_comm_bytes_total",
+                 "vtpu_collectives_total"))
+    return fns if all(fns) else None
+
+
 class _ShimWaitStepRing:
     """A StepRingWriter that charges each record the interposer's token
     wait since the previous record (`vtpu_throttle_wait_ns_total`): the
     wait hides inside the step's launches, where the step loop cannot see
-    it. A caller's explicit throttle_wait_ns is kept."""
+    it. A caller's explicit throttle_wait_ns is kept. With CommTelemetry's
+    counters (`comm_fns`), each record also gets the copies and
+    collectives the interposer measured since the previous one, as the
+    JAX writer charges them (`runtime/client.py:243-310`)."""
 
-    __slots__ = ("ring", "_wait_total_fn", "_last_wait_ns")
+    __slots__ = ("ring", "_wait_total_fn", "_last_wait_ns", "_comm_fns",
+                 "_last_comm")
 
-    def __init__(self, ring, wait_total_fn):
+    def __init__(self, ring, wait_total_fn, comm_fns=None):
         self.ring = ring
         self._wait_total_fn = wait_total_fn
         self._last_wait_ns = int(wait_total_fn())
+        self._comm_fns = comm_fns
+        self._last_comm = tuple(int(fn()) for fn in comm_fns) \
+            if comm_fns else (0, 0, 0)
 
     @property
     def writes(self) -> int:
         return self.ring.writes
+
+    def _comm_deltas(self) -> tuple[int, int, int]:
+        if not self._comm_fns:
+            return 0, 0, 0
+        totals = tuple(int(fn()) for fn in self._comm_fns)
+        # a reloaded interposer starts again at 0: re-baseline
+        deltas = tuple(max(0, t - last)
+                       for t, last in zip(totals, self._last_comm))
+        self._last_comm = totals
+        return deltas
 
     def record(self, duration_ns: int, throttle_wait_ns: int | None = None,
                hbm_highwater_bytes: int = 0, compiled: bool = False,
@@ -210,9 +241,12 @@ class _ShimWaitStepRing:
             # re-baselines and never reaches the ring
             throttle_wait_ns = max(0, total - self._last_wait_ns)
             self._last_wait_ns = total
+        comm_ns, comm_bytes, collectives = self._comm_deltas()
         self.ring.record(duration_ns, throttle_wait_ns=throttle_wait_ns,
                          hbm_highwater_bytes=hbm_highwater_bytes,
-                         compiled=compiled, start_mono_ns=start_mono_ns)
+                         compiled=compiled, start_mono_ns=start_mono_ns,
+                         comm_time_ns=comm_ns, bytes_transferred=comm_bytes,
+                         collective_count=collectives)
 
     def close(self) -> None:
         self.ring.close()
@@ -258,7 +292,8 @@ def step_telemetry():
             path, trace_id=os.environ.get(consts.ENV_TRACE_ID, ""))
         wait_fn = _interposer_counter("vtpu_throttle_wait_ns_total")
         if wait_fn is not None:
-            _step_telemetry = _ShimWaitStepRing(_step_telemetry, wait_fn)
+            _step_telemetry = _ShimWaitStepRing(
+                _step_telemetry, wait_fn, comm_fns=_interposer_comm_sources())
         import atexit
         atexit.register(_step_telemetry.close)
     except (OSError, ValueError) as e:

@@ -15,9 +15,10 @@ rollup (the largest throttle-wait fraction, and the memory left under the
 high-waters) feeds the exporter's gauges and the pressure annotation
 (`telemetry/pressure.py`).
 
-The rings' communication block is written as zeros by the port's tenants,
-so `comm` stays off and no `vtpu_tenant_comm_*` series is rendered; the
-fold keeps the switch so a later slice can turn it on.
+With `comm` on (the exporter's CommTelemetry) the fold also takes the
+rings' communication block, which the interposer fills for a tenant that
+CommTelemetry armed, into the `vtpu_tenant_comm_*` families; off, none of
+them is rendered.
 """
 
 from __future__ import annotations

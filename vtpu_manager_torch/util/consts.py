@@ -166,6 +166,9 @@ ENV_POD_NAME = "VTPU_POD_NAME"
 ENV_POD_NAMESPACE = "VTPU_POD_NAMESPACE"
 ENV_STEP_TELEMETRY = "VTPU_STEP_TELEMETRY"  # "true": step ring armed
 ENV_STEP_RING_PATH = "VTPU_STEP_RING_PATH"  # tenant-side ring file path
+# "true": the interposer measures copies and collectives into the ring's
+# comm block; written only beside ENV_STEP_TELEMETRY (the ring is the wire)
+ENV_COMM_TELEMETRY = "VTPU_COMM_TELEMETRY"
 ENV_TRACE_ID = "VTPU_TRACE_ID"              # the pod's trace id
 ENV_TRACE_SAMPLED = "VTPU_TRACE_SAMPLED"    # "true"/"false"
 ENV_TRACE_DIR = "VTPU_TRACE_DIR"            # a tenant's spool dir, if set

@@ -14,6 +14,7 @@ TC_WATCHER = "TCWatcher"                # the node's utilization watcher
 VMEMORY_NODE = "VMemoryNode"            # the cross-process memory ledger
 HONOR_PREALLOC_IDS = "HonorPreAllocatedDeviceIDs"
 STEP_TELEMETRY = "StepTelemetry"        # per-tenant step rings
+COMM_TELEMETRY = "CommTelemetry"        # copies and collectives in the rings
 NRI_SUPPORT = "NRISupport"              # DRA: the NRI runtime hook
 CORE_PLUGIN = "CorePlugin"              # advertise the vtpu-cores resource
 MEMORY_PLUGIN = "MemoryPlugin"          # advertise the vtpu-memory resource
@@ -28,6 +29,9 @@ _KNOWN = {
     VMEMORY_NODE: False,
     HONOR_PREALLOC_IDS: False,
     STEP_TELEMETRY: False,
+    # on top of StepTelemetry: the interposer counts host-card copies and
+    # NCCL's kernels into the ring's comm block
+    COMM_TELEMETRY: False,
     NRI_SUPPORT: False,
     CORE_PLUGIN: False,
     MEMORY_PLUGIN: False,
