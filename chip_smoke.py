@@ -44,9 +44,13 @@ result line:
    under the node watcher fed by NVML: discovery, the config file's cap,
    siblings / co-tenant / physical pressure / reap across processes,
    50 + 25, 50 + 50 and 60 / 25 / 10 together, the feed, balance mode,
-   and 5 s runs at q50 and q25 (charged against device time, each beside
-   a control with the isolated-sample discount off); no tenant may be
-   judged blind. One `COTENANCY {json}` line per check;
+   and 5 s runs at q50 and q25 (charged against the tenant's kernel time
+   read by torch.profiler over 100 steps at its quota after the
+   unprofiled charged stretch, each beside a control with the
+   isolated-sample discount off); no tenant may be judged blind. The
+   compute checks' tenants come from worker processes started ahead with
+   their imports done (`bench_quota.TenantPool`; new ones start once a
+   batch's timed steps are over). One `COTENANCY {json}` line per check;
 6. allocate (`vtpu_manager_torch/bench_allocate.py`): the port's device
    plugin hands slices of the card to tenants. Its device manager over
    NVML registers the node (split 4); pods the scheduler committed (50 %
@@ -148,13 +152,34 @@ result line:
    plugin's `/metrics` counts the two fires as the registry does, and
    nothing with the registry off. A pod allocated under `compat_mode:
    client` runs two processes (the quota step and one `vtpu::attn_block`
-   launch per step each); each interposer starts the device client, which
+   launch per step each), started outside the repo with a PYTHONPATH that
+   lacks it, as from an image without the package; each interposer starts
+   the stdlib-only registrar installed beside it in the driver dir, which
    registers over the node registry's socket (a stand-in cgroup, the card
    machine having no kubelet); `pids.config` holds both pids, each
    interposer reads it, the two processes share the one 8 GiB cap, the
-   pod's timeline holds both sides of each registration, and a spoofed
-   pod uid is refused. One `RESILIENCE {json}` line per check;
-13. observation (`vtpu_manager_torch/bench_observation.py`): the device
+   pod's timeline holds the registry's side of each registration, and a
+   spoofed pod uid is refused. One `RESILIENCE {json}` line per check;
+13. quota_lease (`vtpu_manager_torch/bench_quota_lease.py`): the quota
+   market's tenant side and the node's tools. A pod at hard 25 % / 8 GiB
+   runs the quota step and one `vtpu::attn_block` launch per step while
+   its config is rewritten as the quota market writes it (lease +75, +25,
+   then 0: effective 100, 50, then a revoke to 25): each paced stage's
+   share (the step's card time, the effective-100 stage's charge per
+   step, over the stage's ms per step) within 15 points of its effective
+   quota, the effective-100 stage no more than 15 % of its time in the
+   throttle wait, from the steps that begin one 2 ms quantum and one
+   step after each rename, and every rewrite adopted; then a migration freeze for
+   about 1 s: no step begins inside it but the parked one, none ends in
+   it, the interposer's freeze wait covers it and its throttle wait does
+   not grow by it. `vtpu_busy --duty 100` in a hard-50 pod takes a share
+   within 15 points of 50; the host-offload demo over a 1 GiB model in
+   pinned host memory, under a 512 MiB cap, finishes, agrees with the
+   CPU within 3e-2, and the most the cap granted at once stays under it;
+   `vtpu_inspect` shows the lease tenant's current epoch and lease. The
+   lease tenant's `attn_block` launches are added to the kernel
+   record's. One `QUOTA_LEASE {json}` line per check;
+14. observation (`vtpu_manager_torch/bench_observation.py`): the device
    plugin starts with `VTPU_OBS_CALIBRATE=1` and calibrates the
    interposer's after-idle discount on the idle card
    (`manager/obs_calibrate.py`, a throwaway process, while the phase's
@@ -172,7 +197,7 @@ result line:
    launches are added to the kernel record's. One `OBSERVATION {json}`
    line per check. The other phases start their plugins with
    `VTPU_OBS_CALIBRATE=0`, as they were accepted;
-14. distributed (`vtpu_manager_torch/graft_entry.py`): the multi-device
+15. distributed (`vtpu_manager_torch/graft_entry.py`): the multi-device
    dry run on `torch.distributed`, every rank under the interposer with
    CommTelemetry armed as the device plugin's Allocate arms it (the step
    ring's env and `VTPU_COMM_TELEMETRY=true`). World 1 over NCCL:
@@ -695,6 +720,23 @@ def resilience(torch, shim: str) -> dict:
                             for k, r in client["steps"].items()}}
 
 
+def quota_lease(torch, shim: str) -> dict:
+    from vtpu_manager_torch import bench_quota_lease as bl
+
+    results = run_checks("quota_lease", bl.Phase, torch, shim, bl.CHECKS)
+    lease, freeze, tools = (results[c] for c in bl.CHECKS)
+    return {"shares": {s["effective"]: s["share"] for s in lease["stages"]},
+            "wait_shares": {s["effective"]: s.get("wait_share")
+                            for s in lease["stages"]},
+            "reloads": [lease["reloads"], lease["rewrites"]],
+            "freeze_s": [freeze["freeze_wait_s"], freeze["held_s"]],
+            "busy_share": tools["busy"]["effective_pct"],
+            "offload": {k: tools["offload"][k] for k in (
+                "interposer_peak_bytes", "cap_bytes", "model_bytes",
+                "max_abs_err")},
+            "attn_block_launches": lease["attn_block_launches"]}
+
+
 def observation(torch, shim: str) -> dict:
     from vtpu_manager_torch import bench_observation as bo
 
@@ -1136,14 +1178,16 @@ def main() -> int:
                                smi)
     summary["resilience"] = phase("resilience", resilience, torch,
                                   str(paths["shim"]))
+    summary["quota_lease"] = phase("quota_lease", quota_lease, torch,
+                                   str(paths["shim"]))
     summary["observation"] = phase("observation", observation, torch,
                                    str(paths["shim"]))
     summary["distributed"] = phase("distributed", distributed, torch,
                                    str(paths["shim"]), smi)
     if record is not None:
-        # the observation phase's tenants and the distributed phase's ranks
-        # launch the kernel on their paths
-        for name in ("observation", "distributed"):
+        # the lease tenant, the observation phase's tenants and the
+        # distributed phase's ranks launch the kernel on their paths
+        for name in ("quota_lease", "observation", "distributed"):
             if summary[name] is not None:
                 record["launches"] += summary[name]["attn_block_launches"]
     log("SUMMARY " + json.dumps(summary, default=str))

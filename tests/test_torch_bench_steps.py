@@ -1,6 +1,7 @@
 """The port's step loops and quota arithmetic, run on the CPU at tiny
 shapes (as tests/test_bench_logic.py runs the JAX loops)."""
 
+import os
 import pytest
 import torch
 
@@ -144,3 +145,50 @@ def test_kernel_reading_tells_events_from_slow_runs(case):
     assert sorted(k for k in r["kernels"] if k.startswith(long)) == [
         long, long + "#1"]
     assert "vtpu_slice_watch" not in r["kernels"]
+
+
+# --- the tenant pool -----------------------------------------------------------
+
+
+def _pool_env(preload: str = "") -> dict:
+    from vtpu_manager_torch import build
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("VTPU_", "DISABLE_VTPU"))}
+    env.update({"LD_PRELOAD": preload, "PYTHONPATH": str(build.REPO),
+                "VTPU_POD_UID": "uid-pool"})
+    return env
+
+
+def test_pooled_tenants_run_as_the_tenants_they_are_given(tmp_path):
+    """Two workers from a pool of processes started ahead (imports done,
+    no device touched): each takes its tenant's argv and environment, runs
+    its steps on the CPU, and the pool starts new ones once the batch's
+    timed steps are done."""
+    from vtpu_manager_torch import bench_quota as bq
+    world = bq.World(str(tmp_path / "node"))
+    pool = bq.TenantPool(str(world.root), "", size=2)
+    try:
+        args = [*bq.worker_args(3, dim=16), "--device", "cpu"]
+        env_a = {**_pool_env(), "VTPU_CONTAINER_NAME": "a"}
+        out = bq.run_tenants(world, [("a", args, env_a),
+                                     ("b", args, _pool_env())], pool=pool)
+        assert set(out) == {"a", "b"}
+        for rec in out.values():
+            assert rec["timed_steps"] == 3 and rec["ms_per_step"] > 0
+        assert pool.started == 4 and len(pool.idle) == 2
+    finally:
+        pool.close()
+
+
+def test_a_pooled_process_refuses_another_interposer(tmp_path):
+    from vtpu_manager_torch import bench_quota as bq
+    world = bq.World(str(tmp_path / "node"))
+    pool = bq.TenantPool(str(world.root), "", size=1)
+    try:
+        t = pool.take("x", [*bq.worker_args(3, dim=16), "--device", "cpu"],
+                      _pool_env(preload="/no/such/interposer.so"))
+        assert t.proc.wait(timeout=120) != 0
+        assert "pooled under LD_PRELOAD=''" in t.stderr_tail()
+        t.stop()
+    finally:
+        pool.close()

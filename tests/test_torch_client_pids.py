@@ -124,8 +124,9 @@ def test_a_rewritten_pid_set_is_read_again_and_a_corrupt_one_ignored(
 
 
 def test_the_interposer_starts_the_device_client_that_registers(tmp_path):
-    """CLIENT mode end to end on the CPU: the interposer spawns the port's
-    runtime client, which registers over the registry socket; the
+    """CLIENT mode end to end on the CPU: the interposer spawns the
+    registrar beside it (the build dir's `vtpu_device_client.py`), which
+    registers over the registry socket; the
     registry attests the peer (a stand-in cgroup that embeds the pod uid,
     as tests/test_registry.py's fixture), writes pids.config, and the
     interposer reads the set it wrote."""

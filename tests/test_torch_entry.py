@@ -101,7 +101,7 @@ def test_entry_registers_and_answers_allocate(tmp_path):
 
 
 @pytest.mark.parametrize("args,message", [
-    (["--fake-client", "--feature-gates", "QuotaMarket=true"],
+    (["--fake-client", "--feature-gates", "HBMOvercommit=true"],
      "unknown feature gate"),
     (["--fake-client", "--feature-gates", "StepTelemetry=maybe"],
      "invalid feature gate value"),
@@ -113,6 +113,9 @@ def test_entry_registers_and_answers_allocate(tmp_path):
      "memory over-commit is not ported yet"),
     (["--fake-client", "--id-store", "ids.json"],
      "--id-store: the device-id store (a GPU needs none) is not ported yet"),
+    # the gate is known (Allocate's workload class), its market manager not
+    (["--fake-client", "--feature-gates", "QuotaMarket=true"],
+     "the quota-market manager is not ported"),
 ])
 def test_entry_refuses_what_is_not_ported(tmp_path, args, message):
     res = subprocess.run(ENTRY + private_flags(tmp_path) + ["--fake-chips",
@@ -325,7 +328,7 @@ def test_kubelet_plugin_serves_dra_and_registration(tmp_path):
 @pytest.mark.parametrize("args,message", [
     (["--id-store", "ids.json"],
      "--id-store: the device-id store (a GPU needs none) is not ported yet"),
-    (["--feature-gates", "QuotaMarket=true"],
+    (["--feature-gates", "HBMOvercommit=true"],
      "unknown feature gate"),
 ])
 def test_kubelet_plugin_refuses_what_is_not_ported(tmp_path, args, message):

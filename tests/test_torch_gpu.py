@@ -620,3 +620,35 @@ def test_copies_are_counted_by_direction(card, tmp_path, armed):
         assert (out["vtpu_comm_time_ns_total"], out["vtpu_comm_bytes_total"],
                 out["vtpu_collectives_total"], out["entries"]) == \
             (0, 0, 0, ""), out
+
+
+@pytest.mark.gpu
+def test_a_lease_adopted_under_graph_replays_paces_them(card, tmp_path):
+    """A hard-25 tenant replaying the quota step and one attn_block launch
+    from a CUDA graph, its config rewritten as the quota market writes it
+    (+75, +25, then 0): the replays follow each lease within the phase's
+    band (bench_quota_lease.judge_lease, the effective-100 stage's charge
+    per step the yardstick), and every rewrite is adopted."""
+    from vtpu_manager_torch import bench_quota as bq
+    from vtpu_manager_torch import bench_quota_lease as bl
+    from vtpu_manager_torch import build
+    world = bq.World(str(tmp_path / "node"))
+    env = world.env(str(build.build_shim()), "pod-graph", hard_core=25,
+                    uuid="GPU-graph", real_memory=0)
+    go, stop = world.go_file("graph"), str(tmp_path / "stop")
+    tenant = bq.Tenant("graph", [
+        "-m", "vtpu_manager_torch.bench_quota_lease", "--tenant", "lease",
+        "--graph", "--go-file", go, "--stop-file", stop], env,
+        str(tmp_path))
+    try:
+        tenant.line("READY", 240)
+        marks = bl.drive(env["VTPU_CONFIG_PATH"], go, stop, freeze=False,
+                         base_s=0.5, stage_s=1.5)
+        run = tenant.line("STEPS ", 240)
+        assert tenant.proc.wait(timeout=60) == 0
+    finally:
+        tenant.stop()
+    rec = bl.judge_lease(run, marks)
+    assert run["graph"] and run["vtpu_graph_launches_total"] >= rec["steps"]
+    assert rec["ok"], (rec["stages"], rec["reloads"], rec["epoch"],
+                       rec["counters"])

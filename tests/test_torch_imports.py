@@ -61,3 +61,32 @@ def test_loading_every_module_loads_no_jax():
                          check=False)
     assert res.returncode == 0, res.stdout + res.stderr
     assert "BAD []" in res.stdout
+
+
+# slice 16's modules: the quota names, the lease phase and the node tools
+@pytest.mark.parametrize("rel", ["quota/__init__.py", "bench_quota_lease.py",
+                                 "tools/vtpu_busy.py", "tools/vtpu_inspect.py",
+                                 "tools/host_offload_demo.py",
+                                 "tools/vtpu_device_client.py"])
+def test_slice_16_modules_are_among_the_checked(rel):
+    assert PKG / rel in _sources()
+
+
+def test_the_registrar_imports_only_the_standard_library():
+    """A tenant image has neither package: the registrar the interposer
+    runs imports the standard library alone, and loads in an isolated
+    interpreter (no site, no PYTHONPATH, no cwd on the path)."""
+    path = PKG / "tools" / "vtpu_device_client.py"
+    roots = set(_imported_roots(path)) - {"__future__"}
+    assert roots and roots <= set(sys.stdlib_module_names), roots
+    assert not roots & (FORBIDDEN | {"vtpu_manager_torch"})
+    code = ("import importlib.util as u, sys\n"
+            f"s = u.spec_from_file_location('r', {str(path)!r})\n"
+            "m = u.module_from_spec(s); s.loader.exec_module(m)\n"
+            "bad = sorted(n for n in sys.modules if n.split('.')[0] in\n"
+            "             ('torch', 'numpy', 'jax', 'vtpu_manager',\n"
+            "              'vtpu_manager_torch'))\n"
+            "print('BAD', bad); sys.exit(1 if bad else 0)\n")
+    res = subprocess.run([sys.executable, "-I", "-c", code], cwd="/",
+                         capture_output=True, text=True, timeout=60)
+    assert res.returncode == 0, res.stdout + res.stderr

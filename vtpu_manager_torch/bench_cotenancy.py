@@ -45,6 +45,10 @@ LONG_BAND = 5.0
 CHARGE_REL = 0.05
 STEPS = 300
 CAP_BYTES = 64 * 2**20
+# steps profiled at the quota after a long run's charged stretch
+PROFILE_AFTER = 100
+# worker processes loaded ahead: the most tenants a check starts at once
+POOL_SIZE = 3
 H100_SMS = 132
 
 
@@ -100,8 +104,13 @@ class Phase:
             vmem_path=self.world.vmem_path)
         self.daemon.start()
         self.solo: dict[int, dict] = {}
+        # the compute checks' tenants come from processes started ahead
+        self.pool = bq.TenantPool(
+            str(self.world.root), bq.install(shim_path=shim)["LD_PRELOAD"],
+            size=POOL_SIZE)
 
     def close(self) -> None:
+        self.pool.close()
         self.daemon.stop()
 
     def env(self, pod_uid: str, extra: dict | None = None, **config) -> dict:
@@ -228,7 +237,7 @@ class Phase:
             extra = opts.pop("env", None)
             built.append((tag, bq.worker_args(steps, **opts),
                           self.env(pod, extra, **config)))
-        return bq.run_tenants(self.world, built, timeout)
+        return bq.run_tenants(self.world, built, timeout, pool=self.pool)
 
     def solo_ms(self, steps: int) -> dict:
         """The unthrottled tenant alone at this step count; the STEPS run
@@ -344,12 +353,15 @@ class Phase:
                         step_ms: float = 1.8) -> dict:
         """Steps for 10 % more than `seconds` at the quota, at the step
         time measured in the enforcement phase; then the same run without
-        the discount, as a control (reported, not judged). The timed
-        steps of both run under torch.profiler, and the charge is judged
-        against the tenant's own kernel time inside the charged stretch
-        (`stretch_kernel_ms_sum`): the steps timed after the stretch
-        read up to 3 % under it on the H100 as the card's clocks moved
-        (ROADMAP F6); that yardstick is printed beside
+        the discount, as a control (reported, not judged). The charged
+        stretch runs unprofiled, and the charge is judged against the
+        tenant's own kernel time at its duty: torch.profiler's reading
+        over `PROFILE_AFTER` steps run on at the quota right after the
+        stretch (`duty_kernel_ms_sum`). A profiler inside the stretch
+        lengthens an isolated launch's way to the card and raised the
+        discounted charge it was to judge (PERF.md, PR 16, call 2); the
+        steps timed back to back after the stretch read up to 3 % under
+        it as the card's clocks moved (ROADMAP F6), printed beside
         (`charge_rel_b2b`)."""
         out = {}
         ok = True
@@ -360,7 +372,7 @@ class Phase:
                                 {"VTPU_OBS_OVERHEAD_US": "0"})):
                 rec = self.tenants([(tag, f"pod-long{quota}", quota, steps,
                                      {"device_times": 40, "env": extra,
-                                      "profile_timed": True})])[tag]
+                                      "profile_after": PROFILE_AFTER})])[tag]
                 s = self._summary(rec, steps, quota)
                 s["steps"] = steps
                 s["seconds"] = rec["t_end"] - rec["t_start"]
@@ -369,13 +381,12 @@ class Phase:
                             "loop_kernel_ms", "loop_kernel_ms_sum",
                             "loop_kernels", "device_times_wait_ns",
                             "vtpu_sampled_launches_total",
-                            "vtpu_launches_total", "vtpu_clocked_total"):
-                    s[key] = rec[key]
-                for key in ("stretch_kernel_ms", "stretch_kernel_ms_sum",
-                            "stretch_kernels"):
+                            "vtpu_launches_total", "vtpu_clocked_total",
+                            "duty_kernel_ms", "duty_kernel_ms_sum",
+                            "duty_kernels"):
                     s[key] = rec[key]
                 s["charge_rel_err"] = (s["charged_ms_per_step"]
-                                       / rec["stretch_kernel_ms_sum"] - 1)
+                                       / rec["duty_kernel_ms_sum"] - 1)
                 s["charge_rel_b2b"] = (s["charged_ms_per_step"]
                                        / rec["device_ms_per_step"] - 1)
                 out[tag] = s

@@ -345,7 +345,11 @@ COUNTERS = ("vtpu_launches_total", "vtpu_sampled_launches_total",
             "vtpu_stand_aside_ns_total", "vtpu_clocked_total",
             # CommTelemetry's totals (0 unarmed)
             "vtpu_comm_time_ns_total", "vtpu_comm_bytes_total",
-            "vtpu_collectives_total")
+            "vtpu_collectives_total",
+            # the quota market's rewrites adopted, the generation in force
+            # and the time launches parked under a migration freeze
+            "vtpu_quota_reloads_total", "vtpu_quota_epoch",
+            "vtpu_freeze_wait_ns_total")
 SIGNED = ("vtpu_charged_ns_total", "vtpu_obs_overhead_ns")
 # what a graph tenant reports across its capture
 CAPTURE_COUNTERS = ("vtpu_launches_total", "vtpu_sampled_launches_total",
@@ -418,12 +422,12 @@ class Tenant:
     stderr goes to a file beside the world's state."""
 
     def __init__(self, tag: str, args: list[str], env: dict, log_dir: str,
-                 stdin: bool = False):
+                 stdin: bool = False, cwd: str | None = None):
         self.tag = tag
         self.err_path = os.path.join(log_dir, f"{tag}.stderr")
         self._err = open(self.err_path, "w")
         self.proc = subprocess.Popen([sys.executable, *args], env=env,
-                                     cwd=str(build.REPO),
+                                     cwd=cwd or str(build.REPO),
                                      stdin=subprocess.PIPE if stdin else None,
                                      stdout=subprocess.PIPE,
                                      stderr=self._err, text=True, bufsize=1)
@@ -479,12 +483,12 @@ class Tenant:
 
 def worker_args(steps: int, *, go_file: str | None = None,
                 warmup_s: float = 0.0, device_times: int = 0,
-                dim: int = 8192, profile_timed: bool = False) -> list[str]:
+                dim: int = 8192, profile_after: int = 0) -> list[str]:
     args = ["-m", "vtpu_manager_torch.bench_quota", "--worker", "--dim",
             str(dim), "--warmup", "10", "--steps", str(steps),
-            "--device-times", str(device_times), "--warmup-s", str(warmup_s)]
-    return (args + (["--go-file", go_file] if go_file else [])
-            + (["--profile-timed"] if profile_timed else []))
+            "--device-times", str(device_times), "--warmup-s", str(warmup_s),
+            "--profile-after", str(profile_after)]
+    return args + (["--go-file", go_file] if go_file else [])
 
 
 def hold_args(alloc_gib: str, go_file: str, hold_file: str,
@@ -494,18 +498,82 @@ def hold_args(alloc_gib: str, go_file: str, hold_file: str,
             hold_file, "--retry-s", str(retry_s)]
 
 
+class TenantPool:
+    """Worker processes started ahead, each with the imports done (about
+    9 s of a card machine's CPU, PERF.md §6, PR 16) and no CUDA call made,
+    waiting for the tenant it is to become (`--pooled`): so a check's
+    tenants start from their context and warm-up, not from `import torch`.
+    Each is started under the interposer `preload` and takes a tenant's
+    environment only before its first CUDA call. `refill()` starts new ones
+    up to `size`; `run_tenants` calls it once every tenant of its batch
+    has finished its timed steps, so an import never runs beside a timed
+    stretch of that batch."""
+
+    def __init__(self, log_dir: str, preload: str, size: int):
+        self.log_dir = log_dir
+        self.env = {k: v for k, v in os.environ.items()
+                    if not k.startswith(("VTPU_", "DISABLE_VTPU"))}
+        self.env.update({"LD_PRELOAD": preload, "PYTHONPATH": os.pathsep.join(
+            p for p in (str(build.REPO), os.environ.get("PYTHONPATH")) if p)})
+        self.size = size
+        self.idle: list[tuple[Tenant, str]] = []
+        self.started = 0
+        self.refill()
+
+    def refill(self) -> None:
+        while len(self.idle) < self.size:
+            self.started += 1
+            ticket = os.path.join(self.log_dir, f"pool-{self.started}.ticket")
+            self.idle.append((Tenant(f"pool-{self.started}", [
+                "-m", "vtpu_manager_torch.bench_quota", "--pooled", ticket],
+                self.env, self.log_dir), ticket))
+
+    def take(self, tag: str, args: list[str], env: dict,
+             timeout: float = 300.0) -> Tenant:
+        """The oldest pooled process, once loaded, as tenant `tag`: `args`
+        are a `bench_quota` worker's (`-m vtpu_manager_torch.bench_quota
+        ...`)."""
+        module = ["-m", "vtpu_manager_torch.bench_quota"]
+        if args[:2] != module:
+            raise ValueError(f"a pooled process runs bench_quota: {args}")
+        args = args[2:]
+        t, ticket = self.idle.pop(0)
+        t.line("LOADED", timeout)
+        tmp = f"{ticket}.tmp"
+        with open(tmp, "w") as f:
+            json.dump({"argv": args, "env": env}, f)
+        os.replace(tmp, ticket)
+        t.tag = tag
+        return t
+
+    def close(self) -> None:
+        for t, _ in self.idle:
+            t.stop()
+        self.idle = []
+
+
 def run_tenants(world: World, specs: list[tuple[str, list[str], dict]],
-                timeout: float = 300.0) -> dict[str, dict]:
-    """Starts every (tag, args, env) tenant at once; each warms up, says
-    READY, and waits for the one go file, so the timed loops begin
-    together. Returns each tenant's WORKER record by tag."""
+                timeout: float = 300.0,
+                pool: TenantPool | None = None) -> dict[str, dict]:
+    """Starts every (tag, args, env) tenant at once (from `pool` when
+    given); each warms up, says READY, and waits for the one go file, so
+    the timed loops begin together. Returns each tenant's WORKER record by
+    tag."""
     go = world.go_file("together-" + "-".join(t for t, _, _ in specs))
-    tenants = [Tenant(tag, [*args, "--go-file", go], env, str(world.root))
-               for tag, args, env in specs]
+    if pool is None:
+        tenants = [Tenant(tag, [*args, "--go-file", go], env,
+                          str(world.root)) for tag, args, env in specs]
+    else:
+        tenants = [pool.take(tag, [*args, "--go-file", go], env, timeout)
+                   for tag, args, env in specs]
     try:
         for t in tenants:
             t.line("READY", timeout)
         Path(go).touch()
+        if pool is not None:
+            for t in tenants:
+                t.line("TIMED", timeout)
+            pool.refill()
         out = {t.tag: t.line("WORKER ", timeout) for t in tenants}
         # a tenant that exits clears its ledger entries; a killed one
         # leaves them to count against the card until they go stale
@@ -532,20 +600,22 @@ def shim_counters() -> dict:
             continue
         fn.restype = ctypes.c_int64 if name in SIGNED else ctypes.c_uint64
         out[name] = int(fn())
-    up = getattr(lib, "vtpu_up_limit", None)
-    if up is not None:
-        up.restype = ctypes.c_int
-        up.argtypes = [ctypes.c_int]
-        out["vtpu_up_limit"] = int(up(0))
+    for name in ("vtpu_up_limit", "vtpu_core_limit"):
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_int]
+            out[name] = int(fn(0))
     return out
 
 
-def _wait_file(path: str | None, timeout_s: float = 300.0) -> None:
+def _wait_file(path: str | None, timeout_s: float = 300.0,
+               poll_s: float = 0.005) -> None:
     deadline = time.monotonic() + timeout_s
     while path and not os.path.exists(path):
         if time.monotonic() > deadline:
             raise TimeoutError(f"{path} never appeared")
-        time.sleep(0.005)
+        time.sleep(poll_s)
 
 
 def run_cross_capture(shim: str | None, launches: str = "raw",
@@ -657,12 +727,11 @@ def _worker(args) -> None:
     import torch
 
     from vtpu_manager_torch.bench_steps import (graph_step_measure,
-                                                kernel_reading,
+                                                kernel_ms_per_step,
                                                 quota_step_measure,
                                                 step_device_times)
     at_start = {}
     capture = {}
-    timed_profile = []
 
     def before_timed():
         until = time.monotonic() + args.warmup_s   # balance mode's climb
@@ -670,10 +739,6 @@ def _worker(args) -> None:
             quota_step_measure(dim=args.dim, warmup=0, steps=5)
         print("READY", flush=True)
         _wait_file(args.go_file)
-        if args.profile_timed:
-            from torch.profiler import ProfilerActivity, profile
-            timed_profile.append(profile(activities=[ProfilerActivity.CUDA]))
-            timed_profile[0].start()
         at_start.update(shim_counters(), t=time.monotonic())
 
     if args.graph:
@@ -697,20 +762,14 @@ def _worker(args) -> None:
             around_capture=around_capture)
     else:
         ms = quota_step_measure(dim=args.dim, warmup=args.warmup,
-                                steps=args.steps, before_timed=before_timed)
+                                steps=args.steps, device=args.device,
+                                before_timed=before_timed)
     t_end = time.monotonic()
-    stretch = {}
-    if timed_profile:
-        torch.cuda.synchronize()
-        timed_profile[0].stop()
-        reading = kernel_reading(timed_profile[0], args.steps)
-        stretch = {"stretch_kernel_ms": reading["median_ms"],
-                   "stretch_kernel_ms_sum": reading["sum_ms"],
-                   "stretch_kernels": reading["kernels"]}
+    print("TIMED", flush=True)
     out = {"ms_per_step": ms, "steps": args.warmup + args.steps,
            "timed_steps": args.steps, "t_start": at_start["t"],
            "t_end": t_end, "source": effective_limits().source,
-           "graph": bool(capture), **capture, **stretch, **shim_counters()}
+           "graph": bool(capture), **capture, **shim_counters()}
     if "vtpu_graph_launches_total" in at_start:
         out["graph_launches_timed"] = (
             out["vtpu_graph_launches_total"]
@@ -719,6 +778,17 @@ def _worker(args) -> None:
         out["charged_ns_per_step"] = (
             out["vtpu_charged_ns_total"]
             - at_start["vtpu_charged_ns_total"]) / args.steps
+    if args.profile_after:
+        # the tenant's own kernel time at its duty, read by torch.profiler
+        # over steps run on at the quota right after the charged stretch,
+        # which itself runs unprofiled (CUPTI lengthens an isolated
+        # launch's way to the card, and so the charge: PERF.md, PR 16)
+        reading = kernel_ms_per_step(lambda: quota_step_measure(
+            dim=args.dim, warmup=0, steps=args.profile_after),
+            args.profile_after)
+        out.update(duty_kernel_ms=reading["median_ms"],
+                   duty_kernel_ms_sum=reading["sum_ms"],
+                   duty_kernels=reading["kernels"])
     if args.device_times:
         before = shim_counters().get("vtpu_throttle_wait_ns_total", 0)
         times = step_device_times(args.dim, args.device_times, pause_s=0.3)
@@ -913,6 +983,27 @@ def _hbm_worker() -> None:
           flush=True)
 
 
+def _pooled(ticket: str) -> None:
+    """A pooled tenant process: the imports every worker makes, then a
+    wait for its ticket (the tenant's argv and environment), which it takes
+    as its own before its first CUDA call; the interposer it was started
+    with reads its limits only then."""
+    import torch  # noqa: F401
+
+    from vtpu_manager_torch import bench_steps  # noqa: F401
+    print("LOADED", flush=True)
+    _wait_file(ticket, timeout_s=3600.0, poll_s=0.05)
+    with open(ticket) as f:
+        job = json.load(f)
+    preload = os.environ.get("LD_PRELOAD", "")
+    if job["env"].get("LD_PRELOAD", "") != preload:
+        raise SystemExit(f"pooled under LD_PRELOAD={preload!r}, the tenant "
+                         f"needs {job['env'].get('LD_PRELOAD')!r}")
+    os.environ.clear()
+    os.environ.update(job["env"])
+    main(job["argv"])
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--worker", action="store_true")
@@ -935,9 +1026,10 @@ def main(argv=None) -> None:
     ap.add_argument("--device-times", type=int, default=0,
                     help="after the loop, the step's device time "
                     "(bench_steps.step_device_times, this many loop steps)")
-    ap.add_argument("--profile-timed", action="store_true",
-                    help="the timed steps under torch.profiler: the "
-                    "kernels' time in the stretch the charge covers")
+    ap.add_argument("--profile-after", type=int, default=0,
+                    help="after the timed steps, this many more at the "
+                    "quota under torch.profiler: the kernels' time at "
+                    "the tenant's duty")
     ap.add_argument("--cross-capture-worker", action="store_true")
     ap.add_argument("--cross-launches", default="raw",
                     choices=("raw", "torch"))
@@ -945,8 +1037,15 @@ def main(argv=None) -> None:
     ap.add_argument("--alloc-gib", default="")
     ap.add_argument("--retry-s", type=float, default=0.0)
     ap.add_argument("--hold-file")
+    ap.add_argument("--device", default=None,
+                    help="the worker's device: the card unless 'cpu'")
+    ap.add_argument("--pooled", metavar="TICKET",
+                    help="import, say LOADED, then run as the tenant the "
+                    "ticket file names (TenantPool)")
     args = ap.parse_args(argv)
-    if args.worker:
+    if args.pooled:
+        _pooled(args.pooled)
+    elif args.worker:
         _worker(args)
     elif args.cross_capture_worker:
         _cross_capture_worker(args)

@@ -37,17 +37,21 @@ Checks, each a record with an `ok` verdict:
    registry off (the gate off) no site is armed and nothing is counted;
 4. client_mode: the CLIENT pod (25 % / 8 GiB, traced) was allocated when
    the phase started, and its two processes started then, each held at a
-   go file once warm. Each process's interposer starts the device client
-   (`python3 -m vtpu_manager_torch.runtime.client`), which registers
-   over the socket. Verdicts: both registrations accepted; `pids.config`
+   go file once warm, from a directory outside the repo with a
+   PYTHONPATH that lacks it (a tenant image without the package; each
+   process puts the repo on its own path). Each process's interposer
+   starts the stdlib-only registrar the node installed beside it in the
+   driver dir (`tools/vtpu_device_client.py`), which registers over the
+   socket (F7). Verdicts: each interposer logged that command;
+   both registrations accepted; `pids.config`
    holds both tenant pids (with the attested registrar's, as the server
    adds the peer) and decodes; each interposer logged its client pid set
    refreshed with that count; then each process runs `STEPS` steps of the
    quota step and one `vtpu::attn_block` launch, counted by the kernel's
    wrapper; one process holds 6 GiB and the other's 4 GiB is refused
-   (the one 8 GiB cap); the pod's timeline holds `shim.register` and
-   `registry.register` once per registration; a registration that claims
-   another pod's uid is refused.
+   (the one 8 GiB cap); the pod's timeline holds `shim.register` (the
+   registrar's) and `registry.register` once per registration; a
+   registration that claims another pod's uid is refused.
 
 Run `python -m vtpu_manager_torch.bench_resilience --tenant ...` only as
 the tenant subprocess the phase starts.
@@ -142,13 +146,22 @@ class Phase:
         env = ba.container_env(self.client_resp)
         env[consts.ENV_REGISTRY_SOCKET] = self.registry.socket_path
         env["VTPU_LOGGER_LEVEL"] = "2"       # the pid-set refreshes
+        # an image without the package: the registrar must come from the
+        # driver dir, not from the repo on the path or in the cwd
+        env["PYTHONPATH"] = os.pathsep.join(
+            p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep)
+            if p and os.path.realpath(p) != os.path.realpath(build.REPO))
+        env.pop(consts.ENV_DEVICE_CLIENT_CMD, None)
+        self.registrar = os.path.join(self.node.driver_dir,
+                                      consts.DEVICE_CLIENT_SCRIPT)
         for key, role in (("p1", ["--hold-gib", str(HOLD_GIB),
                                   "--release-file",
                                   str(self.root / "release")]),
                           ("p2", ["--ask-gib", str(ASK_GIB), "--ask-file",
                                   str(self.root / "ask")])):
             self.tenants[key] = self._tenant(key, "client", env, [
-                "--go-file", str(self.root / "client.go"), *role])
+                "--go-file", str(self.root / "client.go"), *role],
+                outside=True)
             self.tenant_pids.append(self.tenants[key].proc.pid)
 
     def close(self) -> None:
@@ -187,11 +200,21 @@ class Phase:
         (resp,) = plugin.allocate(req).container_responses
         return resp
 
-    def _tenant(self, key: str, kind: str, env: dict, extra: list[str]):
+    def _tenant(self, key: str, kind: str, env: dict, extra: list[str],
+                outside: bool = False):
+        """A tenant process; `outside`: started from the phase's directory
+        with the repo on its own sys.path only, so nothing it starts finds
+        the package."""
         from vtpu_manager_torch import bench_quota as bq
+        argv = ["--tenant", kind, *extra]
+        if not outside:
+            return bq.Tenant(f"resilience-{key}", [
+                "-m", "vtpu_manager_torch.bench_resilience", *argv], env,
+                str(self.root))
         return bq.Tenant(f"resilience-{key}", [
-            "-m", "vtpu_manager_torch.bench_resilience", "--tenant", kind,
-            *extra], env, str(self.root))
+            "-c", f"import sys; sys.path.insert(0, {str(build.REPO)!r}); "
+            f"from vtpu_manager_torch.bench_resilience import main; "
+            f"main({argv!r})"], env, str(self.root), cwd=str(self.root))
 
     def _config_path(self, name: str) -> str:
         return os.path.join(self.node.base_dir, f"{pod_uid(name)}_main",
@@ -363,9 +386,13 @@ class Phase:
         rec["rc"] = {key: t.proc.wait(timeout=60)
                      for key, t in (("p1", p1), ("p2", p2))}
         refreshed = f"client pid set refreshed ({len(pids)} pids)"
-        rec["refresh_logged"] = {
-            key: refreshed in open(t.err_path).read()
-            for key, t in (("p1", p1), ("p2", p2))}
+        logs = {key: open(t.err_path).read() for key, t in (("p1", p1),
+                                                            ("p2", p2))}
+        rec["refresh_logged"] = {key: refreshed in log
+                                 for key, log in logs.items()}
+        spawned = f"device-client spawned: python3 '{self.registrar}'"
+        rec["registrar_logged"] = {key: spawned in log
+                                   for key, log in logs.items()}
         # a registration that claims another pod's uid
         spoof_env = ba.container_env(self.client_resp)
         spoof_env.update({consts.ENV_POD_UID: pod_uid("pod-torn"),
@@ -397,6 +424,7 @@ class Phase:
             and tenant_pids <= set(pids)
             and set(pids) <= tenant_pids | {r["peer_pid"] for r in regs}
             and all(rec["refresh_logged"].values())
+            and all(rec["registrar_logged"].values())
             and all(r["attn_block_launches"] == STEPS
                     and r["source"] == "config-file" and r["total"] == claim
                     for r in rows.values())

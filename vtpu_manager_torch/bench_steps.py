@@ -80,18 +80,15 @@ def quota_step_measure(dim: int, warmup: int, steps: int,
 ATTN_SHAPE = (8, 16, 512, 128)   # the attention probe's shape
 
 
-def graph_step_measure(dim: int, warmup: int, steps: int, graph: bool,
-                       capture_mode: str = "global", before_timed=None,
-                       around_capture=None) -> float:
-    """The quota step and one block-attention kernel launch, each step
-    ending in the scalar readback. With `graph` the step is captured once
-    in a torch.cuda.CUDAGraph (after an eager warm-up on a side stream, as
-    capture needs; `capture_mode` is torch's capture_error_mode) and every
-    step is one replay; without, it runs eagerly.
+def attn_step(dim: int, graph: bool, capture_mode: str = "global",
+              around_capture=None):
+    """The quota step and one block-attention kernel launch on the card,
+    returning its scalar "loss" unread: eager, or with `graph` captured
+    once in a torch.cuda.CUDAGraph (after an eager warm-up on a side
+    stream, as capture needs; `capture_mode` is torch's
+    capture_error_mode) and replayed by each call.
     `around_capture(when)` is called with "before" and "after" inside the
-    capture, around the captured step (it must make no CUDA call). Returns
-    ms/step over the timed section, which `before_timed()` is called just
-    before."""
+    capture, around the captured step (it must make no CUDA call)."""
     from vtpu_manager_torch.workloads import block_attention as ba
     dev = torch.device("cuda")
     x = _quota_input(dim, dev)
@@ -113,21 +110,31 @@ def graph_step_measure(dim: int, warmup: int, steps: int, graph: bool,
             step()
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
-    run = step
-    if graph:
-        g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g, capture_error_mode=capture_mode):
-            # inside the capture: torch's own launches before it begins
-            # (its RNG state's fills) run, and are no part of it
-            if around_capture is not None:
-                around_capture("before")
-            static_loss = step()
-            if around_capture is not None:
-                around_capture("after")
+    if not graph:
+        return step
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, capture_error_mode=capture_mode):
+        # inside the capture: torch's own launches before it begins (its
+        # RNG state's fills) run, and are no part of it
+        if around_capture is not None:
+            around_capture("before")
+        static_loss = step()
+        if around_capture is not None:
+            around_capture("after")
 
-        def run() -> torch.Tensor:
-            g.replay()
-            return static_loss
+    def replay() -> torch.Tensor:
+        g.replay()
+        return static_loss
+    return replay
+
+
+def graph_step_measure(dim: int, warmup: int, steps: int, graph: bool,
+                       capture_mode: str = "global", before_timed=None,
+                       around_capture=None) -> float:
+    """`attn_step`'s step, each ending in the scalar readback. Returns
+    ms/step over the timed section, which `before_timed()` is called just
+    before."""
+    run = attn_step(dim, graph, capture_mode, around_capture)
     for _ in range(warmup):
         _ = float(run())
     if before_timed is not None:

@@ -1,14 +1,18 @@
 """Builds the port's native code from the sources in the checkout.
 
-Five artifacts, each compiled at first use into `build-torch/` at the
+Six artifacts, each compiled at first use into `build-torch/` at the
 repo root, which .gitignore lists:
 
 - the block-attention kernel, `csrc/attn_block.cu`, with nvcc for sm_90a
   into a shared library with a plain C interface (loaded with ctypes);
 - `csrc/mma_peak.cu`, the card's mma.sync TF32 rate, which chip_smoke.py
   reads the kernel against;
-- the interposer, `csrc/shim/*.cc`, with g++;
-- the fake driver and the harness that test the interposer without a card.
+- the interposer, `csrc/shim/*.cc`, with g++, and beside it the
+  stdlib-only registrar `tools/vtpu_device_client.py` that a CLIENT-mode
+  tenant's interposer runs;
+- the fake driver and the harness that test the interposer without a card;
+- the quota market's reclaim probe, `csrc/shim/test/quota_reclaim_probe.cc`,
+  over the interposer's own reloader.
 
 An artifact's file name carries a digest of its sources and command, so an
 edited source is rebuilt and an unchanged one is reused. Builds take a file
@@ -91,16 +95,36 @@ def build_attn_kernel() -> Path:
     return build_cuda("attn_block")
 
 
+REGISTRAR = PKG / "tools" / "vtpu_device_client.py"
+
+
+def install_registrar(directory: Path | str) -> Path:
+    """Copies the registrar into `directory` (beside an interposer) unless
+    an identical copy is there; atomic, since a tenant may be starting it."""
+    dst = Path(directory) / REGISTRAR.name
+    data = REGISTRAR.read_bytes()
+    if not dst.exists() or dst.read_bytes() != data:
+        tmp = dst.with_name(f".{dst.name}.{os.getpid()}.tmp")
+        tmp.write_bytes(data)
+        os.replace(tmp, dst)
+    return dst
+
+
 def build_shim() -> Path:
-    """The interposer: csrc/shim/*.cc -> libvtpu-cuda-control-<digest>.so."""
-    return _compile(
+    """The interposer: csrc/shim/*.cc -> libvtpu-cuda-control-<digest>.so,
+    with the registrar beside it."""
+    out = _compile(
         "libvtpu-cuda-control", ".so",
         [SHIM_SRC / "loader.cc", SHIM_SRC / "enforce_mem.cc",
-         SHIM_SRC / "enforce_rate.cc", SHIM_SRC / "enforce_comm.cc"],
+         SHIM_SRC / "enforce_rate.cc", SHIM_SRC / "enforce_comm.cc",
+         SHIM_SRC / "enforce_quota.cc"],
         [SHIM_SRC / "shim.h", SHIM_SRC / "cuda_subset.h",
-         SHIM_SRC / "vtpu_abi.h", SHIM_SRC / "vtpu_telemetry_abi.h"],
+         SHIM_SRC / "vtpu_abi.h", SHIM_SRC / "vtpu_telemetry_abi.h",
+         SHIM_SRC / "vtpu_quota_abi.h"],
         ["g++", "-std=c++17", "-O2", "-Wall", "-fPIC", "-shared",
          "-fvisibility=hidden", "-Wl,-Bsymbolic"], libs=("-ldl", "-lpthread"))
+    install_registrar(out.parent)
+    return out
 
 
 def build_fake_driver() -> Path:
@@ -117,6 +141,16 @@ def build_shim_test() -> Path:
         "cuda_shim_test", "", [SHIM_SRC / "test" / "cuda_shim_test.cc"],
         [SHIM_SRC / "cuda_subset.h"],
         ["g++", "-std=c++17", "-O2", "-Wall", "-pthread"], libs=("-ldl",))
+
+
+def build_quota_probe() -> Path:
+    """The reclaim probe: the interposer's reloader in the throttle loop's
+    quantum, one ADOPT line per generation it takes."""
+    return _compile(
+        "quota_reclaim_probe", "",
+        [SHIM_SRC / "test" / "quota_reclaim_probe.cc"],
+        [SHIM_SRC / "vtpu_quota_abi.h", SHIM_SRC / "vtpu_abi.h"],
+        ["g++", "-std=c++17", "-O2", "-Wall", f"-I{SHIM_SRC}"])
 
 
 def build_for_card() -> dict:

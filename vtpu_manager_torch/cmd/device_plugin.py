@@ -275,6 +275,13 @@ def main(argv: list[str] | None = None) -> int:
     except ValueError as e:
         log.error("bad --feature-gates: %s", e)
         return 2
+    if gates.enabled(fg.QUOTA_MARKET):
+        # Allocate's workload class is ported (VnumPlugin.
+        # quota_market_enabled); the market manager the gate starts
+        # (JAX cmd/device_plugin.py:614-624) is a plane, not ported
+        log.error("QuotaMarket=true: the quota-market manager is not "
+                  "ported; the interposer adopts what a market writes")
+        return 2
     if gates.enabled(fg.TRACING):
         from vtpu_manager_torch import trace
         trace.configure("plugin", spool_dir=args.trace_spool_dir,

@@ -842,6 +842,10 @@ VTPU_EXPORT CUresult cuDeviceTotalMem_v2(size_t* bytes, CUdevice dev) {
   return rc;
 }
 
+// The most the cap has granted this process at once on a device: host
+// memory (cuMemAllocHost, cuMemHostAlloc) is not hooked and never counted.
+VTPU_EXPORT int64_t vtpu_peak_bytes(int slot) { return PeakBytes(slot); }
+
 VTPU_EXPORT uint64_t vtpu_oom_rejected_total() {
   return g_oom_rejected.load(std::memory_order_relaxed);
 }

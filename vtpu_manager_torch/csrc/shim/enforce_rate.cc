@@ -1,7 +1,9 @@
 // enforce_rate.cc — the compute-% cap on kernel launches.
 //
 // Ports library/src/enforce.cc RateLimit:2503, ExecCost:2820, BumpActivity:603,
-// EffectiveLimit:1403, MeasuredUtil:1422, ControllerState:1503,
+// EffectiveLimit:1403 (a quota-market lease on the policy's base; the
+// lease itself is adopted in enforce_quota.cc), MeasuredUtil:1422,
+// ControllerState:1503,
 // DeltaStep:1519, AimdStep:1526, WatcherTick:1540, the observation probe
 // (ProbeOnce:1849) and the isolated-span discount of OnExecuteDone:2777-2812.
 // The bucket is denominated in device-busy nanoseconds: each launch pays
@@ -207,6 +209,7 @@
 #include <vector>
 
 #include "shim.h"
+#include "vtpu_quota_abi.h"
 #include "vtpu_telemetry_abi.h"
 
 namespace vtpu_cuda {
@@ -269,6 +272,9 @@ struct DeviceBucket {
   // refill rate in thousandths of a percent; 0 = the policy's limit
   std::atomic<int64_t> rate_mpct{0};
   std::atomic<int> up_limit{0};  // balance mode's limit (0 = hard_core)
+  // a quota-market rewrite moved the limit: the tick restarts its
+  // controller at the new one
+  std::atomic<bool> limit_moved{false};
   // what the tenant's own samples account for, per tick and per horizon
   std::atomic<int64_t> self_tick_ns{0};
   std::atomic<int64_t> self_horizon_ns{0};
@@ -532,23 +538,30 @@ int64_t ActiveExcessAt(int64_t gap_us) {
 // completion it observed); kept only while a table is active.
 std::atomic<uint64_t> g_last_done_ns{0};
 
+// A hard tenant at 100 % runs unmetered, unless it lends under a lease; one
+// below 100 stays metered when a lease lifts it to 100 (it is paced at 100,
+// as the reference's EffectiveLimit returns 100, not 0).
 bool IsMetered(const DeviceLimits* d) {
   if (!d) return false;
-  if (d->core_limit == kCoreLimitHard)
-    return d->hard_core > 0 && d->hard_core < 100;
-  return d->core_limit == kCoreLimitSoft && d->hard_core > 0;
+  int hard = Word(d->hard_core);
+  int policy = Word(d->core_limit);
+  if (policy == kCoreLimitHard)
+    return hard > 0 &&
+           (hard < 100 || EffectiveCorePct(hard, Word(d->lease_core)) < 100);
+  return policy == kCoreLimitSoft && hard > 0;
 }
 
-// The policy's percent: hard_core, or balance mode's current limit.
+// The policy's percent, hard_core or balance mode's current limit, with the
+// quota market's lease on it (enforce.cc:1403-1416 EffectiveLimit).
 int LimitPct(int slot) {
   const DeviceLimits* d = Dev(slot);
   if (!IsMetered(d)) return 0;
-  int pct = d->hard_core;
-  if (d->core_limit == kCoreLimitSoft) {
+  int pct = Word(d->hard_core);
+  if (Word(d->core_limit) == kCoreLimitSoft) {
     int up = g_bucket[slot].up_limit.load(std::memory_order_relaxed);
     if (up > 0) pct = up;
   }
-  return std::clamp(pct, 1, 100);
+  return std::clamp(EffectiveCorePct(pct, Word(d->lease_core)), 1, 100);
 }
 
 int64_t RateMpct(int slot) {
@@ -779,6 +792,11 @@ void WatcherTick(uint64_t now, int64_t window_ns) {
     Refill(slot, now);
     DeviceBucket& b = g_bucket[slot];
     ControllerState* cs = &g_ctl[slot];
+    if (b.limit_moved.exchange(false, std::memory_order_relaxed)) {
+      cs->rate_frac = 0.0;
+      cs->util_ema = -1.0;
+      cs->cooldown = 0;
+    }
     int64_t self_ns = b.self_tick_ns.exchange(0, std::memory_order_relaxed);
     bool external, others, outside, unseen;
     int64_t attributed;
@@ -792,17 +810,18 @@ void WatcherTick(uint64_t now, int64_t window_ns) {
     if (feed_others >= 0) cs->feed_others = feed_others;
     cs->self_util_ema = 0.8 * cs->self_util_ema +
                         0.2 * (100.0 * self_ns / std::max<int64_t>(window_ns, 1));
-    if (d->core_limit == kCoreLimitSoft) {
+    if (Word(d->core_limit) == kCoreLimitSoft) {
       // balance mode (enforce.cc:1552-1561); the feed's utilization is
       // averaged over NVML's period, much longer than a tick, so the climb
       // also reads the tenant's own smoothed use
+      int hard = Word(d->hard_core), soft = Word(d->soft_core);
       int up = b.up_limit.load(std::memory_order_relaxed);
-      if (up == 0) up = d->hard_core;
+      if (up == 0) up = hard;
       int seen = std::max(used, (int)cs->self_util_ema);
       if (others || sliced) {
-        up = d->hard_core;
-      } else if (seen >= up - 5 && up < d->soft_core) {
-        up = std::min(up + 2, d->soft_core);
+        up = hard;
+      } else if (seen >= up - 5 && up < soft) {
+        up = std::min(up + 2, soft);
       }
       b.up_limit.store(up, std::memory_order_relaxed);
     }
@@ -882,9 +901,32 @@ void RateLimit(int slot, int64_t cost_ns) {
     nanosleep(&ts, nullptr);
     uint64_t t1 = NowNs();
     g_throttle_wait_ns.fetch_add(t1 - t0, std::memory_order_relaxed);
+    // a revoke lands before the next spend, a grant shortens this wait
+    // (enforce.cc:2580); the gate stats the config once per quantum
+    MaybeAdoptQuota();
     Refill(slot, t1);
   }
 }
+
+}  // namespace
+
+void QuotaMoved(int slot, int old_pct, int new_pct, bool policy_moved) {
+  if (slot < 0 || slot >= kMaxDevices) return;
+  DeviceBucket& b = g_bucket[slot];
+  b.rate_mpct.store(0, std::memory_order_relaxed);
+  if (policy_moved) b.up_limit.store(0, std::memory_order_relaxed);
+  b.limit_moved.store(true, std::memory_order_relaxed);
+  if (new_pct >= old_pct) return;
+  // a revoke: borrowed credit does not outlive the lease (enforce.cc:
+  // 1346-1361), so the next launch pays at the new rate
+  int64_t cap = kWindowNs * std::max(new_pct, 1) / 100;
+  int64_t cur = b.tokens_ns.load(std::memory_order_relaxed);
+  while (cur > cap && !b.tokens_ns.compare_exchange_weak(
+                          cur, cap, std::memory_order_relaxed)) {
+  }
+}
+
+namespace {
 
 // One relaxed add on this process's cached ledger entry; the claim (under
 // the ledger lock) happens once, and a missing or full ledger is retried
@@ -1516,6 +1558,9 @@ void BeforeLaunch(CostKey key, CUstream stream, int slot, bool may_sample,
                   bool may_clock, Ticket* t, bool replay = false) {
   g_launches.fetch_add(1, std::memory_order_relaxed);
   if (slot < 0) slot = CurrentSlot();
+  // before the unmetered return: a freeze parks every tenant, and a lease
+  // may make this one metered (enforce.cc:2508-2513)
+  FreezePark(stream);
   if (!IsMetered(Dev(slot))) {
     // an unthrottled tenant's steps are recorded too
     if (g_ring_state.load(std::memory_order_relaxed) != kRingOff &&
@@ -1969,6 +2014,12 @@ VTPU_EXPORT uint64_t vtpu_watcher_external_total() {
 
 VTPU_EXPORT uint64_t vtpu_watcher_fallback_total() {
   return g_watcher_fallback.load(std::memory_order_relaxed);
+}
+
+// The limit a device's bucket paces to, in percent, the quota market's
+// lease included (0 when the device is not metered).
+VTPU_EXPORT int vtpu_core_limit(int slot) {
+  return slot >= 0 && slot < kMaxDevices ? LimitPct(slot) : 0;
 }
 
 // Balance mode's current limit on a device (0 before its first tick).

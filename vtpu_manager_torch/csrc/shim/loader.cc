@@ -102,7 +102,10 @@ DeviceLimits FromFile(const VtpuDevice& d) {
   out.hard_core = d.hard_core;
   out.soft_core = d.soft_core;
   out.core_limit = d.core_limit;
+  out.lease_core = d.lease_core;
   out.host_index = d.host_index;
+  memcpy(out.uuid, d.uuid, sizeof(out.uuid));
+  out.uuid[sizeof(out.uuid) - 1] = 0;
   return out;
 }
 
@@ -132,6 +135,10 @@ bool LoadConfigFile(const char* path, Config* out) {
                                                         : kMaxDevices;
     for (int i = 0; i < out->device_count; i++)
       out->dev[i] = FromFile(cfg->devices[i]);
+    out->workload_class = cfg->workload_class;
+    out->quota_epoch = cfg->quota_epoch;
+    out->migration_freeze = cfg->migration_freeze;
+    out->freeze_epoch = cfg->freeze_epoch;
     out->from_file = true;
   } else {
     fprintf(stderr, "[vtpu-cuda ERROR] config %s failed validation\n", path);
@@ -181,6 +188,11 @@ bool SynthesizeFromEnv(Config* out) {
   return true;
 }
 
+const char* ConfigPath() {
+  const char* path = getenv("VTPU_CONFIG_PATH");
+  return path && *path ? path : kDefaultConfigPath;
+}
+
 Config LoadConfig() {
   Config c;
   const char* level = getenv("VTPU_LOGGER_LEVEL");
@@ -188,23 +200,48 @@ Config LoadConfig() {
   const char* disable = getenv("DISABLE_VTPU_CONTROL");
   c.disabled = disable && *disable;
   if (c.disabled) return c;
-  const char* path = getenv("VTPU_CONFIG_PATH");
-  if (!path || !*path) path = kDefaultConfigPath;
-  if (!LoadConfigFile(path, &c)) SynthesizeFromEnv(&c);
+  if (!LoadConfigFile(ConfigPath(), &c)) SynthesizeFromEnv(&c);
   return c;
+}
+
+// The registrar beside this interposer: the directory that holds the
+// loaded interposer (the driver mount in a container, the build dir in the
+// tests), else empty.
+std::string ScriptBesideInterposer() {
+  Dl_info info;
+  if (dladdr(reinterpret_cast<void*>(&ScriptBesideInterposer), &info) == 0 ||
+      !info.dli_fname)
+    return "";
+  std::string path = info.dli_fname;
+  size_t slash = path.rfind('/');
+  path = (slash == std::string::npos ? std::string(".")
+                                     : path.substr(0, slash)) +
+         "/vtpu_device_client.py";
+  return access(path.c_str(), R_OK) == 0 ? path : "";
 }
 
 // CLIENT compat mode: announces this container to the node registry, so
 // the node can attest its pids into pids.config (library/src/loader.cc:301
-// SpawnDeviceClient). The device client is VTPU_DEVICE_CLIENT_CMD, else
-// the port's runtime client as a module (a tenant image without the
-// package names its own command). It runs in the background of a shell
-// that exits at once, so init reaps it and the tenant keeps no zombie;
-// posix_spawn runs no fork handlers in a process whose threads may hold
-// locks. Logs with fprintf: it runs while the config is being loaded.
+// SpawnDeviceClient). The command, in the reference's order:
+// VTPU_DEVICE_CLIENT_CMD; the stdlib-only registrar the node installs
+// beside the interposer (vtpu_manager_torch/tools/vtpu_device_client.py:
+// a tenant image need not carry the package); the port's runtime client
+// as a module, a fallback for development. It runs in the background of a
+// shell that exits at once, so init reaps it and the tenant keeps no
+// zombie; posix_spawn runs no fork handlers in a process whose threads may
+// hold locks. Logs with fprintf: it runs while the config is being loaded.
 void SpawnDeviceClient(int log_level) {
   const char* cmd = getenv("VTPU_DEVICE_CLIENT_CMD");
-  if (!cmd || !*cmd) cmd = "python3 -m vtpu_manager_torch.runtime.client";
+  std::string script_cmd;
+  if (!cmd || !*cmd) {
+    std::string script = ScriptBesideInterposer();
+    if (!script.empty() && script.find('\'') == std::string::npos) {
+      script_cmd = "python3 '" + script + "'";
+      cmd = script_cmd.c_str();
+    } else {
+      cmd = "python3 -m vtpu_manager_torch.runtime.client";
+    }
+  }
   std::string line = std::string("(") + cmd + ") </dev/null &";
   char* argv[] = {const_cast<char*>("sh"), const_cast<char*>("-c"),
                   const_cast<char*>(line.c_str()), nullptr};
@@ -317,7 +354,9 @@ void* RouteProcAddress(const char* symbol, void* real) {
 
 }  // namespace
 
-const Config& Cfg() {
+// Loaded once; the quota market's reloader is armed as soon as the limits
+// are known (it logs nothing: Log reads this config).
+Config& MutableCfg() {
   static Config cfg = [] {
     Config c = LoadConfig();
     for (int i = 0; i < c.device_count; i++) {
@@ -332,10 +371,14 @@ const Config& Cfg() {
     }
     if (!c.disabled && c.device_count > 0 && (c.compat_mode & kCompatClient))
       SpawnDeviceClient(c.log_level);
+    if (!c.disabled && c.device_count > 0)
+      ArmQuotaReloader(ConfigPath(), c.quota_epoch);
     return c;
   }();
   return cfg;
 }
+
+const Config& Cfg() { return MutableCfg(); }
 
 const DeviceLimits* Dev(int slot) {
   const Config& c = Cfg();

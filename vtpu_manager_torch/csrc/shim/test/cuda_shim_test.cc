@@ -53,8 +53,10 @@
 //                    then a second synchronisation with no launch; step
 //                    SHIM_TEST_NEW_AT also launches a kernel never seen
 //                    before, and step i holds (i % 3 + 1) x
-//                    SHIM_TEST_STEP_ALLOC bytes. Prints STEP i start_ns
-//                    end_ns per step, then
+//                    SHIM_TEST_STEP_ALLOC bytes; the steps end early once
+//                    SHIM_TEST_STOP_FILE exists. Prints STEP i start_ns
+//                    end_ns epoch per step (CLOCK_MONOTONIC; the
+//                    interposer's quota_epoch after the step), then
 //                    STEPS records=<the interposer's> and COUNTERS
 //   --excess         SHIM_TEST_ITERS launch+synchronize steps (the watcher
 //                    ticks and adopts the feed's calibration), then
@@ -368,7 +370,8 @@ void PrintCounters() {
       "vtpu_blind_ticks_total",     "vtpu_oom_rejected_total",
       "vtpu_graph_launches_total",  "vtpu_captured_launches_total",
       "vtpu_windows_total",         "vtpu_stand_aside_ns_total",
-      "vtpu_clocked_total"};
+      "vtpu_clocked_total",         "vtpu_quota_reloads_total",
+      "vtpu_freeze_wait_ns_total",  "vtpu_quota_epoch"};
   printf("COUNTERS");
   for (const char* name : kNames) {
     auto fn = reinterpret_cast<int64_t (*)()>(dlsym(RTLD_DEFAULT, name));
@@ -376,7 +379,10 @@ void PrintCounters() {
   }
   auto up = reinterpret_cast<int (*)(int)>(dlsym(RTLD_DEFAULT,
                                                  "vtpu_up_limit"));
-  printf(" vtpu_up_limit=%d\n", up ? up(0) : -1);
+  auto limit = reinterpret_cast<int (*)(int)>(dlsym(RTLD_DEFAULT,
+                                                    "vtpu_core_limit"));
+  printf(" vtpu_up_limit=%d vtpu_core_limit=%d\n", up ? up(0) : -1,
+         limit ? limit(0) : -1);
 }
 
 int Alloc() {
@@ -810,6 +816,7 @@ int Steps() {
   std::string kind = env_str("SHIM_TEST_LAUNCH", "kernel");
   std::string sync_kind = env_str("SHIM_TEST_SYNC", "stream");
   std::string route = env_str("SHIM_TEST_ROUTE", "proc");
+  std::string stop_file = env_str("SHIM_TEST_STOP_FILE", "");
   bool ptsz = sync_kind == "stream_ptsz";
   const char* name = sync_kind == "ctx"     ? "cuCtxSynchronize"
                      : sync_kind == "event" ? "cuEventSynchronize"
@@ -860,6 +867,8 @@ int Steps() {
     end(kStream2, &dropped);
     printf("CAPTURED sync_rc=%d\n", rc);
   }
+  auto epoch = reinterpret_cast<uint64_t (*)()>(
+      dlsym(RTLD_DEFAULT, "vtpu_quota_epoch"));
   CUgraphExec exec = nullptr;
   if (kind == "graph" &&
       !(exec = CaptureOne(reinterpret_cast<CUfunction>(0x4ffe)))) {
@@ -867,6 +876,7 @@ int Steps() {
     return 1;
   }
   for (int i = 0; i < iters; i++) {
+    if (!stop_file.empty() && access(stop_file.c_str(), F_OK) == 0) break;
     struct timespec ts;
     clock_gettime(CLOCK_MONOTONIC, &ts);
     uint64_t t0 = (uint64_t)ts.tv_sec * 1000000000ull + ts.tv_nsec;
@@ -896,8 +906,8 @@ int Steps() {
     if (held) release_ptr(held);
     clock_gettime(CLOCK_MONOTONIC, &ts);
     uint64_t t1 = (uint64_t)ts.tv_sec * 1000000000ull + ts.tv_nsec;
-    printf("STEP %d %llu %llu\n", i, (unsigned long long)t0,
-           (unsigned long long)t1);
+    printf("STEP %d %llu %llu %lld\n", i, (unsigned long long)t0,
+           (unsigned long long)t1, epoch ? (long long)epoch() : -1ll);
   }
   printf("STEPS records=%lld\n", (long long)Counter("vtpu_step_records_total"));
   PrintCounters();

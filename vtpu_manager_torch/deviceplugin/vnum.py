@@ -63,7 +63,7 @@ import threading
 import time
 from collections import Counter
 
-from vtpu_manager_torch import trace
+from vtpu_manager_torch import quota, trace
 from vtpu_manager_torch.client.kube import KubeClient, KubeError
 from vtpu_manager_torch.config import vtpu_config as vc
 from vtpu_manager_torch.config.node_config import NodeConfig
@@ -107,13 +107,21 @@ def interposer_container_path() -> str:
 
 def install_interposer(src: str, driver_dir: str) -> str:
     """Copies the built interposer into the node's driver directory under
-    the name the preload file gives it; atomic, since a tenant may be
-    loading the old one."""
+    the name the preload file gives it, and beside it CLIENT mode's
+    stdlib-only registrar (the one beside `src`, else the package's); each
+    atomic, since a tenant may be loading the old one."""
     os.makedirs(driver_dir, exist_ok=True)
-    dst = os.path.join(driver_dir, consts.CONTROL_LIBRARY_NAME)
-    tmp = f"{dst}.tmp.{os.getpid()}"
-    shutil.copy2(src, tmp)
-    os.replace(tmp, dst)
+    registrar = os.path.join(os.path.dirname(src),
+                             consts.DEVICE_CLIENT_SCRIPT)
+    if not os.path.exists(registrar):
+        registrar = os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "tools", consts.DEVICE_CLIENT_SCRIPT)
+    for source, name in ((registrar, consts.DEVICE_CLIENT_SCRIPT),
+                         (src, consts.CONTROL_LIBRARY_NAME)):
+        dst = os.path.join(driver_dir, name)
+        tmp = f"{dst}.tmp.{os.getpid()}"
+        shutil.copy2(source, tmp)
+        os.replace(tmp, dst)
     return dst
 
 
@@ -148,6 +156,7 @@ class VnumPlugin(DevicePluginServicer):
     compile_cache_enabled = False            # gated: CompileCache
     cluster_cache_enabled = False            # gated: ClusterCompileCache
     comm_telemetry_enabled = False           # gated: CommTelemetry
+    quota_market_enabled = False             # gated: QuotaMarket
 
     def __init__(self, manager: DeviceManager, client: KubeClient,
                  node_name: str, node_config: NodeConfig | None = None,
@@ -457,6 +466,13 @@ class VnumPlugin(DevicePluginServicer):
             except OSError as e:
                 log.warning("compile cache dir %s unavailable (%s); tenant "
                             "%s/%s compiles uncached", cc_host, e, uid, cont)
+        # the webhook-normalized workload class rides into the config, so
+        # the interposer and the node's quota market agree on which side of
+        # the market the tenant sits (`vnum.py:451-461`); gate off: 0, the
+        # bytes the config carried before the market
+        wl_class = vc.WORKLOAD_CLASS_NONE
+        if self.quota_market_enabled:
+            wl_class = quota.workload_class_abi(quota.workload_class_of(pod))
         with trace.span(ctx, "plugin.config", container=cont,
                         devices=len(devices)):
             os.makedirs(config_host, exist_ok=True)
@@ -466,7 +482,7 @@ class VnumPlugin(DevicePluginServicer):
                 pod_namespace=meta.get("namespace", ""),
                 container_name=cont, compat_mode=compat,
                 compile_cache_dir=consts.COMPILE_CACHE_DIR if cc_ok else "",
-                devices=devices))
+                workload_class=wl_class, devices=devices))
             # a partial-write tears the file just written: the state a
             # crash mid-write leaves, which the retried Allocate rewrites
             failpoints.fire("plugin.config_write", pod_uid=uid,

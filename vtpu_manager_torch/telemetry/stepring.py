@@ -74,6 +74,16 @@ FLAG_EXEC_ERROR = 0x2
 
 _WRITES_OFFSET = 24          # header offset of the u64 writes counter
 _TRACE_ID_OFFSET = 32
+_RECORD = struct.Struct(_RECORD_FMT)
+
+
+def _words(mm) -> memoryview:
+    """The mapping as native u64 words (little-endian on every host the
+    port runs on). A word is loaded and stored whole: struct.pack_into
+    zero-fills its bytes before it writes them, so a reader in another
+    process could see a seq or head pass through 0 or a partial value,
+    twice in a row when the writer is preempted between the two."""
+    return memoryview(mm).cast("Q")
 
 
 def record_offset(slot: int) -> int:
@@ -140,6 +150,7 @@ class StepRingWriter:
             os.close(self._fd)
             self._fd = None
             raise
+        self._w = _words(self._mm)
         magic, version, cap, rec_size, _, _, writes, _ = struct.unpack_from(
             _HEADER_FMT, self._mm, 0)
         if magic != MAGIC or version != VERSION or cap != RING_CAPACITY \
@@ -175,22 +186,27 @@ class StepRingWriter:
             start_mono_ns = time.monotonic_ns() - duration_ns
         index = self._writes
         off = record_offset(index % RING_CAPACITY)
-        seq, = struct.unpack_from("<Q", self._mm, off)
-        wseq = seq | 1
-        struct.pack_into("<Q", self._mm, off, wseq)      # odd: writing
+        seq_word = off // 8
+        wseq = self._w[seq_word] | 1
+        self._w[seq_word] = wseq                         # odd: writing
         flags = (FLAG_COMPILE if compiled else 0) | \
             (FLAG_EXEC_ERROR if exec_error else 0)
-        struct.pack_into(_RECORD_FMT, self._mm, off, wseq, index,
-                         start_mono_ns, duration_ns, throttle_wait_ns,
-                         hbm_highwater_bytes, flags, 0,
-                         spilled_bytes, spill_events, fill_events,
-                         comm_time_ns, bytes_transferred,
-                         collective_count, 0, spill_fill_time_ns)
-        struct.pack_into("<Q", self._mm, off, wseq + 1)  # even: stable
+        payload = _RECORD.pack(wseq, index,
+                               start_mono_ns, duration_ns, throttle_wait_ns,
+                               hbm_highwater_bytes, flags, 0,
+                               spilled_bytes, spill_events, fill_events,
+                               comm_time_ns, bytes_transferred,
+                               collective_count, 0, spill_fill_time_ns)
+        # everything after the seq, copied over the old bytes (no zero-fill)
+        self._mm[off + 8:off + RECORD_SIZE] = payload[8:]
+        self._w[seq_word] = wseq + 1                     # even: stable
         self._writes = index + 1
-        struct.pack_into("<Q", self._mm, _WRITES_OFFSET, self._writes)
+        self._w[_WRITES_OFFSET // 8] = self._writes
 
     def close(self) -> None:
+        if getattr(self, "_w", None) is not None:
+            self._w.release()
+            self._w = None
         if getattr(self, "_mm", None) is not None:
             self._mm.close()
             self._mm = None
@@ -220,6 +236,7 @@ class StepRingReader:
             os.close(self._fd)
             self._fd = None
             raise
+        self._w = _words(self._mm)
         magic, version, cap, rec_size, pid, _, _, raw_tid = \
             struct.unpack_from(_HEADER_FMT, self._mm, 0)
         if magic != MAGIC or version != VERSION or cap != RING_CAPACITY \
@@ -236,6 +253,9 @@ class StepRingReader:
             c for c in raw if c.isalnum() or c in "._-")[:TRACE_ID_LEN]
 
     def close(self) -> None:
+        if getattr(self, "_w", None) is not None:
+            self._w.release()
+            self._w = None
         if getattr(self, "_mm", None) is not None:
             self._mm.close()
             self._mm = None
@@ -250,8 +270,8 @@ class StepRingReader:
         caller skips that poll; advancing the monotone cursor to a torn
         value would stall the tenant's telemetry forever."""
         for _ in range(8):
-            w1, = struct.unpack_from("<Q", self._mm, _WRITES_OFFSET)
-            w2, = struct.unpack_from("<Q", self._mm, _WRITES_OFFSET)
+            w1 = self._w[_WRITES_OFFSET // 8]
+            w2 = self._w[_WRITES_OFFSET // 8]
             if w1 == w2:
                 return w1
         return None
@@ -268,15 +288,15 @@ class StepRingReader:
         mid-write for all retries or was overwritten by a newer index."""
         off = record_offset(index % RING_CAPACITY)
         for _ in range(retries):
-            seq1, = struct.unpack_from("<Q", self._mm, off)
+            seq1 = self._w[off // 8]
             if seq1 & 1:
                 time.sleep(0.0002)
                 continue
             (_, rec_index, start_ns, dur_ns, wait_ns, hbm, flags,
              _pad, spilled, spills, fills, comm_ns, comm_bytes,
-             collectives, _pad2, spill_fill_ns) = struct.unpack_from(
-                 _RECORD_FMT, self._mm, off)
-            seq2, = struct.unpack_from("<Q", self._mm, off)
+             collectives, _pad2, spill_fill_ns) = _RECORD.unpack_from(
+                 self._mm, off)
+            seq2 = self._w[off // 8]
             if seq1 != seq2:
                 continue
             if rec_index != index:

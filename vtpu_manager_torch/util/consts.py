@@ -32,6 +32,8 @@ ENV_LD_PRELOAD = "LD_PRELOAD"
 ENV_REAL_CUDA_LIBRARY_PATH = "VTPU_REAL_CUDA_LIBRARY_PATH"
 ENV_SHIM_PATH = "VTPU_SHIM_PATH"
 CONTROL_LIBRARY_NAME = "libvtpu-cuda-control.so"
+# CLIENT mode's stdlib-only registrar, installed beside the interposer
+DEVICE_CLIENT_SCRIPT = "vtpu_device_client.py"
 
 # Node-shared state (the JAX package's util/consts.py:515-548, 572-573):
 # each container's config file, the node watcher's utilization feed, the
@@ -108,6 +110,19 @@ def allocation_status_annotation() -> str:
 
 def compute_policy_annotation() -> str:
     return _ann("compute-policy")
+
+
+def workload_class_annotation() -> str:
+    """The pod's workload class, normalized by the webhook (QuotaMarket):
+    which side of the node's quota market its tenant sits on."""
+    return _ann("workload-class")
+
+
+# The workload classes (`util/consts.py:434-437`)
+WORKLOAD_CLASS_LATENCY_CRITICAL = "latency-critical"
+WORKLOAD_CLASS_THROUGHPUT = "throughput"
+WORKLOAD_CLASSES = (WORKLOAD_CLASS_LATENCY_CRITICAL,
+                    WORKLOAD_CLASS_THROUGHPUT)
 
 
 def memory_oversold_annotation() -> str:

@@ -23,6 +23,7 @@ CLUSTER_COMPILE_CACHE = "ClusterCompileCache"  # entries fetched from peers
 TRACING = "Tracing"                     # allocation-path spans
 FAULT_INJECTION = "FaultInjection"      # the failpoint registry
 CLIENT_MODE = "ClientMode"              # the registry socket's pid sets
+QUOTA_MARKET = "QuotaMarket"            # the workload class in Allocate
 
 _KNOWN = {
     TC_WATCHER: False,
@@ -42,6 +43,10 @@ _KNOWN = {
     TRACING: False,
     FAULT_INJECTION: False,
     CLIENT_MODE: False,
+    # Allocate stamps the pod's workload class into the config; the
+    # market manager that lends between classes is a plane, not ported
+    # (cmd/device_plugin.py refuses the gate on)
+    QUOTA_MARKET: False,
 }
 
 
