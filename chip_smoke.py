@@ -26,7 +26,8 @@ result line:
    attention probe `attention_bench.measure()`, `mfu_measure`, and the
    card's busy share of the unthrottled quota step;
 4. enforcement, each run a tenant subprocess with the interposer
-   preloaded: the 64 MiB cap (capped view, 256 MiB refused with
+   preloaded (from processes started ahead with their imports done,
+   `bench_quota.TenantPool`, each still timed alone): the 64 MiB cap (capped view, 256 MiB refused with
    torch.cuda.OutOfMemoryError), the quota sweep at 100/50/25 (each share
    within 15 points of its quota), one kernel launch seen by the
    interposer's counter, and the interposer's cost to an unthrottled
@@ -226,7 +227,29 @@ result line:
    against one process. The port's collector with CommTelemetry renders
    `vtpu_tenant_comm_*` for both ranks' rings, and none with the gate
    off. Its kernel launches are added to the kernel record's.
-   `DISTRIBUTED` lines, one `DISTRIBUTED comm {json}` per rank.
+   `DISTRIBUTED` lines, one `DISTRIBUTED comm {json}` per rank;
+16. overcommit (`vtpu_manager_torch/bench_overcommit.py`): a tenant past
+   the card's physical memory spills to host memory under the node's
+   budget. The device plugin runs with HBMOvercommit and a spill budget;
+   two StepTelemetry tenants of one class, each allocated 16 GiB and
+   touching 1 GiB, give its policy the rings' memory high-waters, and the
+   node's overcommit annotation decodes to a ratio above 1, the one the
+   policy's formula gives. A hold pod takes the card's free memory but
+   8 GiB; a spill pod allocated at that ratio takes 2 GiB within
+   physical, then an overflow the ledger's physical check refuses: the
+   interposer serves it from pinned host memory mapped for the card (the
+   driver reads back a host location for the memory mapped there), the
+   ledger's `spilled` is exactly its bytes, the card's free memory drops
+   by less than a GiB while the tenant writes a pattern over all of it
+   (read back equal), `attn_block` with K and V in the overflow agrees
+   with its plain version within 1e-4, the ring's spill block and the
+   exporter's spill series agree with the ledger and the empty pool; the
+   next overflow is refused past the budget (torch.cuda.OutOfMemoryError,
+   and one driver call: `vtpu_spill_rejected_total` up by 1); a pod
+   allocated with the gate off is refused the same bytes and granted
+   2 GiB within its cap beside the touched overflow; after the free,
+   `spilled` is 0. One `OVERCOMMIT {json}` line per check; its
+   `attn_block` launches are added to the kernel record's.
 
 The last three lines are the nvidia-smi line, the kernels JSON and the
 result JSON.
@@ -444,15 +467,39 @@ def main_path(torch) -> dict:
 
 
 def enforcement(shim: str) -> dict:
+    import tempfile
+
     from vtpu_manager_torch import bench_quota as bq
 
-    hbm = bq.run_hbm_check(shim)
+    # every tenant of the phase from a process started ahead, its imports
+    # done before the first one runs (each still times its steps alone)
+    with tempfile.TemporaryDirectory(prefix="vtpu-enforcement-") as logs:
+        pools = {shim: bq.TenantPool(logs, shim, ENFORCEMENT_TENANTS),
+                 "": bq.TenantPool(logs, "", ENFORCEMENT_BARE_TENANTS)}
+        try:
+            for pool in pools.values():
+                pool.wait_loaded()
+            return _enforcement(bq, shim, pools)
+        finally:
+            for pool in pools.values():
+                pool.close()
+
+
+# the enforcement phase's tenants: the cap check, the sweep's six, two
+# overhead pairs (two of them without the interposer), the four graph
+# tenants and the entry check
+ENFORCEMENT_TENANTS = 14
+ENFORCEMENT_BARE_TENANTS = 2
+
+
+def _enforcement(bq, shim: str, pools: dict) -> dict:
+    hbm = bq.run_hbm_check(shim, pools=pools)
     log(f"cap check: {json.dumps(hbm)}")
     if hbm.get("error") != 0:
         raise AssertionError(f"64 MiB cap not enforced exactly: {hbm}")
 
     def run(quota, preload=True):
-        out = bq.run_worker(shim if preload else None, quota)
+        out = bq.run_worker(shim if preload else None, quota, pools=pools)
         if out is None:                 # stop at the first broken tenant
             raise AssertionError(f"tenant at quota {quota} failed")
         return out
@@ -489,14 +536,14 @@ def enforcement(shim: str) -> dict:
         raise AssertionError(f"the interposer did not see the kernel: "
                              f"{kernel_runs}")
     # every launch path: CUDA-graph replays and a cooperative launch
-    graph = bq.graph_sweep(shim)
+    graph = bq.graph_sweep(shim, pools=pools)
     verdicts = bq.graph_sweep_ok(graph, SHARE_BAND)
     for r in graph["records"]:
         log(f"graph tenant record: {json.dumps(r)}")
     log(f"graph sweep: ms/step={graph['ms_per_step']} "
         f"shares={graph['shares']} verdicts={verdicts}")
     # every allocation entry under the cap
-    entries = bq.run_entry_check(shim)
+    entries = bq.run_entry_check(shim, pools=pools)
     entries_ok = bq.entry_check_ok(entries)
     log(f"allocation entries under the 64 MiB cap: ok={entries_ok} "
         f"{json.dumps(entries)}")
@@ -758,6 +805,20 @@ def observation(torch, shim: str) -> dict:
 # what a gloo rank's ring call may move between host and card beyond what
 # it staged for gloo: the error's scalar readbacks, a few bytes each
 COMM_SLACK_BYTES = 4096
+
+
+def overcommit(torch, shim: str) -> dict:
+    from vtpu_manager_torch import bench_overcommit as bo
+
+    results = run_checks("overcommit", bo.Phase, torch, shim, bo.CHECKS)
+    ratio, ovf = (results[c] for c in bo.CHECKS)
+    return {"ratio": ratio["ratio"], "overflow": ovf["overflow"],
+            "budget": ovf["budget"], "spilled": ovf["ledger_held"],
+            "card_free_drop": ovf["card_free_drop"],
+            "gib_ms": {"card": ovf["spill"]["card_gib_ms"],
+                       "overflow": ovf["spill"]["overflow_gib_ms"]},
+            "attn_err": ovf["spill"]["attn_err"],
+            "attn_block_launches": ovf["attn_block_launches"]}
 
 
 def _comm_totals():
@@ -1184,10 +1245,14 @@ def main() -> int:
                                    str(paths["shim"]))
     summary["distributed"] = phase("distributed", distributed, torch,
                                    str(paths["shim"]), smi)
+    summary["overcommit"] = phase("overcommit", overcommit, torch,
+                                  str(paths["shim"]))
     if record is not None:
-        # the lease tenant, the observation phase's tenants and the
-        # distributed phase's ranks launch the kernel on their paths
-        for name in ("quota_lease", "observation", "distributed"):
+        # the lease tenant, the observation phase's tenants, the
+        # distributed phase's ranks and the spill pod launch the kernel on
+        # their paths
+        for name in ("quota_lease", "observation", "distributed",
+                     "overcommit"):
             if summary[name] is not None:
                 record["launches"] += summary[name]["attn_block_launches"]
     log("SUMMARY " + json.dumps(summary, default=str))

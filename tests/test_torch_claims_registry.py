@@ -259,7 +259,7 @@ def test_feature_gates_parse_as_jax(spec):
         assert port.enabled(name) == jax.enabled(name)
 
 
-@pytest.mark.parametrize("spec", ["HBMOvercommit=true",
+@pytest.mark.parametrize("spec", ["ICILinkAware=true",
                                   "StepTelemetry=yes",
                                   "StepTelemetry"])
 def test_feature_gates_refuse_what_the_port_lacks(spec):

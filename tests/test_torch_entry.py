@@ -101,7 +101,7 @@ def test_entry_registers_and_answers_allocate(tmp_path):
 
 
 @pytest.mark.parametrize("args,message", [
-    (["--fake-client", "--feature-gates", "HBMOvercommit=true"],
+    (["--fake-client", "--feature-gates", "ICILinkAware=true"],
      "unknown feature gate"),
     (["--fake-client", "--feature-gates", "StepTelemetry=maybe"],
      "invalid feature gate value"),
@@ -109,8 +109,6 @@ def test_entry_registers_and_answers_allocate(tmp_path):
     (["--service-account-dir", "no-such-dir"], "no in-cluster API access"),
     (["--fake-client", "--lease-namespace", "vtpu-system"],
      "--lease-namespace: the reschedule controller is not ported yet"),
-    (["--fake-client", "--spill-budget-gib", "8"],
-     "memory over-commit is not ported yet"),
     (["--fake-client", "--id-store", "ids.json"],
      "--id-store: the device-id store (a GPU needs none) is not ported yet"),
     # the gate is known (Allocate's workload class), its market manager not
@@ -328,7 +326,7 @@ def test_kubelet_plugin_serves_dra_and_registration(tmp_path):
 @pytest.mark.parametrize("args,message", [
     (["--id-store", "ids.json"],
      "--id-store: the device-id store (a GPU needs none) is not ported yet"),
-    (["--feature-gates", "HBMOvercommit=true"],
+    (["--feature-gates", "ICILinkAware=true"],
      "unknown feature gate"),
 ])
 def test_kubelet_plugin_refuses_what_is_not_ported(tmp_path, args, message):

@@ -5,7 +5,8 @@ packages (`pkg`); the same seed, arms and calls give the same fire
 sequence, torn sizes, stats and `render_failpoint_metrics` text in both;
 the two node-side DRA chaos cases of `tests/test_chaos.py` run on the
 port's DeviceState; each site the port fires (the twelve of its ported
-modules and `registry.register`) fires when its operation runs, with the
+modules, `registry.register` and the host pool's `spill.budget` and
+`spill.copy`) fires when its operation runs, with the
 context keys of the JAX site; and the commands arm the registry from
 `VTPU_FAILPOINTS`, refusing a malformed spec.
 """
@@ -435,12 +436,14 @@ def test_chaos_dra_prepare_error_is_clean_retry(tmp_path):
 JAX_SITE_FILES = ("client/kube.py", "client/fake.py", "util/flock.py",
                   "deviceplugin/vnum.py", "manager/device_manager.py",
                   "kubeletplugin/device_state.py", "compilecache/cache.py",
-                  "trace/recorder.py", "registry/server.py")
+                  "trace/recorder.py", "registry/server.py",
+                  "overcommit/spill.py")
 PORTED_SITES = ("kube.request", "kube.watch", "flock.acquire",
                 "plugin.allocate", "plugin.config_write",
                 "plugin.record_devices", "health.probe", "dra.prepare",
                 "dra.cdi_write", "cache.write", "cache.lease",
-                "trace.spool_flush", "registry.register")
+                "trace.spool_flush", "registry.register", "spill.budget",
+                "spill.copy")
 
 
 def _fire_calls(pkg_dir: str) -> dict[str, set[frozenset]]:
@@ -544,6 +547,9 @@ def test_each_ported_site_fires_when_its_operation_runs(tmp_path, recorded,
                          cgroup_of_pid=lambda pid: f"/kubepods/pod{uid}/a",
                          pids_in_cgroup=lambda cg: [1])
     assert reg.handle_request({"pod_uid": uid, "container": "main"}, 1) == 0
+    # the host pool
+    from vtpu_manager_torch.overcommit.spill import SpillPool
+    SpillPool(str(tmp_path / "spill"), owner_token=1).spill(0, "b", b"x")
 
     seen: dict[str, set[frozenset]] = {}
     for site, keys in recorded:

@@ -652,3 +652,42 @@ def test_a_lease_adopted_under_graph_replays_paces_them(card, tmp_path):
     assert run["graph"] and run["vtpu_graph_launches_total"] >= rec["steps"]
     assert rec["ok"], (rec["stages"], rec["reloads"], rec["epoch"],
                        rec["counters"])
+
+
+# --- HBMOvercommit's overflow tier on the card --------------------------------
+
+
+@pytest.fixture(scope="module")
+def overflow_probe(tmp_path_factory):
+    """One tenant whose config gives the card 1 GiB of physical memory, 2
+    GiB of virtual capacity and a 512 MiB spill budget, the pool armed:
+    1 GiB on the card, then 256 MiB past it, then 512 MiB past the
+    budget, then the free (`bench_overcommit.run_probe`)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from vtpu_manager_torch import bench_overcommit, build
+    return bench_overcommit.run_probe(
+        str(build.build_shim()), str(tmp_path_factory.mktemp("overflow")))
+
+
+@pytest.mark.gpu
+def test_an_overflow_grant_is_host_memory(card, overflow_probe):
+    rec = overflow_probe
+    # the location of the memory mapped there, as the driver reads it back
+    # (cuMemGetAllocationPropertiesFromHandle)
+    assert rec["where"] == "host", rec
+    assert rec["spills"] == 1 and rec["spilled"] == 256 * 2**20, rec
+    assert rec["pattern_ok"], rec
+
+
+@pytest.mark.gpu
+def test_an_overflow_past_the_budget_is_refused(card, overflow_probe):
+    rec = overflow_probe
+    assert rec["refused"], rec
+    # every driver call of torch's attempts was the tier's refusal
+    assert rec["rejected"] == rec["oom_rejected"] >= 1, rec
+
+
+@pytest.mark.gpu
+def test_the_free_returns_the_overflows_credit(card, overflow_probe):
+    assert overflow_probe["spilled_after_free"] == 0, overflow_probe

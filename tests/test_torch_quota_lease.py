@@ -67,7 +67,10 @@ def write_tenant(base, uid, cls, hard, lease=0, core_limit=None) -> str:
 
 class Steps:
     """The harness's `--steps` tenant under the interposer, one fake kernel
-    per step, stopped by a file; the renames are stamped as they happen."""
+    per step, stopped by a file. Each rewrite is stamped before the writer
+    is called (`began`) and after it returns (`marks`): its rename lies
+    between the two, and on a loaded host the writer's return can come
+    tens of ms after it."""
 
     def __init__(self, tmp_path, cfg_path: str, uid: str, **env):
         self.stop = str(tmp_path / f"stop-{uid}")
@@ -81,9 +84,11 @@ class Steps:
                 **env),
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         self.marks: list[int] = []
+        self.began: list[int] = []
 
     def at(self, delay_s: float, write) -> None:
         time.sleep(delay_s)
+        self.began.append(time.monotonic_ns())
         write()
         self.marks.append(time.monotonic_ns())
 
@@ -274,7 +279,12 @@ def test_a_revoke_clamps_the_tokens(tmp_path):
 
 
 def test_a_lender_at_hard_100_becomes_metered(tmp_path, t100):
-    """Unmetered at hard 100 until it lends 50: then paced at 50."""
+    """Unmetered at hard 100 until it lends 50: then paced at 50. The
+    unmetered stage is judged by its median step, the statistic of its
+    yardstick `t100`: the bucket delays a launch inside its step, and the
+    stage's wall also holds the host's pauses of the harness between
+    steps, which no interposer decision makes. The paced stage is judged
+    by its wall: pacing sets it."""
     base = str(tmp_path / "mgr")
     cfg = write_tenant(base, "train", jvc.WORKLOAD_CLASS_THROUGHPUT, 100)
     tenant = Steps(tmp_path, cfg, "train")
@@ -287,7 +297,8 @@ def test_a_lender_at_hard_100_becomes_metered(tmp_path, t100):
     tenant.at(0.5, lend)
     run = tenant.finish(1.2)
     steps, (lent,) = run["steps"], tenant.marks
-    before = 100 * t100 / rate(steps, steps[0][0], lent)
+    first = bl.stage_rate(steps, steps[0][0], lent, 0)
+    before = 100 * t100 / first["median_ms"]
     after = 100 * t100 / rate(steps, lent, tenant.end)
     assert before >= 100 - SHARE_BAND, (before, after)
     assert abs(after - 50) <= SHARE_BAND, (before, after)
@@ -341,7 +352,9 @@ def test_a_freeze_parks_a_tenant_that_launches_rarely(tmp_path, launch):
     """An unmetered tenant that launches once per 50 ms step (one kernel,
     or one graph replay, with no synchronisation): no launch goes through
     later than one quantum and one re-read after the freeze's rename, and
-    the one that parks waits out the freeze."""
+    the one that parks waits out the freeze. Each rename lies between its
+    two stamps (`Steps.at`): the freeze's is taken as late as it can be,
+    the unfreeze's as early."""
     gap_ms = 50
     base = str(tmp_path / "mgr")
     cfg = write_tenant(base, "t1", jvc.WORKLOAD_CLASS_NONE, 0)
@@ -352,19 +365,22 @@ def test_a_freeze_parks_a_tenant_that_launches_rarely(tmp_path, launch):
     tenant.at(0.8, lambda: set_tenant_freeze(base, "t1", False))
     run = tenant.finish(0.3)
     steps, (frozen, thawed) = run["steps"], tenant.marks
+    frozen_from, thawed_from = tenant.began
+    gap_ns = gap_ms * 1e6
     adopt = frozen + int((QUANTUM_MS + REREAD_SLACK_MS) * 1e6)
-    # a step is its launch, then the gap: one that began after the freeze
-    # was adopted and ended before the unfreeze launched inside the freeze
+    # a step is its launch, then a sleep of at least the gap: one that
+    # began after the freeze was adopted and whose launch returned before
+    # the unfreeze's writer was called launched inside the freeze
     through = [(s[0] - frozen) / 1e6 for s in steps
-               if adopt < s[0] and s[1] < thawed]
+               if adopt < s[0] and s[1] - gap_ns < thawed_from]
     assert not through, through
-    parked = [s for s in steps if s[0] < thawed < s[1] - gap_ms * 1e6]
+    parked = [s for s in steps if s[0] < thawed_from < s[1] - gap_ns]
     assert len(parked) == 1, [(s[0] - frozen, s[1] - frozen) for s in steps
                               if s[1] > frozen]
-    held = (thawed - frozen) / 1e9
     slack = (QUANTUM_MS + REREAD_SLACK_MS) / 1e3 + gap_ms / 1e3
     freeze_s = run["vtpu_freeze_wait_ns_total"] / 1e9
-    assert held - slack <= freeze_s <= held + slack, (freeze_s, held)
+    low, high = (thawed_from - frozen) / 1e9, (thawed - frozen_from) / 1e9
+    assert low - slack <= freeze_s <= high + slack, (freeze_s, low, high)
     assert run["vtpu_quota_reloads_total"] == 2
 
 

@@ -36,6 +36,7 @@ from __future__ import annotations
 import argparse
 import atexit
 import ctypes
+import itertools
 import json
 import os
 import queue
@@ -95,7 +96,24 @@ def tenant_env(shim: str | None, quota: int = 100,
 
 
 def _run_tenant(args: list[str], env: dict, tag: str,
-                timeout: int) -> dict | None:
+                timeout: int, pools: dict | None = None) -> dict | None:
+    """The tenant's `<tag> {json}` record, or None when it failed. With
+    `pools` (TenantPool by the preload its processes were started with,
+    "" for none) the tenant is a pooled process: its imports done ahead."""
+    if pools is not None:
+        t = pools[env.get(consts.ENV_LD_PRELOAD, "")].take(
+            tag.lower(), args, env, timeout)
+        try:
+            return t.line(f"{tag} ", timeout)
+        except (RuntimeError, TimeoutError) as e:
+            print(f"{tag} failed: {e}", file=sys.stderr)
+            return None
+        finally:
+            try:
+                t.proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                pass        # stop() kills it
+            t.stop()
     try:
         res = subprocess.run([sys.executable, *args], env=env,
                              cwd=str(build.REPO), capture_output=True,
@@ -120,20 +138,20 @@ SWEEP_STEPS = 150
 
 def run_worker(shim: str | None, quota: int, dim: int = 8192,
                warmup: int = SWEEP_WARMUP, steps: int = SWEEP_STEPS,
-               timeout: int = 300, extra_env: dict | None = None
-               ) -> dict | None:
+               timeout: int = 300, extra_env: dict | None = None,
+               pools: dict | None = None) -> dict | None:
     """One tenant run of the step loop at `quota` (`shim` None: no
     interposer), with `extra_env` over its environment. At quota 100
     under the interposer the tenant also launches the block-attention
     kernel once, to show the interposer meters a hand-written kernel
-    too."""
+    too. `pools`: as `_run_tenant`'s."""
     args = ["-m", "vtpu_manager_torch.bench_quota", "--worker",
             "--dim", str(dim), "--warmup", str(warmup),
             "--steps", str(steps)]
     if shim is not None and quota >= 100:
         args.append("--kernel")
     env = {**tenant_env(shim, quota), **(extra_env or {})}
-    return _run_tenant(args, env, "WORKER", timeout)
+    return _run_tenant(args, env, "WORKER", timeout, pools)
 
 
 GRAPH_QUOTAS = (50, 25)
@@ -141,8 +159,8 @@ GRAPH_QUOTAS = (50, 25)
 
 def run_graph_worker(shim: str, quota: int, capture_mode: str = "global",
                      dim: int = 8192, warmup: int = SWEEP_WARMUP,
-                     steps: int = SWEEP_STEPS,
-                     timeout: int = 300) -> dict | None:
+                     steps: int = SWEEP_STEPS, timeout: int = 300,
+                     pools: dict | None = None) -> dict | None:
     """One tenant run of the quota step and one block-attention launch
     (`bench_steps.graph_step_measure`): eager at quota 100, replayed from
     a CUDA graph below it, captured in `capture_mode` (torch's
@@ -150,15 +168,18 @@ def run_graph_worker(shim: str, quota: int, capture_mode: str = "global",
     args = ["-m", "vtpu_manager_torch.bench_quota", "--worker", "--graph",
             "--capture-mode", capture_mode, "--dim", str(dim), "--warmup",
             str(warmup), "--steps", str(steps)]
-    return _run_tenant(args, tenant_env(shim, quota), "WORKER", timeout)
+    return _run_tenant(args, tenant_env(shim, quota), "WORKER", timeout,
+                       pools)
 
 
-def graph_sweep(shim: str, capture_mode: str = "global") -> dict:
+def graph_sweep(shim: str, capture_mode: str = "global",
+                pools: dict | None = None) -> dict:
     """Graph tenants at GRAPH_QUOTAS, each paired with an eager tenant of
     the same step at quota 100 (`paired_quota_sweep`). A tenant that
     failed leaves its quota out of the shares."""
     times, shares, records = paired_quota_sweep(
-        lambda q: run_graph_worker(shim, q, capture_mode), GRAPH_QUOTAS)
+        lambda q: run_graph_worker(shim, q, capture_mode, pools=pools),
+        GRAPH_QUOTAS)
     return {"ms_per_step": times, "shares": shares, "records": records,
             "capture_mode": capture_mode}
 
@@ -190,7 +211,8 @@ def graph_sweep_ok(sweep: dict, band: float) -> dict:
     return out
 
 
-def run_entry_check(shim: str, timeout: int = 300) -> dict | None:
+def run_entry_check(shim: str, timeout: int = 300,
+                    pools: dict | None = None) -> dict | None:
     """Under the 64 MiB cap, each allocating entry the CUDA runtime does not
     reach by cuMemAlloc_v2 (`ENTRY_CHECKS`), called through ctypes on
     libcuda.so.1: its verdicts for 256 MiB, then 32 MiB, its free, and
@@ -198,7 +220,7 @@ def run_entry_check(shim: str, timeout: int = 300) -> dict | None:
     return _run_tenant(["-m", "vtpu_manager_torch.bench_quota",
                         "--entry-worker"],
                        tenant_env(shim, 100, mem_limit=CAP_BYTES), "ENTRIES",
-                       timeout)
+                       timeout, pools)
 
 
 def paired_quota_sweep(run, quotas=QUOTAS, reps: int = 1
@@ -237,14 +259,15 @@ def tracking_mae(shares: dict[int, float]) -> float | None:
     return sum(errs) / len(errs) if errs else None
 
 
-def run_hbm_check(shim: str, timeout: int = 300) -> dict:
+def run_hbm_check(shim: str, timeout: int = 300,
+                  pools: dict | None = None) -> dict:
     """Exact-cap check. `error` is 0 when the cap held with the right error
     and the capped view, 100 on a violation or a wrong error class, None
     when the check could not run."""
     out = _run_tenant(["-m", "vtpu_manager_torch.bench_quota",
                        "--hbm-worker"],
                       tenant_env(shim, 100, mem_limit=CAP_BYTES), "HBM",
-                      timeout)
+                      timeout, pools)
     if out is None:
         return {"error": None}
     ok = out["verdict"] == "oom" and out["total"] == CAP_BYTES
@@ -349,7 +372,10 @@ COUNTERS = ("vtpu_launches_total", "vtpu_sampled_launches_total",
             # the quota market's rewrites adopted, the generation in force
             # and the time launches parked under a migration freeze
             "vtpu_quota_reloads_total", "vtpu_quota_epoch",
-            "vtpu_freeze_wait_ns_total")
+            "vtpu_freeze_wait_ns_total",
+            # HBMOvercommit's overflow tier: grants, refusals, time
+            "vtpu_spills_total", "vtpu_spill_rejected_total",
+            "vtpu_spill_fill_ns_total")
 SIGNED = ("vtpu_charged_ns_total", "vtpu_obs_overhead_ns")
 # what a graph tenant reports across its capture
 CAPTURE_COUNTERS = ("vtpu_launches_total", "vtpu_sampled_launches_total",
@@ -360,10 +386,13 @@ def tenant_config(path: str, pod_uid: str, *, cap: int = 0,
                   real_memory: int = 0, hard_core: int = 0,
                   soft_core: int | None = None, container: str = "main",
                   uuid: str = "", host_index: int = 0,
-                  compat_mode: int = consts.COMPAT_HOST) -> vc.VtpuConfig:
+                  compat_mode: int = consts.COMPAT_HOST,
+                  virtual_memory: int = 0,
+                  spill_budget: int = 0) -> vc.VtpuConfig:
     """Writes a tenant's `vtpu.config` with the port's writer, one device,
     its fields as the device plugin sets them (`vnum.py:370-399`): a
-    compute limit is hard unless `soft_core` (balance mode) is above it."""
+    compute limit is hard unless `soft_core` (balance mode) is above it;
+    `virtual_memory` and `spill_budget` are HBMOvercommit's."""
     soft = hard_core if soft_core is None else soft_core
     policy = (vc.CORE_LIMIT_NONE if hard_core <= 0 else
               vc.CORE_LIMIT_SOFT if soft > hard_core else vc.CORE_LIMIT_HARD)
@@ -373,7 +402,9 @@ def tenant_config(path: str, pod_uid: str, *, cap: int = 0,
         devices=[vc.DeviceConfig(
             uuid=uuid, total_memory=cap, real_memory=real_memory,
             hard_core=hard_core, soft_core=soft, core_limit=policy,
-            memory_limit=cap > 0, host_index=host_index)])
+            memory_limit=cap > 0, host_index=host_index,
+            virtual_hbm_bytes=virtual_memory,
+            spill_budget_bytes=spill_budget)])
     vc.write_config(path, cfg)
     return cfg
 
@@ -507,38 +538,55 @@ class TenantPool:
     environment only before its first CUDA call. `refill()` starts new ones
     up to `size`; `run_tenants` calls it once every tenant of its batch
     has finished its timed steps, so an import never runs beside a timed
-    stretch of that batch."""
+    stretch of that batch. `module` is the tenants' bench (its `--pooled`
+    takes the ticket: `run_pooled`)."""
 
-    def __init__(self, log_dir: str, preload: str, size: int):
+    _count = itertools.count()
+
+    def __init__(self, log_dir: str, preload: str, size: int,
+                 module: str = "vtpu_manager_torch.bench_quota"):
         self.log_dir = log_dir
+        self.module = module
+        # the pool's processes, tickets and logs, apart from another pool's
+        # in the same directory
+        self.name = f"pool{next(TenantPool._count)}"
         self.env = {k: v for k, v in os.environ.items()
                     if not k.startswith(("VTPU_", "DISABLE_VTPU"))}
         self.env.update({"LD_PRELOAD": preload, "PYTHONPATH": os.pathsep.join(
             p for p in (str(build.REPO), os.environ.get("PYTHONPATH")) if p)})
         self.size = size
         self.idle: list[tuple[Tenant, str]] = []
+        self.loaded: set[str] = set()
         self.started = 0
         self.refill()
+
+    def wait_loaded(self, timeout: float = 300.0) -> None:
+        """Returns once every idle process has its imports done: no
+        import then runs beside a timed tenant."""
+        for t, _ in self.idle:
+            if t.tag not in self.loaded:
+                t.line("LOADED", timeout)
+                self.loaded.add(t.tag)
 
     def refill(self) -> None:
         while len(self.idle) < self.size:
             self.started += 1
-            ticket = os.path.join(self.log_dir, f"pool-{self.started}.ticket")
-            self.idle.append((Tenant(f"pool-{self.started}", [
-                "-m", "vtpu_manager_torch.bench_quota", "--pooled", ticket],
+            tag = f"{self.name}-{self.started}"
+            ticket = os.path.join(self.log_dir, f"{tag}.ticket")
+            self.idle.append((Tenant(tag, [
+                "-m", self.module, "--pooled", ticket],
                 self.env, self.log_dir), ticket))
 
     def take(self, tag: str, args: list[str], env: dict,
              timeout: float = 300.0) -> Tenant:
         """The oldest pooled process, once loaded, as tenant `tag`: `args`
-        are a `bench_quota` worker's (`-m vtpu_manager_torch.bench_quota
-        ...`)."""
-        module = ["-m", "vtpu_manager_torch.bench_quota"]
-        if args[:2] != module:
-            raise ValueError(f"a pooled process runs bench_quota: {args}")
+        are a worker's of the pool's module (`-m <module> ...`)."""
+        if args[:2] != ["-m", self.module]:
+            raise ValueError(f"a pooled process runs {self.module}: {args}")
         args = args[2:]
         t, ticket = self.idle.pop(0)
-        t.line("LOADED", timeout)
+        if t.tag not in self.loaded:
+            t.line("LOADED", timeout)
         tmp = f"{ticket}.tmp"
         with open(tmp, "w") as f:
             json.dump({"argv": args, "env": env}, f)
@@ -983,11 +1031,11 @@ def _hbm_worker() -> None:
           flush=True)
 
 
-def _pooled(ticket: str) -> None:
+def run_pooled(ticket: str, main) -> None:
     """A pooled tenant process: the imports every worker makes, then a
     wait for its ticket (the tenant's argv and environment), which it takes
     as its own before its first CUDA call; the interposer it was started
-    with reads its limits only then."""
+    with reads its limits only then. Then `main(argv)`."""
     import torch  # noqa: F401
 
     from vtpu_manager_torch import bench_steps  # noqa: F401
@@ -1002,6 +1050,10 @@ def _pooled(ticket: str) -> None:
     os.environ.clear()
     os.environ.update(job["env"])
     main(job["argv"])
+
+
+def _pooled(ticket: str) -> None:
+    run_pooled(ticket, main)
 
 
 def main(argv=None) -> None:

@@ -3,7 +3,7 @@ Prometheus metrics.
 
     python -m vtpu_manager_torch.cmd.device_monitor --node-name n1 \\
         [--port 9394] [--metrics-token-file <file>] [--fake-chips 1]
-        [--feature-gates CommTelemetry=true]
+        [--feature-gates CommTelemetry=true,HBMOvercommit=true]
 
 The port of the JAX package's `cmd/device_monitor.py`, served over the
 standard library (`http.server.ThreadingHTTPServer`; the card machine has
@@ -27,6 +27,9 @@ no aiohttp, grpc or protobuf):
 
 CommTelemetry renders the tenants' `vtpu_tenant_comm_*` families from
 the step rings' comm block (JAX `metrics/collector.py:78, 111-115`).
+HBMOvercommit renders the node's spill series (`vtpu_node_spill_*`, JAX
+`metrics/collector.py:580-620`) from the rings' spill block and the host
+pool beside the ledger (`<dir of --vmem-path>/spill`).
 
 FaultInjection arms the failpoint registry from `VTPU_FAILPOINTS` (seed
 `VTPU_FAILPOINTS_SEED`), as the JAX monitor does; a malformed spec exits
@@ -72,7 +75,6 @@ NOT_PORTED_GATES = {
     "SLOAutopilot": "the SLO autopilot and /autopilot",
     "FragObservatory": "the fragmentation observatory and /fragmentation",
     "QuotaMarket": "the quota market",
-    "HBMOvercommit": "memory over-commit (the spill series)",
     "HealthPlane": "the health plane",
 }
 
@@ -296,7 +298,11 @@ def main(argv: list[str] | None = None) -> int:
         tc_path=args.tc_path, vmem_path=args.vmem_path,
         pod_resources_socket=args.pod_resources_socket,
         kubelet_checkpoint=args.kubelet_checkpoint,
-        comm_enabled=gates.enabled(fg.COMM_TELEMETRY))
+        comm_enabled=gates.enabled(fg.COMM_TELEMETRY),
+        overcommit_enabled=gates.enabled(fg.HBM_OVERCOMMIT),
+        spill_dir=os.path.join(os.path.dirname(args.vmem_path),
+                               os.path.relpath(consts.SPILL_DIR,
+                                               consts.VMEM_DIR)))
     cache_root = (os.path.join(args.base_dir, consts.COMPILE_CACHE_SUBDIR)
                   if gates.enabled(fg.CLUSTER_COMPILE_CACHE) else None)
     server = ThreadingHTTPServer(

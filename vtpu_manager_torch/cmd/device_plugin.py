@@ -10,6 +10,7 @@
          --trace-spool-dir <dir>]
         [--feature-gates ClientMode=true --registry-socket <path>]
         [--feature-gates FaultInjection=true] [--metrics-port 9395]
+        [--feature-gates HBMOvercommit=true --spill-budget-gib 16]
 
 The port of the JAX package's `cmd/device_plugin.py:108-290`, the parts
 ported so far: discovery (NVML, or `--fake-chips N` synthetic H100s), the
@@ -39,7 +40,11 @@ dir `/etc/vtpu-manager/trace` mounted read-write), the node registry
 be served logs a warning and the plugin runs without client mode, as the
 JAX plugin does) and fault injection (FaultInjection: the failpoint
 registry armed from `VTPU_FAILPOINTS`, seed `VTPU_FAILPOINTS_SEED`; a
-malformed spec exits 2). `--metrics-port` serves this process's
+malformed spec exits 2) and memory over-commit (HBMOvercommit: Allocate
+stamps each device's virtual capacity from the node's policy and the
+`--spill-budget-gib` budget and arms the host pool under the ledger's
+directory, and this agent publishes the policy's per-class ratios in the
+node's overcommit annotation every 15 s). `--metrics-port` serves this process's
 resilience counters (retries, breakers, failpoint fires) on `/metrics`
 and answers 404 on any other path; 0, the default, serves nothing.
 
@@ -70,7 +75,6 @@ from vtpu_manager_torch.client.kube import (SERVICE_ACCOUNT_DIR,
 # JAX flags of parts not ported yet: refused when given
 NOT_PORTED = {
     "--lease-namespace": "the reschedule controller",
-    "--spill-budget-gib": "memory over-commit",
     # a GPU's id is its NVML UUID; a store's synthetic ids would reach
     # NVIDIA_VISIBLE_DEVICES, which the container runtime cannot resolve
     "--id-store": "the device-id store (a GPU needs none)",
@@ -136,6 +140,10 @@ def parse_args(argv: list[str] | None) -> argparse.Namespace:
     ap.add_argument("--cache-ad-max-pairs", type=int, default=None,
                     help="ClusterCompileCache: the hottest fp=key pairs "
                     "advertised (default 8, at most 32)")
+    ap.add_argument("--spill-budget-gib", type=float, default=16.0,
+                    help="HBMOvercommit: the node's host spill budget in "
+                    "GiB, the bound on the spilled bytes the memory ledger "
+                    "accounts")
     for flag in NOT_PORTED:
         ap.add_argument(flag, default=None)
     ap.add_argument("-v", "--verbose", action="count", default=0)
@@ -191,6 +199,32 @@ def comm_telemetry_on(gates) -> bool:
             "is the comm block's wire); the comm plane stays disarmed")
         on = False
     return on
+
+
+def start_overcommit(vnum, client, node_name: str, chips: list,
+                     base_dir: str, tc_path: str, budget_gib: float,
+                     interval_s: float = 15.0):
+    """HBMOvercommit's node half (JAX `cmd/device_plugin.py:262-267,
+    549-577`): Allocate stamps virtual capacity from the policy's current
+    ratio and the node's spill budget and arms the host pool, and this
+    agent, the owner of the node's annotations, publishes the policy's
+    rollup every `interval_s`, reaping the pool's files of dead spillers
+    first. The policy folds its own evidence (its own cursors). Returns the
+    started publisher; the caller stops it."""
+    from vtpu_manager_torch.overcommit.ledger import OvercommitLedger
+    from vtpu_manager_torch.overcommit.policy import (OvercommitPolicy,
+                                                      OvercommitPublisher)
+    vnum.hbm_overcommit_enabled = True
+    vnum.spill_budget_bytes = int(budget_gib * 2**30)
+    vnum.overcommit_policy = OvercommitPolicy(
+        OvercommitLedger(chips, base_dir=base_dir, tc_path=tc_path))
+    publisher = OvercommitPublisher(client, node_name, vnum.overcommit_policy,
+                                    interval_s=interval_s,
+                                    pool_dir=vnum.spill_pool_host_dir())
+    publisher.start()
+    logging.getLogger("vtpu-device-plugin").info(
+        "overcommit policy publisher running (budget %.1f GiB)", budget_gib)
+    return publisher
 
 
 def start_cache_evictor(root: str, budget_bytes: int, interval_s: float,
@@ -427,6 +461,15 @@ def main(argv: list[str] | None = None) -> int:
         pressure.start()
         log.info("step-telemetry pressure publisher running")
 
+    overcommit = None
+    if gates.enabled(fg.HBM_OVERCOMMIT):
+        from vtpu_manager_torch.util import consts
+        overcommit = start_overcommit(
+            vnum, client, args.node_name, chips, args.base_dir,
+            os.path.join(args.watcher_dir,
+                         os.path.basename(consts.TC_UTIL_CONFIG)),
+            args.spill_budget_gib)
+
     registry = None
     if gates.enabled(fg.CLIENT_MODE):
         # tenants' device clients register their pids here (SO_PEERCRED
@@ -465,6 +508,8 @@ def main(argv: list[str] | None = None) -> int:
         watcher.stop()
     if pressure is not None:
         pressure.stop()
+    if overcommit is not None:
+        overcommit.stop()
     if advertiser is not None:
         advertiser.stop()
     for server in servers:

@@ -109,6 +109,12 @@ class DeviceUtil:
         return 0 <= (now_ns - self.timestamp_ns) <= window_s * 1e9
 
 
+def _words(mm) -> memoryview:
+    """The mapping as native u64 words, each seq loaded and stored whole
+    (`_publish`); a truncated file's tail is not a word."""
+    return memoryview(mm)[:len(mm) // 8 * 8].cast("Q")
+
+
 def record_offset(index: int) -> int:
     return HEADER_SIZE + index * RECORD_SIZE
 
@@ -151,6 +157,7 @@ class TcUtilFile:
             os.close(self._fd)
             self._fd = None
             raise
+        self._w = _words(self._mm)
         magic, version, self.device_count, _ = struct.unpack_from(
             _HEADER_FMT, self._mm, 0)
         if magic != MAGIC or not 1 <= version <= VERSION:
@@ -171,6 +178,9 @@ class TcUtilFile:
             return False
 
     def close(self) -> None:
+        if getattr(self, "_w", None) is not None:
+            self._w.release()
+            self._w = None
         if getattr(self, "_mm", None) is not None:
             self._mm.close()
             self._mm = None
@@ -183,18 +193,12 @@ class TcUtilFile:
             raise IndexError(index)
         procs = util.procs[:MAX_PROCS]
         off = record_offset(index)
+        body = struct.pack(_RECORD_HEAD_FMT, 0, util.timestamp_ns,
+                           util.device_util, len(procs))[8:] + b"".join(
+            struct.pack(_PROC_FMT, p.pid, p.util, p.mem_used, p.owner_token)
+            for p in procs)
         with byte_range_write_lock(self._fd, off, RECORD_SIZE):
-            seq, = struct.unpack_from("<Q", self._mm, off)
-            # odd while writing, even if a crashed writer left it odd
-            wseq = seq | 1
-            struct.pack_into("<Q", self._mm, off, wseq)
-            struct.pack_into(_RECORD_HEAD_FMT, self._mm, off, wseq,
-                             util.timestamp_ns, util.device_util, len(procs))
-            poff = off + _RECORD_HEAD_SIZE
-            for i, p in enumerate(procs):
-                struct.pack_into(_PROC_FMT, self._mm, poff + i * PROC_SIZE,
-                                 p.pid, p.util, p.mem_used, p.owner_token)
-            struct.pack_into("<Q", self._mm, off, wseq + 1)
+            self._publish(off, body)
 
     def write_calibration(self, table: list[tuple[int, int]],
                           now_ns: int | None = None) -> None:
@@ -212,13 +216,23 @@ class TcUtilFile:
         now_ns = time.monotonic_ns() if now_ns is None else now_ns
         gaps = [g for g, _ in pts] + [0] * (MAX_EXCESS_POINTS - len(pts))
         exc = [e for _, e in pts] + [0] * (MAX_EXCESS_POINTS - len(pts))
+        body = struct.pack(_CAL_FMT, 0, now_ns, len(pts), 0, *gaps,
+                           *exc)[8:]
         with byte_range_write_lock(self._fd, CAL_OFFSET, CAL_SIZE):
-            seq, = struct.unpack_from("<Q", self._mm, CAL_OFFSET)
-            wseq = seq | 1
-            struct.pack_into("<Q", self._mm, CAL_OFFSET, wseq)
-            struct.pack_into(_CAL_FMT, self._mm, CAL_OFFSET, wseq, now_ns,
-                             len(pts), 0, *gaps, *exc)
-            struct.pack_into("<Q", self._mm, CAL_OFFSET, wseq + 1)
+            self._publish(CAL_OFFSET, body)
+
+    def _publish(self, off: int, body: bytes) -> None:
+        """One seqlock write at `off`: the seq odd (even again if a crashed
+        writer left it odd), `body` copied over the bytes after it, the seq
+        even. The seq is stored as a whole word and `body` copied over the
+        old bytes: `struct.pack_into` zero-fills a field before it writes
+        it, and a reader that saw the seq at 0 twice in a row would take a
+        zeroed head for a stable record."""
+        seq_word = off // 8
+        wseq = self._w[seq_word] | 1
+        self._w[seq_word] = wseq
+        self._mm[off + 8:off + 8 + len(body)] = body
+        self._w[seq_word] = wseq + 1
 
     def read_calibration(self, retries: int = 8
                          ) -> list[tuple[int, int]] | None:
@@ -234,12 +248,12 @@ class TcUtilFile:
         if not self._has_cal:
             return None
         for _ in range(retries):
-            seq1, = struct.unpack_from("<Q", self._mm, CAL_OFFSET)
+            seq1 = self._w[CAL_OFFSET // 8]
             if seq1 & 1:
                 time.sleep(0.0002)
                 continue
             vals = struct.unpack_from(_CAL_FMT, self._mm, CAL_OFFSET)
-            seq2, = struct.unpack_from("<Q", self._mm, CAL_OFFSET)
+            seq2 = self._w[CAL_OFFSET // 8]
             if seq1 != seq2:
                 continue
             n = max(0, min(vals[2], MAX_EXCESS_POINTS))
@@ -257,7 +271,7 @@ class TcUtilFile:
             raise IndexError(index)
         off = record_offset(index)
         for _ in range(retries):
-            seq1, = struct.unpack_from("<Q", self._mm, off)
+            seq1 = self._w[off // 8]
             if seq1 & 1:
                 time.sleep(0.0002)
                 continue
@@ -268,7 +282,7 @@ class TcUtilFile:
             procs = [ProcUtil(*struct.unpack_from(
                 _PROC_FMT, self._mm, poff + i * PROC_SIZE))
                 for i in range(count)]
-            seq2, = struct.unpack_from("<Q", self._mm, off)
+            seq2 = self._w[off // 8]
             if seq1 == seq2:
                 return DeviceUtil(timestamp_ns=ts, device_util=dev_util,
                                   procs=procs)

@@ -207,6 +207,53 @@ class VmemLedger:
                 total += e.bytes
         return total
 
+    def record_spilled(self, pid: int, host_index: int, spilled: int,
+                       owner_token: int | None = None) -> None:
+        """Set this pid's host-pool bytes on a device. One row per (pid,
+        device) holds both sides, so the reap covers both; a spill by a
+        process with no resident bytes claims a zero-byte slot."""
+        now = time.monotonic_ns()
+        token = owner_token if owner_token is not None \
+            else owner_token_from_env()
+        with self._lock:
+            for i in range(MAX_ENTRIES):
+                e = self._entry(i)
+                if e.pid == pid and e.host_index == host_index:
+                    if spilled == 0 and e.bytes == 0:
+                        self._write_entry(i, _FREE)
+                    else:
+                        e.spilled = spilled
+                        e.last_update_ns = now
+                        self._write_entry(i, e)
+                    return
+            if spilled == 0:
+                return
+            slot = self._free_slot_locked()
+            if slot is None:
+                raise RuntimeError("vmem ledger full")
+            self._write_entry(slot, VmemEntry(pid, host_index, 0, now, token,
+                                              spilled=spilled))
+
+    def node_spilled_total(self, exclude_pid: int | None = None) -> int:
+        """Live spilled bytes across the node, what the spill budget
+        bounds; dead and stale entries are reaped on the way."""
+        total = 0
+        now = time.monotonic_ns()
+        stale_ns = stale_reap_ns()
+        with self._lock:
+            for i in range(MAX_ENTRIES):
+                e = self._entry(i)
+                if e.pid == 0:
+                    continue
+                if exclude_pid is not None and e.pid == exclude_pid:
+                    continue
+                if not pid_alive(e.pid) and \
+                        now - e.last_update_ns > stale_ns:
+                    self._write_entry(i, _FREE)
+                    continue
+                total += e.spilled
+        return total
+
     def bump_activity(self, pid: int, host_index: int, n: int = 1,
                       owner_token: int | None = None) -> None:
         """A Python-side launch tick (the interposer bumps its own entry

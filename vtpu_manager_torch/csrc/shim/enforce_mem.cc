@@ -37,6 +37,36 @@
 // The view must match the cap: cuMemGetInfo_v2 reports total = cap and
 // free = cap - own - siblings, or PyTorch's caching allocator would size
 // itself against the whole card.
+//
+// The overflow tier (HBMOvercommit; library/src/enforce.cc:710-740 arming,
+// :818-840 the arm, :527 ScanLedgerSpilled, :2056-2123 the budget's
+// pre-write guard, :2225 HandleSpillDestroy). Armed when Allocate set
+// VTPU_SPILL_POOL_DIR and gave the device a virtual capacity above its
+// physical memory. A cuMemAlloc_v2 that the physical check refuses is
+// granted instead when every tenant's bytes on the device, resident and
+// spilled, stay within the virtual capacity, and the node's spilled bytes
+// (every ledger entry's `spilled`, re-read under the device lock) within
+// the node's spill budget: it is served by pinned host
+// memory (cuMemCreate with a host location) mapped into a device address
+// range reserved for it (cuMemAddressReserve, cuMemMap, cuMemSetAccess for
+// the device), so its pages live in host memory and the card reads and
+// writes them over the bus: they never take the physical memory co-tenants
+// were admitted against. The free unmaps the range (after the context's
+// work is done) and frees the address range; the mapping held the memory.
+// (Managed memory advised to prefer the host did not serve: on the H100
+// machine a cuMemAllocManaged of 1.5 GiB or more did not return.) Its
+// bytes count against the tenant's cap and go to the ledger entry's
+// `spilled`, not to the resident bytes the physical check sums; its free
+// returns both. The tier only turns
+// refusals into grants: the cap check is the one above (spilled bytes are
+// 0 while nothing overflows), and an allocation it cannot serve (over the
+// virtual capacity or the budget: vtpu_spill_rejected_total; an entry that
+// is not cuMemAlloc_v2; host memory the driver does not give) is refused
+// as before.
+// The reference demotes its coldest buffers and forwards the tenant's
+// handle to their host copies; at the driver API a tenant holds raw
+// device pointers and kernel arguments are opaque, so here the new
+// allocation is the one that spills, and no page is filled back.
 
 #include <errno.h>
 #include <fcntl.h>
@@ -67,6 +97,7 @@ namespace {
 struct Allocation {
   int slot;
   int64_t bytes;
+  bool overflow = false;  // served from host memory by the overflow tier
 };
 
 std::mutex g_mu;
@@ -77,7 +108,17 @@ int64_t g_peak[kMaxDevices] = {};
 std::unordered_map<CUdeviceptr, Allocation> g_by_ptr;
 std::unordered_map<CUmemGenericAllocationHandle, Allocation> g_by_handle;
 std::unordered_map<uintptr_t, Allocation> g_by_array;  // arrays, mipmaps
+// the overflow tier's mappings: device address -> mapped bytes (under g_mu)
+std::unordered_map<CUdeviceptr, size_t> g_host_mapped;
 std::atomic<uint64_t> g_oom_rejected{0};
+// the overflow tier's bytes per slot (under g_mu), its grants, refusals
+// and time, and the step record's window of the last two
+int64_t g_spilled[kMaxDevices] = {};
+std::atomic<uint64_t> g_spills{0};
+std::atomic<uint64_t> g_spill_rejected{0};
+std::atomic<uint64_t> g_spill_fill_ns{0};
+std::atomic<uint32_t> g_spill_window{0};
+std::atomic<uint64_t> g_spill_fill_window_ns{0};
 
 // CLIENT mode's pid set and the identity (inode, mtime, size) of the
 // pids.config it was read from.
@@ -105,6 +146,19 @@ std::string ClientPidsPath() {
 int64_t Used(int slot) {
   std::lock_guard<std::mutex> lock(g_mu);
   return g_used[slot];
+}
+
+int64_t Spilled(int slot) {
+  std::lock_guard<std::mutex> lock(g_mu);
+  return g_spilled[slot];
+}
+
+bool SpillTierArmed() {
+  static const bool armed = [] {
+    const char* d = getenv("VTPU_SPILL_POOL_DIR");
+    return d && *d;
+  }();
+  return armed;
 }
 
 // --- the node ledger ------------------------------------------------------
@@ -175,9 +229,11 @@ void ResetInChild() {
   }
   for (auto& u : g_used) u = 0;
   for (auto& u : g_peak) u = 0;
+  for (auto& u : g_spilled) u = 0;
   g_by_ptr.clear();
   g_by_handle.clear();
   g_by_array.clear();
+  g_host_mapped.clear();
 }
 
 // The Python ledger's FileLock protocol: flock on <ledger>.lock.
@@ -208,6 +264,7 @@ void ClearOwnEntries() {
     if (e.pid != me) continue;
     __atomic_store_n(&e.pid, 0, __ATOMIC_RELEASE);
     e.bytes = 0;
+    e.spilled = 0;
     e.owner_token = 0;
     e.activity = 0;
     e.last_update_ns = 0;
@@ -327,25 +384,33 @@ int FindOrClaimLocked(int host, bool claim) {
   return free_slot;
 }
 
-// Publishes this process's bytes on the slot's device (a zero entry with
-// no activity history is freed).
-void RecordOwnBytes(int slot, int64_t used) {
+// Publishes this process's resident and spilled bytes on the slot's
+// device; an entry is claimed only for bytes of either kind.
+void RecordOwnBytes(int slot) {
   const DeviceLimits* d = Dev(slot);
   MapLedgerOnce();
   if (!g_vmem || !d || g_exiting.load()) return;
+  int64_t used, spilled;
+  {
+    std::lock_guard<std::mutex> lock(g_mu);
+    used = g_used[slot];
+    spilled = g_spilled[slot];
+  }
   uint64_t mine = used > 0 ? (uint64_t)used : 0;
+  uint64_t host = spilled > 0 ? (uint64_t)spilled : 0;
   LedgerLock lock;
-  int idx = FindOrClaimLocked(d->host_index, mine > 0);
+  int idx = FindOrClaimLocked(d->host_index, mine > 0 || host > 0);
   if (idx < 0) return;
   VmemEntry& e = g_vmem->entries[idx];
   e.bytes = mine;
+  e.spilled = host;
   e.last_update_ns = NowNs();
   g_entry_idx[slot].store(idx, std::memory_order_relaxed);
 }
 
-void Record(CUdeviceptr ptr, int slot, int64_t bytes) {
+void Record(CUdeviceptr ptr, int slot, int64_t bytes, bool overflow = false) {
   std::lock_guard<std::mutex> lock(g_mu);
-  g_by_ptr[ptr] = Allocation{slot, bytes};
+  g_by_ptr[ptr] = Allocation{slot, bytes, overflow};
 }
 
 // Drops `ptr` from the ledger and returns its reservation.
@@ -358,7 +423,62 @@ void Forget(CUdeviceptr ptr) {
     a = it->second;
     g_by_ptr.erase(it);
   }
-  UnreserveMemory(a.slot, a.bytes);
+  UnreserveMemory(a.slot, a.bytes, a.overflow);
+}
+
+// Every live entry's spilled bytes, node-wide (every tenant, every
+// device): what the spill budget bounds. Entries of processes that are
+// dead and stale are skipped, as the resident scan skips them. Without a
+// ledger, this process's own.
+int64_t ScanLedgerSpilled() {
+  if (!g_vmem) {
+    std::lock_guard<std::mutex> lock(g_mu);
+    int64_t own = 0;
+    for (int64_t b : g_spilled) own += b;
+    return own;
+  }
+  int64_t total = 0;
+  uint64_t now = NowNs();
+  for (int i = 0; i < kVmemMaxEntries; i++) {
+    const VmemEntry& e = g_vmem->entries[i];
+    int pid = __atomic_load_n(&e.pid, __ATOMIC_ACQUIRE);
+    if (pid == 0) continue;
+    if (!PidAlive(pid) && now - e.last_update_ns > StaleReapNs()) continue;
+    total += (int64_t)e.spilled;
+  }
+  return total;
+}
+
+// Whether the overflow tier grants `bytes` that the physical check refused
+// (the caller holds the device lock). `card` is everything on the card,
+// resident and spilled; `servable` whether the caller's entry can be
+// served from host memory.
+bool OverflowAdmits(int slot, const DeviceLimits& d, int64_t bytes,
+                    int64_t card, bool servable) {
+  if (!SpillTierArmed() || d.virtual_memory <= d.real_memory) return false;
+  if (!servable) {
+    Log(kLogInfo, "device %d: this allocation entry cannot be served from "
+        "host memory; refused at physical", slot);
+    return false;
+  }
+  if (card + bytes > d.virtual_memory) {
+    g_spill_rejected.fetch_add(1, std::memory_order_relaxed);
+    Log(kLogInfo, "device %d: %lld bytes refused by the virtual capacity "
+        "(card %lld, virtual %lld)", slot, (long long)bytes,
+        (long long)card, (long long)d.virtual_memory);
+    return false;
+  }
+  if (d.spill_budget > 0) {
+    int64_t node = ScanLedgerSpilled();
+    if (node + bytes > d.spill_budget) {
+      g_spill_rejected.fetch_add(1, std::memory_order_relaxed);
+      Log(kLogInfo, "device %d: %lld bytes refused by the node's spill "
+          "budget (spilled %lld, budget %lld)", slot, (long long)bytes,
+          (long long)node, (long long)d.spill_budget);
+      return false;
+    }
+  }
+  return true;
 }
 
 }  // namespace
@@ -445,6 +565,8 @@ LedgerBytes ScanLedgerBytes(int slot) {
     // it is both dead here and stale
     if (!PidAlive(pid) && now - e.last_update_ns > StaleReapNs()) continue;
     (self_tenant ? out.siblings : out.others) += (int64_t)e.bytes;
+    (self_tenant ? out.siblings_spilled : out.others_spilled) +=
+        (int64_t)e.spilled;
   }
   return out;
 }
@@ -496,9 +618,11 @@ VmemEntry* OwnLedgerEntry(int slot) {
 
 // Admits `bytes` on `slot` when the tenant stays within its cap and the
 // device within its physical memory; at the cap exactly is admitted, one
-// byte over is not. The check, the charge and the ledger entry happen
-// under the device lock.
-CUresult ReserveMemory(int slot, int64_t bytes) {
+// byte over is not. Past the physical memory, the overflow tier may admit
+// it instead (`overflow`: see the top of this file). The check, the charge
+// and the ledger entry happen under the device lock.
+CUresult ReserveMemory(int slot, int64_t bytes, bool* overflow) {
+  if (overflow) *overflow = false;
   const DeviceLimits* d = Dev(slot);
   if (!d) {
     std::lock_guard<std::mutex> lock(g_mu);
@@ -508,31 +632,46 @@ CUresult ReserveMemory(int slot, int64_t bytes) {
   }
   MapLedgerOnce();
   DeviceLock device_lock(d->host_index);
-  int64_t own = Used(slot);
+  int64_t own = Used(slot) + Spilled(slot);
   LedgerBytes lb = ScanLedgerBytes(slot);
-  if (d->mem_limit > 0 && own + lb.siblings + bytes > d->mem_limit) {
+  int64_t siblings = lb.siblings + lb.siblings_spilled;
+  if (d->mem_limit > 0 && own + siblings + bytes > d->mem_limit) {
     g_oom_rejected.fetch_add(1, std::memory_order_relaxed);
     Log(kLogInfo, "device %d: %lld bytes refused by the cap (own %lld, "
         "siblings %lld, cap %lld)", slot, (long long)bytes, (long long)own,
-        (long long)lb.siblings, (long long)d->mem_limit);
+        (long long)siblings, (long long)d->mem_limit);
     return CUDA_ERROR_OUT_OF_MEMORY;
   }
-  if (d->real_memory > 0 &&
-      own + lb.siblings + lb.others + bytes > d->real_memory) {
-    g_oom_rejected.fetch_add(1, std::memory_order_relaxed);
-    Log(kLogInfo, "device %d: %lld bytes refused by physical memory "
-        "(tenant %lld, co-tenants %lld, physical %lld)", slot,
-        (long long)bytes, (long long)(own + lb.siblings),
-        (long long)lb.others, (long long)d->real_memory);
-    return CUDA_ERROR_OUT_OF_MEMORY;
+  int64_t resident = Used(slot) + lb.siblings + lb.others;
+  bool spill = false;
+  if (d->real_memory > 0 && resident + bytes > d->real_memory) {
+    spill = OverflowAdmits(slot, *d, bytes,
+                           own + siblings + lb.others + lb.others_spilled,
+                           overflow != nullptr);
+    if (!spill) {
+      g_oom_rejected.fetch_add(1, std::memory_order_relaxed);
+      Log(kLogInfo, "device %d: %lld bytes refused by physical memory "
+          "(tenant %lld, co-tenants %lld, physical %lld)", slot,
+          (long long)bytes, (long long)(resident - lb.others),
+          (long long)lb.others, (long long)d->real_memory);
+      return CUDA_ERROR_OUT_OF_MEMORY;
+    }
   }
-  int64_t now_used;
   {
     std::lock_guard<std::mutex> lock(g_mu);
-    now_used = g_used[slot] += bytes;
-    g_peak[slot] = std::max(g_peak[slot], now_used);
+    if (spill) {
+      g_spilled[slot] += bytes;
+    } else {
+      g_used[slot] += bytes;
+      g_peak[slot] = std::max(g_peak[slot], g_used[slot]);
+    }
   }
-  RecordOwnBytes(slot, now_used);
+  if (spill) {
+    *overflow = true;
+    g_spills.fetch_add(1, std::memory_order_relaxed);
+    g_spill_window.fetch_add(1, std::memory_order_relaxed);
+  }
+  RecordOwnBytes(slot);
   return CUDA_SUCCESS;
 }
 
@@ -542,13 +681,24 @@ int64_t PeakBytes(int slot) {
   return g_peak[slot];
 }
 
-void UnreserveMemory(int slot, int64_t bytes) {
-  int64_t now_used;
+void UnreserveMemory(int slot, int64_t bytes, bool overflow) {
   {
     std::lock_guard<std::mutex> lock(g_mu);
-    now_used = g_used[slot] = std::max<int64_t>(0, g_used[slot] - bytes);
+    int64_t& held = overflow ? g_spilled[slot] : g_used[slot];
+    held = std::max<int64_t>(0, held - bytes);
   }
-  if (Dev(slot)) RecordOwnBytes(slot, now_used);
+  if (Dev(slot)) RecordOwnBytes(slot);
+}
+
+SpillWindow TakeSpillWindow() {
+  SpillWindow w;
+  {
+    std::lock_guard<std::mutex> lock(g_mu);
+    for (int64_t b : g_spilled) w.spilled_bytes += b > 0 ? (uint64_t)b : 0;
+  }
+  w.spill_events = g_spill_window.exchange(0, std::memory_order_relaxed);
+  w.time_ns = g_spill_fill_window_ns.exchange(0, std::memory_order_relaxed);
+  return w;
 }
 
 }  // namespace vtpu_cuda
@@ -556,6 +706,104 @@ void UnreserveMemory(int slot, int64_t bytes) {
 using namespace vtpu_cuda;
 
 namespace {
+
+using GranularityFn = CUresult (*)(size_t*, const CUmemAllocationProp*, int);
+using ReserveFn = CUresult (*)(CUdeviceptr*, size_t, size_t, CUdeviceptr,
+                               unsigned long long);
+using MapFn = CUresult (*)(CUdeviceptr, size_t, size_t,
+                           CUmemGenericAllocationHandle, unsigned long long);
+using SetAccessFn = CUresult (*)(CUdeviceptr, size_t, const CUmemAccessDesc*,
+                                 size_t);
+using UnmapFn = CUresult (*)(CUdeviceptr, size_t);
+using AddressFreeFn = CUresult (*)(CUdeviceptr, size_t);
+using CtxSyncFn = CUresult (*)();
+
+// Serves an overflow grant from host memory: pinned host memory mapped
+// into a device range of its own, readable and writable by the calling
+// context's device (see the top of this file). The time goes to
+// vtpu_spill_fill_ns_total.
+CUresult AllocOverflow(CUdeviceptr* dptr, size_t bytes) {
+  uint64_t t0 = NowNs();
+  auto get_device = VTPU_REAL_AS(PFN_cuCtxGetDevice, "cuCtxGetDevice");
+  auto granularity = VTPU_REAL_AS(GranularityFn,
+                                  "cuMemGetAllocationGranularity");
+  auto create = VTPU_REAL(cuMemCreate);
+  auto release = VTPU_REAL(cuMemRelease);
+  auto reserve = VTPU_REAL_AS(ReserveFn, "cuMemAddressReserve");
+  auto map = VTPU_REAL_AS(MapFn, "cuMemMap");
+  auto set_access = VTPU_REAL_AS(SetAccessFn, "cuMemSetAccess");
+  auto unmap = VTPU_REAL_AS(UnmapFn, "cuMemUnmap");
+  auto address_free = VTPU_REAL_AS(AddressFreeFn, "cuMemAddressFree");
+  CUdevice dev = 0;
+  if (!dptr || !get_device || !granularity || !create || !release ||
+      !reserve || !map || !set_access || !unmap || !address_free ||
+      get_device(&dev) != CUDA_SUCCESS) {
+    Log(kLogError, "the driver cannot map host memory for the card; %zu "
+        "bytes not granted", bytes);
+    return CUDA_ERROR_OUT_OF_MEMORY;
+  }
+  CUmemAllocationProp prop = {};
+  prop.type = CU_MEM_ALLOCATION_TYPE_PINNED;
+  prop.locationType = CU_MEM_LOCATION_TYPE_HOST;
+  size_t grain = 0;
+  CUresult rc = granularity(&grain, &prop, CU_MEM_ALLOC_GRANULARITY_MINIMUM);
+  size_t size = grain ? (bytes + grain - 1) / grain * grain : bytes;
+  CUmemGenericAllocationHandle handle = 0;
+  CUdeviceptr va = 0;
+  bool reserved = false, mapped = false;
+  if (rc == CUDA_SUCCESS) rc = create(&handle, size, &prop, 0);
+  bool created = rc == CUDA_SUCCESS;
+  if (rc == CUDA_SUCCESS) rc = reserve(&va, size, 0, 0, 0);
+  reserved = created && rc == CUDA_SUCCESS;
+  if (rc == CUDA_SUCCESS) rc = map(va, size, 0, handle, 0);
+  mapped = reserved && rc == CUDA_SUCCESS;
+  if (rc == CUDA_SUCCESS) {
+    CUmemAccessDesc access = {CU_MEM_LOCATION_TYPE_DEVICE, dev,
+                              CU_MEM_ACCESS_FLAGS_PROT_READWRITE};
+    rc = set_access(va, size, &access, 1);
+  }
+  // the mapping holds the memory from here on
+  if (created) release(handle);
+  if (rc != CUDA_SUCCESS) {
+    if (mapped) unmap(va, size);
+    if (reserved) address_free(va, size);
+    Log(kLogError, "overflow of %zu bytes not served from host memory "
+        "(error %d)", bytes, rc);
+    rc = CUDA_ERROR_OUT_OF_MEMORY;
+  } else {
+    *dptr = va;
+    std::lock_guard<std::mutex> lock(g_mu);
+    g_host_mapped[va] = size;
+  }
+  uint64_t spent = NowNs() - t0;
+  g_spill_fill_ns.fetch_add(spent, std::memory_order_relaxed);
+  g_spill_fill_window_ns.fetch_add(spent, std::memory_order_relaxed);
+  if (rc == CUDA_SUCCESS)
+    Log(kLogInfo, "%zu bytes past physical memory served from host memory "
+        "(device %d)", bytes, dev);
+  return rc;
+}
+
+// Frees `ptr` when the overflow tier mapped it: once the context's work is
+// done, the range is unmapped (which frees the host memory) and its
+// address freed. False for any other pointer.
+bool FreeOverflow(CUdeviceptr ptr) {
+  size_t size = 0;
+  {
+    std::lock_guard<std::mutex> lock(g_mu);
+    auto it = g_host_mapped.find(ptr);
+    if (it == g_host_mapped.end()) return false;
+    size = it->second;
+    g_host_mapped.erase(it);
+  }
+  auto sync = VTPU_REAL_AS(CtxSyncFn, "cuCtxSynchronize");
+  if (sync) sync();
+  auto unmap = VTPU_REAL_AS(UnmapFn, "cuMemUnmap");
+  auto address_free = VTPU_REAL_AS(AddressFreeFn, "cuMemAddressFree");
+  if (unmap) unmap(ptr, size);
+  if (address_free) address_free(ptr, size);
+  return true;
+}
 
 template <typename Alloc>
 CUresult AllocateCapped(CUdeviceptr* dptr, size_t bytes, Alloc alloc) {
@@ -623,10 +871,21 @@ void ForgetArray(uintptr_t handle) {
 
 }  // namespace
 
+// The one entry the overflow tier serves: what PyTorch's caching allocator
+// (and the CUDA runtime's cudaMalloc) reach.
 VTPU_EXPORT CUresult cuMemAlloc_v2(CUdeviceptr* dptr, size_t bytes) {
   auto real = VTPU_REAL(cuMemAlloc_v2);
   if (!real) return CUDA_ERROR_NOT_INITIALIZED;
-  return AllocateCapped(dptr, bytes, [&] { return real(dptr, bytes); });
+  int slot = CurrentSlot();
+  bool overflow = false;
+  CUresult rc = ReserveMemory(slot, (int64_t)bytes, &overflow);
+  if (rc != CUDA_SUCCESS) return rc;
+  rc = overflow ? AllocOverflow(dptr, bytes) : real(dptr, bytes);
+  if (rc == CUDA_SUCCESS && dptr)
+    Record(*dptr, slot, (int64_t)bytes, overflow);
+  else
+    UnreserveMemory(slot, (int64_t)bytes, overflow);
+  return rc;
 }
 
 VTPU_EXPORT CUresult cuMemAllocAsync(CUdeviceptr* dptr, size_t bytes,
@@ -758,7 +1017,7 @@ VTPU_EXPORT CUresult cuMipmappedArrayDestroy(CUmipmappedArray array) {
 VTPU_EXPORT CUresult cuMemFree_v2(CUdeviceptr dptr) {
   auto real = VTPU_REAL(cuMemFree_v2);
   if (!real) return CUDA_ERROR_NOT_INITIALIZED;
-  CUresult rc = real(dptr);
+  CUresult rc = FreeOverflow(dptr) ? CUDA_SUCCESS : real(dptr);
   if (rc == CUDA_SUCCESS) Forget(dptr);
   return rc;
 }
@@ -766,7 +1025,7 @@ VTPU_EXPORT CUresult cuMemFree_v2(CUdeviceptr dptr) {
 VTPU_EXPORT CUresult cuMemFreeAsync(CUdeviceptr dptr, CUstream stream) {
   auto real = VTPU_REAL(cuMemFreeAsync);
   if (!real) return CUDA_ERROR_NOT_INITIALIZED;
-  CUresult rc = real(dptr, stream);
+  CUresult rc = FreeOverflow(dptr) ? CUDA_SUCCESS : real(dptr, stream);
   if (rc == CUDA_SUCCESS) Forget(dptr);
   return rc;
 }
@@ -774,7 +1033,7 @@ VTPU_EXPORT CUresult cuMemFreeAsync(CUdeviceptr dptr, CUstream stream) {
 VTPU_EXPORT CUresult cuMemFreeAsync_ptsz(CUdeviceptr dptr, CUstream stream) {
   auto real = VTPU_REAL(cuMemFreeAsync_ptsz);
   if (!real) return CUDA_ERROR_NOT_INITIALIZED;
-  CUresult rc = real(dptr, stream);
+  CUresult rc = FreeOverflow(dptr) ? CUDA_SUCCESS : real(dptr, stream);
   if (rc == CUDA_SUCCESS) Forget(dptr);
   return rc;
 }
@@ -824,7 +1083,9 @@ VTPU_EXPORT CUresult cuMemGetInfo_v2(size_t* free_bytes, size_t* total_bytes) {
   int slot = CurrentSlot();
   const DeviceLimits* d = Dev(slot);
   if (rc != CUDA_SUCCESS || !d || d->mem_limit <= 0) return rc;
-  int64_t used = Used(slot) + ScanLedgerBytes(slot).siblings;
+  LedgerBytes lb = ScanLedgerBytes(slot);
+  int64_t used = Used(slot) + Spilled(slot) + lb.siblings +
+                 lb.siblings_spilled;
   if (total_bytes) *total_bytes = (size_t)d->mem_limit;
   if (free_bytes)
     *free_bytes = std::min<size_t>(
@@ -848,4 +1109,22 @@ VTPU_EXPORT int64_t vtpu_peak_bytes(int slot) { return PeakBytes(slot); }
 
 VTPU_EXPORT uint64_t vtpu_oom_rejected_total() {
   return g_oom_rejected.load(std::memory_order_relaxed);
+}
+
+// The overflow tier: grants, refusals (over the virtual capacity or the
+// node's budget), the time spent granting, and the bytes it holds now.
+VTPU_EXPORT uint64_t vtpu_spills_total() {
+  return g_spills.load(std::memory_order_relaxed);
+}
+
+VTPU_EXPORT uint64_t vtpu_spill_rejected_total() {
+  return g_spill_rejected.load(std::memory_order_relaxed);
+}
+
+VTPU_EXPORT uint64_t vtpu_spill_fill_ns_total() {
+  return g_spill_fill_ns.load(std::memory_order_relaxed);
+}
+
+VTPU_EXPORT int64_t vtpu_spilled_bytes(int slot) {
+  return slot >= 0 && slot < kMaxDevices ? Spilled(slot) : 0;
 }

@@ -15,8 +15,10 @@
 // which both still re-read if the tick cannot start. So every tenant adopts a
 // lease, a revoke or a freeze within one quantum and one re-read, however
 // rarely it launches. The reference re-reads on its executions' path
-// (enforce.cc:2519); a launch here only reads the words the re-read
-// stores, so a launch never pays the stat. Devices are matched by host
+// (enforce.cc:2519); a launch here reads the words the re-read stores,
+// and pays the stat itself only when the tick has not re-read for two
+// quanta (a host too loaded to schedule the tick's thread), so a freeze
+// still parks every launch after its adoption deadline. Devices are matched by host
 // index and UUID, never by position. Only 4-byte ints are stored, whole
 // (SetWord), while other threads read them. A revoke clamps the bucket's
 // tokens to one window's grant at the new rate, so borrowed credit does
@@ -52,6 +54,9 @@ using namespace vtpu_abi;
 namespace {
 
 constexpr uint64_t kQuantumNs = 2'000'000;  // enforce.cc kTickSleepUs
+// the last re-read older than this: the tick is starved, and a launch
+// re-reads itself
+constexpr uint64_t kTickLateNs = 2 * kQuantumNs;
 constexpr int64_t kFreezeMaxS = 120;
 
 QuotaReloader* g_quota = nullptr;
@@ -178,6 +183,9 @@ void FreezePark(CUstream stream) {
   const Config& c = Cfg();
   if (!g_quota) return;
   StartQuotaTickOnce();
+  if (NowNs() - g_quota_last_check_ns.load(std::memory_order_relaxed) >
+      kTickLateNs)
+    MaybeAdoptQuota();
   if (Word(c.migration_freeze) == 0) return;
   uint32_t epoch = __atomic_load_n(&c.freeze_epoch, __ATOMIC_RELAXED);
   if (g_failed_open.load(std::memory_order_relaxed) == (kFailedOpen | epoch) ||

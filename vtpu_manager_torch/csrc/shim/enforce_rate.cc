@@ -1508,10 +1508,13 @@ void CloseStepLocked(uint64_t end_ns) {
   int64_t peak = PeakBytes(g_step_slot);
   // the comm block: what was moved since the last record (zeros unarmed)
   CommWindow comm = TakeCommWindow();
+  // the spill block: the overflow tier's bytes now, its grants and time
+  SpillWindow spill = TakeSpillWindow();
   g_ring->Record(g_step_start_ns,
                  end_ns > g_step_start_ns ? end_ns - g_step_start_ns : 0,
                  wait_delta, peak > 0 ? (uint64_t)peak : 0, g_step_compiled,
-                 comm.time_ns, comm.bytes, comm.collectives);
+                 comm.time_ns, comm.bytes, comm.collectives,
+                 spill.spilled_bytes, spill.spill_events, spill.time_ns);
   g_step_records.fetch_add(1, std::memory_order_relaxed);
   g_step_start_ns = 0;
   g_step_compiled = false;

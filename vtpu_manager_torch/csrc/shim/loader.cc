@@ -99,6 +99,8 @@ DeviceLimits FromFile(const VtpuDevice& d) {
   out.present = true;
   out.mem_limit = d.memory_limit ? (int64_t)d.total_memory : 0;
   out.real_memory = (int64_t)d.real_memory;
+  out.virtual_memory = (int64_t)d.virtual_hbm_bytes;
+  out.spill_budget = (int64_t)d.spill_budget_bytes;
   out.hard_core = d.hard_core;
   out.soft_core = d.soft_core;
   out.core_limit = d.core_limit;
@@ -364,10 +366,12 @@ Config& MutableCfg() {
       if (c.log_level >= kLogInfo)
         fprintf(stderr,
                 "[vtpu-cuda INFO] device[%d] from %s: host=%d cap=%lld "
-                "real=%lld core=%d..%d policy=%d\n",
+                "real=%lld virtual=%lld budget=%lld core=%d..%d "
+                "policy=%d\n",
                 i, c.from_file ? "config file" : "environment", d.host_index,
-                (long long)d.mem_limit, (long long)d.real_memory, d.hard_core,
-                d.soft_core, d.core_limit);
+                (long long)d.mem_limit, (long long)d.real_memory,
+                (long long)d.virtual_memory, (long long)d.spill_budget,
+                d.hard_core, d.soft_core, d.core_limit);
     }
     if (!c.disabled && c.device_count > 0 && (c.compat_mode & kCompatClient))
       SpawnDeviceClient(c.log_level);

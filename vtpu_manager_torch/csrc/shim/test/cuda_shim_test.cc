@@ -37,6 +37,18 @@
 //                    a SIGKILL meets it there); with SHIM_TEST_STEP_FILE,
 //                    size i > 0 first waits for <SHIM_TEST_STEP_FILE>.<i>
 //                    (the test changes the node in between)
+//   --overflow       the ops of SHIM_TEST_OPS, comma-separated: alloc:N
+//                    (cuMemAlloc), create:N (cuMemCreate), free:K (frees op
+//                    K's allocation); a VERDICT opI rc per op, and for an
+//                    alloc granted WHERE opI <host or device: the location
+//                    of the physical memory mapped there, read back through
+//                    cuMemRetainAllocationHandle and
+//                    cuMemGetAllocationPropertiesFromHandle; none when no
+//                    mapping>; then SPILL name=value ... (the
+//                    interposer's overflow tier and the fake's device and
+//                    host bytes) and HELD, holds until SHIM_TEST_HOLD_FILE
+//                    exists (SHIM_TEST_STEP_FILE as in --alloc), frees what
+//                    it holds and prints SPILL again
 //   --stress         threads allocating, freeing and launching at once: the
 //                    cap holds at every moment, the ledger drains to zero
 //                    and every launch is counted
@@ -425,6 +437,109 @@ int Alloc() {
   return 0;
 }
 
+void WaitFor(const std::string& path) {
+  struct stat st;
+  for (int waited = 0; stat(path.c_str(), &st) != 0 && waited < 60000;
+       waited += 10)
+    usleep(10000);
+}
+
+int64_t Driver(const char* name);  // a fake driver's counter (-1: none)
+
+void PrintSpill() {
+  auto counter = [](const char* name) {
+    auto fn = reinterpret_cast<int64_t (*)()>(dlsym(RTLD_DEFAULT, name));
+    return fn ? (long long)fn() : -1ll;
+  };
+  auto spilled = reinterpret_cast<int64_t (*)(int)>(
+      dlsym(RTLD_DEFAULT, "vtpu_spilled_bytes"));
+  printf("SPILL spilled=%lld spills=%lld rejected=%lld fill_ns=%lld "
+         "oom=%lld device_bytes=%lld host_bytes=%lld\n",
+         spilled ? (long long)spilled(0) : -1ll, counter("vtpu_spills_total"),
+         counter("vtpu_spill_rejected_total"),
+         counter("vtpu_spill_fill_ns_total"),
+         counter("vtpu_oom_rejected_total"),
+         (long long)Driver("fake_used_bytes"),
+         (long long)Driver("fake_host_bytes"));
+  fflush(stdout);
+}
+
+int Overflow() {
+  using RetainFn = CUresult (*)(CUmemGenericAllocationHandle*, void*);
+  using PropsFn = CUresult (*)(CUmemAllocationProp*,
+                               CUmemGenericAllocationHandle);
+  auto alloc = reinterpret_cast<AllocFn>(Proc("cuMemAlloc"));
+  auto release_ptr = reinterpret_cast<FreeFn>(Proc("cuMemFree"));
+  auto create = reinterpret_cast<CreateFn>(Proc("cuMemCreate"));
+  auto release = reinterpret_cast<ReleaseFn>(Proc("cuMemRelease"));
+  auto retain = reinterpret_cast<RetainFn>(
+      Proc("cuMemRetainAllocationHandle"));
+  auto props = reinterpret_cast<PropsFn>(
+      Proc("cuMemGetAllocationPropertiesFromHandle"));
+  if (!alloc || !release_ptr || !create || !release || !retain || !props) {
+    fprintf(stderr, "driver entry points missing\n");
+    return 2;
+  }
+  const char* raw = getenv("SHIM_TEST_OPS");
+  const char* step = getenv("SHIM_TEST_STEP_FILE");
+  std::vector<CUdeviceptr> ptrs;
+  std::vector<CUmemGenericAllocationHandle> handles;
+  int i = 0;
+  for (const char* p = raw ? raw : ""; *p; i++) {
+    if (step && i > 0) WaitFor(std::string(step) + "." + std::to_string(i));
+    const char* colon = strchr(p, ':');
+    if (!colon) return 2;
+    std::string op(p, colon - p);
+    char* end = nullptr;
+    unsigned long long n = strtoull(colon + 1, &end, 10);
+    CUresult rc = CUDA_ERROR_INVALID_VALUE;
+    CUdeviceptr ptr = 0;
+    CUmemGenericAllocationHandle handle = 0;
+    if (op == "alloc") {
+      rc = alloc(&ptr, n);
+    } else if (op == "create") {
+      CUmemAllocationProp prop = {};
+      rc = create(&handle, n, &prop, 0);
+    } else if (op == "free" && n < ptrs.size()) {
+      if (ptrs[n]) {
+        rc = release_ptr(ptrs[n]);
+        ptrs[n] = 0;
+      } else if (handles[n]) {
+        rc = release(handles[n]);
+        handles[n] = 0;
+      }
+    }
+    ptrs.push_back(rc == CUDA_SUCCESS ? ptr : 0);
+    handles.push_back(rc == CUDA_SUCCESS ? handle : 0);
+    printf("VERDICT op%d %d\n", i, rc);
+    if (ptr && rc == CUDA_SUCCESS) {
+      CUmemGenericAllocationHandle mapped = 0;
+      CUmemAllocationProp prop = {};
+      const char* where = "none";
+      if (retain(&mapped, reinterpret_cast<void*>(ptr)) == CUDA_SUCCESS) {
+        if (props(&prop, mapped) == CUDA_SUCCESS)
+          where = prop.locationType == CU_MEM_LOCATION_TYPE_HOST ? "host"
+                                                                 : "device";
+        release(mapped);
+      }
+      printf("WHERE op%d %s\n", i, where);
+    }
+    fflush(stdout);
+    p = (*end == ',') ? end + 1 : end;
+  }
+  PrintSpill();
+  printf("HELD\n");
+  fflush(stdout);
+  const char* hold = getenv("SHIM_TEST_HOLD_FILE");
+  if (hold) WaitFor(hold);
+  for (CUdeviceptr ptr : ptrs)
+    if (ptr) release_ptr(ptr);
+  for (CUmemGenericAllocationHandle h : handles)
+    if (h) release(h);
+  PrintSpill();
+  return 0;
+}
+
 // One kernel captured on kStream and instantiated: what the graph path
 // replays.
 CUgraphExec CaptureOne(CUfunction fn) {
@@ -444,8 +559,6 @@ CUgraphExec CaptureOne(CUfunction fn) {
     return nullptr;
   return exec;
 }
-
-int64_t Driver(const char* name);  // a fake driver's counter (-1: none)
 
 int ThrottleOnly() {
   const char* raw = getenv("SHIM_TEST_ITERS");
@@ -1100,13 +1213,14 @@ int main(int argc, char** argv) {
   if (strcmp(mode, "--throttle-only") == 0) return ThrottleOnly();
   if (strcmp(mode, "--stress") == 0) return Stress();
   if (strcmp(mode, "--alloc") == 0) return Alloc();
+  if (strcmp(mode, "--overflow") == 0) return Overflow();
   if (strcmp(mode, "--capture") == 0) return Capture();
   if (strcmp(mode, "--entry-caps") == 0) return EntryCaps();
   if (strcmp(mode, "--steps") == 0) return Steps();
   if (strcmp(mode, "--excess") == 0) return Excess();
   if (strcmp(mode, "--comm") == 0) return Comm();
   fprintf(stderr, "usage: %s --routes|--caps|--throttle-only|--alloc|"
-          "--stress|--capture|--entry-caps|--steps|--excess|--comm\n",
-          argv[0]);
+          "--overflow|--stress|--capture|--entry-caps|--steps|--excess|"
+          "--comm\n", argv[0]);
   return 2;
 }

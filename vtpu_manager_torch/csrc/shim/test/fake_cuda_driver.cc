@@ -5,6 +5,12 @@
 // device is free and occupies it for FAKE_EXEC_US microseconds; an event
 // completes when the device reaches it; a synchronize sleeps until the
 // device is free. Memory is bookkeeping only, against FAKE_TOTAL_MEM bytes.
+// Physical memory created with a host location (cuMemCreate) is host
+// memory: mapped into a reserved range (cuMemAddressReserve, cuMemMap,
+// cuMemSetAccess) it counts in fake_host_bytes(), never against the device;
+// a handle lives while it is created or mapped, and
+// cuMemRetainAllocationHandle / cuMemGetAllocationPropertiesFromHandle read
+// a mapping's location back.
 // Link with -Wl,-Bsymbolic so its own addresses stay its own when the
 // interposer, preloaded ahead of it, exports the same names.
 //
@@ -114,6 +120,17 @@ uint64_t g_used = 0;
 uint64_t g_next_ptr = 0x10000000;
 unsigned long long g_next_handle = 1;
 std::map<CUdeviceptr, uint64_t> g_ptrs;
+// host-located physical memory: its bytes and references (its handle and
+// each mapping); reserved ranges and what each maps, with the device that
+// may access it
+struct HostBlock {
+  uint64_t bytes = 0;
+  int refs = 0;
+};
+std::map<CUmemGenericAllocationHandle, HostBlock> g_host_blocks;
+std::map<CUdeviceptr, uint64_t> g_reserved;
+std::map<CUdeviceptr, CUmemGenericAllocationHandle> g_mapped;
+uint64_t g_host_used = 0;
 std::map<CUmemGenericAllocationHandle, uint64_t> g_handles;
 std::map<uintptr_t, uint64_t> g_arrays;  // arrays and mipmapped arrays
 uintptr_t g_next_array = 0x7000;
@@ -610,6 +627,14 @@ CUresult Alloc(CUdeviceptr* dptr, size_t bytes) {
   return CUDA_SUCCESS;
 }
 
+// One reference of a host block less; the last frees it. Holds g_mu.
+void UnrefHostLocked(CUmemGenericAllocationHandle h) {
+  auto it = g_host_blocks.find(h);
+  if (it == g_host_blocks.end() || --it->second.refs > 0) return;
+  g_host_used -= it->second.bytes;
+  g_host_blocks.erase(it);
+}
+
 CUresult Free(CUdeviceptr dptr) {
   std::lock_guard<std::mutex> lock(g_mu);
   auto it = g_ptrs.find(dptr);
@@ -1078,6 +1103,92 @@ FAKE_EXPORT CUresult cuMemAllocManaged(CUdeviceptr* dptr, size_t bytes,
   return Alloc(dptr, bytes);
 }
 
+FAKE_EXPORT CUresult cuMemGetAllocationGranularity(
+    size_t* granularity, const CUmemAllocationProp*, int) {
+  if (!granularity) return CUDA_ERROR_INVALID_VALUE;
+  *granularity = 2 << 20;
+  return CUDA_SUCCESS;
+}
+
+FAKE_EXPORT CUresult cuMemAddressReserve(CUdeviceptr* ptr, size_t size,
+                                         size_t, CUdeviceptr,
+                                         unsigned long long) {
+  if (!ptr || !size) return CUDA_ERROR_INVALID_VALUE;
+  std::lock_guard<std::mutex> lock(g_mu);
+  *ptr = g_next_ptr;
+  g_next_ptr += ((size + 255) / 256 + 1) * 256;
+  g_reserved[*ptr] = size;
+  return CUDA_SUCCESS;
+}
+
+FAKE_EXPORT CUresult cuMemAddressFree(CUdeviceptr ptr, size_t size) {
+  std::lock_guard<std::mutex> lock(g_mu);
+  auto it = g_reserved.find(ptr);
+  if (it == g_reserved.end() || it->second != size || g_mapped.count(ptr))
+    return CUDA_ERROR_INVALID_VALUE;
+  g_reserved.erase(it);
+  return CUDA_SUCCESS;
+}
+
+FAKE_EXPORT CUresult cuMemMap(CUdeviceptr ptr, size_t size, size_t,
+                              CUmemGenericAllocationHandle h,
+                              unsigned long long) {
+  std::lock_guard<std::mutex> lock(g_mu);
+  auto r = g_reserved.find(ptr);
+  auto b = g_host_blocks.find(h);
+  if (r == g_reserved.end() || r->second < size || g_mapped.count(ptr) ||
+      b == g_host_blocks.end() || b->second.bytes != size)
+    return CUDA_ERROR_INVALID_VALUE;
+  b->second.refs++;
+  g_mapped[ptr] = h;
+  return CUDA_SUCCESS;
+}
+
+FAKE_EXPORT CUresult cuMemUnmap(CUdeviceptr ptr, size_t) {
+  std::lock_guard<std::mutex> lock(g_mu);
+  auto it = g_mapped.find(ptr);
+  if (it == g_mapped.end()) return CUDA_ERROR_INVALID_VALUE;
+  UnrefHostLocked(it->second);
+  g_mapped.erase(it);
+  return CUDA_SUCCESS;
+}
+
+FAKE_EXPORT CUresult cuMemSetAccess(CUdeviceptr ptr, size_t,
+                                    const CUmemAccessDesc* desc,
+                                    size_t count) {
+  std::lock_guard<std::mutex> lock(g_mu);
+  if (!desc || !count || !g_mapped.count(ptr) ||
+      desc[0].locationType != CU_MEM_LOCATION_TYPE_DEVICE)
+    return CUDA_ERROR_INVALID_VALUE;
+  return CUDA_SUCCESS;
+}
+
+FAKE_EXPORT CUresult cuMemRetainAllocationHandle(
+    CUmemGenericAllocationHandle* h, void* addr) {
+  std::lock_guard<std::mutex> lock(g_mu);
+  auto it = g_mapped.find(reinterpret_cast<CUdeviceptr>(addr));
+  if (!h || it == g_mapped.end()) return CUDA_ERROR_INVALID_VALUE;
+  g_host_blocks[it->second].refs++;
+  *h = it->second;
+  return CUDA_SUCCESS;
+}
+
+FAKE_EXPORT CUresult cuMemGetAllocationPropertiesFromHandle(
+    CUmemAllocationProp* prop, CUmemGenericAllocationHandle h) {
+  std::lock_guard<std::mutex> lock(g_mu);
+  if (!prop) return CUDA_ERROR_INVALID_VALUE;
+  *prop = CUmemAllocationProp{};
+  prop->type = CU_MEM_ALLOCATION_TYPE_PINNED;
+  if (g_host_blocks.count(h)) {
+    prop->locationType = CU_MEM_LOCATION_TYPE_HOST;
+  } else if (g_handles.count(h)) {
+    prop->locationType = CU_MEM_LOCATION_TYPE_DEVICE;
+  } else {
+    return CUDA_ERROR_INVALID_VALUE;
+  }
+  return CUDA_SUCCESS;
+}
+
 FAKE_EXPORT CUresult cuDeviceGetDefaultMemPool(CUmemoryPool* pool,
                                                CUdevice dev) {
   *pool = reinterpret_cast<CUmemoryPool>(0x5000 + dev);
@@ -1140,9 +1251,16 @@ FAKE_EXPORT CUresult cuMemFreeAsync_ptsz(CUdeviceptr dptr, CUstream) {
 }
 
 FAKE_EXPORT CUresult cuMemCreate(CUmemGenericAllocationHandle* handle,
-                                 size_t bytes, const CUmemAllocationProp*,
+                                 size_t bytes,
+                                 const CUmemAllocationProp* prop,
                                  unsigned long long) {
   std::lock_guard<std::mutex> lock(g_mu);
+  if (prop && prop->locationType == CU_MEM_LOCATION_TYPE_HOST) {
+    *handle = g_next_handle++;
+    g_host_blocks[*handle] = HostBlock{bytes, 1};
+    g_host_used += bytes;
+    return CUDA_SUCCESS;
+  }
   if (g_used + bytes > TotalMem()) return CUDA_ERROR_OUT_OF_MEMORY;
   *handle = g_next_handle++;
   g_used += bytes;
@@ -1152,6 +1270,10 @@ FAKE_EXPORT CUresult cuMemCreate(CUmemGenericAllocationHandle* handle,
 
 FAKE_EXPORT CUresult cuMemRelease(CUmemGenericAllocationHandle handle) {
   std::lock_guard<std::mutex> lock(g_mu);
+  if (g_host_blocks.count(handle)) {
+    UnrefHostLocked(handle);
+    return CUDA_SUCCESS;
+  }
   auto it = g_handles.find(handle);
   if (it == g_handles.end()) return CUDA_ERROR_INVALID_VALUE;
   g_used -= it->second;
@@ -1207,6 +1329,16 @@ FAKE_EXPORT void* fake_real_address(const char* name) {
       {"cuGraphLaunch_ptsz", (void*)&cuGraphLaunch_ptsz},
       {"cuMemAllocPitch_v2", (void*)&cuMemAllocPitch_v2},
       {"cuMemAllocManaged", (void*)&cuMemAllocManaged},
+      {"cuMemGetAllocationGranularity",
+       (void*)&cuMemGetAllocationGranularity},
+      {"cuMemAddressReserve", (void*)&cuMemAddressReserve},
+      {"cuMemAddressFree", (void*)&cuMemAddressFree},
+      {"cuMemMap", (void*)&cuMemMap},
+      {"cuMemUnmap", (void*)&cuMemUnmap},
+      {"cuMemSetAccess", (void*)&cuMemSetAccess},
+      {"cuMemRetainAllocationHandle", (void*)&cuMemRetainAllocationHandle},
+      {"cuMemGetAllocationPropertiesFromHandle",
+       (void*)&cuMemGetAllocationPropertiesFromHandle},
       {"cuDeviceGetDefaultMemPool", (void*)&cuDeviceGetDefaultMemPool},
       {"cuMemAllocFromPoolAsync", (void*)&cuMemAllocFromPoolAsync},
       {"cuMemAllocFromPoolAsync_ptsz", (void*)&cuMemAllocFromPoolAsync_ptsz},
@@ -1334,4 +1466,9 @@ FAKE_EXPORT uint64_t fake_copies_total() {
 FAKE_EXPORT uint64_t fake_used_bytes() {
   std::lock_guard<std::mutex> lock(g_mu);
   return g_used;
+}
+
+FAKE_EXPORT uint64_t fake_host_bytes() {
+  std::lock_guard<std::mutex> lock(g_mu);
+  return g_host_used;
 }

@@ -57,8 +57,9 @@ struct StepRecord {
   uint64_t hbm_highwater_bytes;
   uint32_t flags;
   int32_t pad_;
-  // the spill block (v2) and the spill-fill time (v4): zeros until the
-  // port measures them; the comm block (v3): CommTelemetry's, else zeros
+  // the spill block (v2) and the spill-fill time (v4): the overflow
+  // tier's (the interposer serves no fill: fill_events stays 0); the comm
+  // block (v3): CommTelemetry's, else zeros
   uint64_t spilled_bytes;
   uint32_t spill_events;
   uint32_t fill_events;
@@ -134,7 +135,9 @@ class StepRingWriter {
   void Record(uint64_t start_mono_ns, uint64_t duration_ns,
               uint64_t throttle_wait_ns, uint64_t hbm_highwater_bytes,
               bool compiled, uint64_t comm_time_ns = 0,
-              uint64_t bytes_transferred = 0, uint32_t collectives = 0) {
+              uint64_t bytes_transferred = 0, uint32_t collectives = 0,
+              uint64_t spilled_bytes = 0, uint32_t spill_events = 0,
+              uint64_t spill_fill_time_ns = 0) {
     if (!mm_) return;
     uint64_t index = writes_;
     StepRecord* rec = reinterpret_cast<StepRecord*>(
@@ -153,6 +156,9 @@ class StepRingWriter {
     rec->comm_time_ns = comm_time_ns;
     rec->bytes_transferred = bytes_transferred;
     rec->collective_count = collectives;
+    rec->spilled_bytes = spilled_bytes;
+    rec->spill_events = spill_events;
+    rec->spill_fill_time_ns = spill_fill_time_ns;
     __atomic_store_n(&rec->seq, wseq + 1, __ATOMIC_RELEASE);
     writes_ = index + 1;
     __atomic_store_n(&Header()->writes, writes_, __ATOMIC_RELEASE);

@@ -39,9 +39,15 @@ inside it, `plugin.config`, for a pod whose annotations carry a trace id;
 the response carries `VTPU_TRACE_ID` and `VTPU_TRACE_SAMPLED` for such a
 pod, and for a sampled one also the node trace dir `consts.TRACE_DIR`,
 mounted read-write at the same path, where the tenant spools its own
-spans. The JAX package's other gated fields (quota market, memory over-commit, link share, comm telemetry) are not
-ported; the config fields they drive are written as the JAX package
-writes them with the gates off. Allocate fires the JAX plugin's
+spans. QuotaMarket (`vnum.py:451-461`) stamps the pod's workload class.
+HBMOvercommit (`vnum.py:358-410, 458, 496-510`) stamps each device's
+virtual capacity (its memory times the current ratio of the pod's class,
+from the node's policy; 1.0 when the policy's fold fails) and the node's
+spill budget, stamps the class too, and makes the host pool's dir under the
+ledger's host dir; only once it exists does `VTPU_SPILL_POOL_DIR` arm the
+interposer's overflow tier. The link share (ICILinkAware) is not ported;
+its config field is written as the JAX package writes it with the gate
+off. Allocate fires the JAX plugin's
 failpoints where it fires them: `plugin.allocate` inside the span, before
 the response is built; `plugin.config_write` right after `vtpu.config` is
 written (a partial-write tears it, and the crash fails the RPC: the
@@ -157,6 +163,12 @@ class VnumPlugin(DevicePluginServicer):
     cluster_cache_enabled = False            # gated: ClusterCompileCache
     comm_telemetry_enabled = False           # gated: CommTelemetry
     quota_market_enabled = False             # gated: QuotaMarket
+    hbm_overcommit_enabled = False           # gated: HBMOvercommit
+    # HBMOvercommit: the node's policy (an OvercommitPolicy) whose current
+    # per-class ratio gives each device its virtual capacity, and the
+    # node's spill budget every device entry carries
+    overcommit_policy = None
+    spill_budget_bytes = 0
 
     def __init__(self, manager: DeviceManager, client: KubeClient,
                  node_name: str, node_config: NodeConfig | None = None,
@@ -383,6 +395,26 @@ class VnumPlugin(DevicePluginServicer):
                 return chip
         return None
 
+    def spill_pool_host_dir(self) -> str:
+        return os.path.join(self.vmem_dir,
+                            os.path.relpath(consts.SPILL_DIR, consts.VMEM_DIR))
+
+    def _overcommit_ratio(self, pod: dict | None) -> float:
+        """The pod's class ratio from the node's current policy; 1.0 with
+        the gate off, and when the policy's fold fails (this allocation is
+        admitted at physical capacity, the safe direction)."""
+        if not self.hbm_overcommit_enabled or pod is None:
+            return 1.0
+        from vtpu_manager_torch.overcommit import ratio
+        oc = None
+        if self.overcommit_policy is not None:
+            try:
+                oc = self.overcommit_policy.compute()
+            except Exception:  # noqa: BLE001 - physical admission instead
+                log.warning("overcommit policy compute failed; allocating "
+                            "at physical capacity", exc_info=True)
+        return ratio.ratio_for_class(oc, quota.workload_class_of(pod))
+
     def compile_cache_host_dir(self) -> str:
         return os.path.join(self.base_dir, consts.COMPILE_CACHE_SUBDIR)
 
@@ -404,6 +436,7 @@ class VnumPlugin(DevicePluginServicer):
             str(c.host_index) for c in claims)
         resp.envs[consts.ENV_NVIDIA_VISIBLE_DEVICES] = ",".join(
             c.uuid for c in claims)
+        oc_ratio = self._overcommit_ratio(pod)
         devices = []
         for i, claim in enumerate(claims):
             if claim.memory:
@@ -421,13 +454,20 @@ class VnumPlugin(DevicePluginServicer):
             else:
                 soft, core_limit = 0, vc.CORE_LIMIT_NONE
             chip = self._chip(claim.uuid)
+            real_mem = chip.memory if chip else claim.memory
             devices.append(vc.DeviceConfig(
                 uuid=claim.uuid, total_memory=claim.memory,
-                real_memory=chip.memory if chip else claim.memory,
+                real_memory=real_mem,
                 hard_core=claim.cores, soft_core=soft, core_limit=core_limit,
                 memory_limit=claim.memory > 0, memory_oversold=oversold,
                 host_index=claim.host_index,
-                mesh=chip.coords if chip else (0, 0, 0)))
+                mesh=chip.coords if chip else (0, 0, 0),
+                # the device's virtual capacity and the node's budget
+                # (zeros with the gate off)
+                virtual_hbm_bytes=(int(real_mem * oc_ratio)
+                                   if self.hbm_overcommit_enabled else 0),
+                spill_budget_bytes=(self.spill_budget_bytes
+                                    if self.hbm_overcommit_enabled else 0)))
             node = self.manager.device_node(claim.host_index)
             resp.devices.append(api.DeviceSpec(
                 container_path=node, host_path=node, permissions="rw"))
@@ -471,7 +511,7 @@ class VnumPlugin(DevicePluginServicer):
         # the market the tenant sits (`vnum.py:451-461`); gate off: 0, the
         # bytes the config carried before the market
         wl_class = vc.WORKLOAD_CLASS_NONE
-        if self.quota_market_enabled:
+        if self.quota_market_enabled or self.hbm_overcommit_enabled:
             wl_class = quota.workload_class_abi(quota.workload_class_of(pod))
         with trace.span(ctx, "plugin.config", container=cont,
                         devices=len(devices)):
@@ -499,6 +539,17 @@ class VnumPlugin(DevicePluginServicer):
                            (consts.VMEM_DIR, self.vmem_dir)):
             resp.mounts.append(api.Mount(container_path=path, host_path=host,
                                          read_only=False))
+        if self.hbm_overcommit_enabled:
+            # the host pool lives under the ledger's dir, mounted above;
+            # the variable that arms the overflow tier only once it exists
+            pool_host = self.spill_pool_host_dir()
+            try:
+                os.makedirs(pool_host, exist_ok=True)
+                resp.envs[consts.ENV_SPILL_POOL_DIR] = consts.SPILL_DIR
+            except OSError as e:
+                log.warning("spill pool dir %s unavailable (%s); tenant "
+                            "%s/%s runs without the host overflow tier",
+                            pool_host, e, uid, cont)
         if ctx is not None and ctx.sampled:
             # the tenant's own spans spool into the node trace dir, at the
             # same path on both sides (the JAX plugin's mount)

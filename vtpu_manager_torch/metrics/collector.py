@@ -2,8 +2,7 @@
 what it uses, as Prometheus gauges.
 
 The port of the JAX package's `metrics/collector.py:19-651`, less the
-planes that are not ported (the utilization ledger, memory over-commit,
-SLO attribution). One scrape reads, all node-local:
+planes that are not ported (the utilization ledger, SLO attribution). One scrape reads, all node-local:
 each container's `vtpu.config` (its limits), the memory ledger (bytes in
 use, per process), the watcher's feed (the card's duty cycle and each
 tenant's attributed share, the calibration block), kubelet's view of who
@@ -11,7 +10,9 @@ holds devices (the pod-resources socket and the checkpoint, to flag a
 config directory kubelet does not vouch for), the step rings (per-pod
 histograms and the node's pressure; with `comm_enabled`, CommTelemetry's
 `vtpu_tenant_comm_*` families from the rings' comm block), the compile
-cache's counters, and its own duration and per-feed read errors.
+cache's counters, with `overcommit_enabled` (HBMOvercommit) the node's
+spill series (the rings' spill block and the host pool's files), and its
+own duration and per-feed read errors.
 """
 
 from __future__ import annotations
@@ -77,7 +78,9 @@ class NodeCollector:
                  vmem_path: str = consts.VMEM_NODE_CONFIG,
                  pod_resources_socket: str | None = None,
                  kubelet_checkpoint: str | None = None,
-                 comm_enabled: bool = False):
+                 comm_enabled: bool = False,
+                 overcommit_enabled: bool = False,
+                 spill_dir: str = consts.SPILL_DIR):
         self.node_name = node_name
         self.chips = chips
         self.base_dir = base_dir
@@ -109,6 +112,15 @@ class NodeCollector:
         # off renders none of them (the gate-off contract)
         self.comm_enabled = comm_enabled
         self.telemetry = TenantStepTelemetry(base_dir, comm=comm_enabled)
+        # HBMOvercommit: the node's spill series, from a fold of the rings'
+        # spill block with its own cursors and the pool dir; off renders
+        # none of them (the gate-off contract)
+        self.spill_dir = spill_dir
+        self.oc_ledger = None
+        if overcommit_enabled:
+            from vtpu_manager_torch.overcommit.ledger import OvercommitLedger
+            self.oc_ledger = OvercommitLedger(chips, base_dir=base_dir,
+                                              tc_path=tc_path)
         # per-feed last-read-error flags: a wedged file must show, not
         # serve stale gauges silently
         self._feed_errors: dict[str, float] = {
@@ -479,6 +491,40 @@ class NodeCollector:
                    g_node_assigned_pmem, g_info]
         return gauges
 
+    def _render_spill(self) -> str:
+        """The node's spill series (JAX `collector.py:580-620`): the rings'
+        spill signal and events beside the pool directory's own bytes. A
+        failed fold costs a warning, never the scrape."""
+        from vtpu_manager_torch.overcommit.spill import pool_totals
+        try:
+            self.oc_ledger.fold()
+        except Exception:  # noqa: BLE001 - the scrape goes on
+            log.warning("overcommit ledger fold failed", exc_info=True)
+        frac, ring_bytes = self.oc_ledger.node_spill_signal()
+        pool_files, pool_bytes = pool_totals(self.spill_dir)
+        node = f'node="{self.node_name}"'
+        families = (
+            ("vtpu_node_spill_step_fraction", "gauge", "Fraction of recent "
+             "steps that paid a host-tier spill or fill",
+             f"{round(frac, 4):g}"),
+            ("vtpu_node_spilled_bytes", "gauge", "Live host-pool footprint "
+             "reported by tenant step rings", ring_bytes),
+            ("vtpu_node_spill_pool_bytes", "gauge", "Bytes currently in the "
+             "node's spill pool directory", pool_bytes),
+            ("vtpu_node_spill_pool_files", "gauge", "Files currently in the "
+             "node's spill pool directory", pool_files),
+            ("vtpu_node_spill_events_total", "counter", "HBM->host "
+             "demotions observed across tenant step rings",
+             self.oc_ledger.spill_events_total),
+            ("vtpu_node_fill_events_total", "counter", "host->HBM "
+             "promotions observed across tenant step rings",
+             self.oc_ledger.fill_events_total))
+        lines = []
+        for name, kind, help_text, value in families:
+            lines += [f"# HELP {name} {help_text}", f"# TYPE {name} {kind}",
+                      f"{name}{{{node}}} {value}"]
+        return "\n".join(lines) + "\n"
+
     def render(self) -> str:
         t0 = time.perf_counter()
         text = "\n".join(g.render() for g in self.collect() if g.samples
@@ -503,6 +549,8 @@ class NodeCollector:
         text += render_node_metrics(
             os.path.join(self.base_dir, consts.COMPILE_CACHE_SUBDIR),
             self.node_name)
+        if self.oc_ledger is not None:
+            text += self._render_spill()
         # self-observability: the scrape's own duration and per-feed
         # last-error flags, rendered last so a wedged feed still reports
         self._last_scrape_s = time.perf_counter() - t0

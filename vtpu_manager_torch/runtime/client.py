@@ -198,25 +198,41 @@ def _interposer_comm_sources():
     return fns if all(fns) else None
 
 
+def _interposer_spill_fill_source():
+    """The interposer's total time in its host overflow tier
+    (`vtpu_spill_fill_ns_total`, JAX `runtime/client.py:225
+    _shim_spill_fill_source`), or None when HBMOvercommit did not arm this
+    container's pool or the interposer lacks the export: the record's
+    spill_fill_time_ns then stays 0."""
+    if not os.environ.get(consts.ENV_SPILL_POOL_DIR):
+        return None
+    return _interposer_counter("vtpu_spill_fill_ns_total")
+
+
 class _ShimWaitStepRing:
     """A StepRingWriter that charges each record the interposer's token
     wait since the previous record (`vtpu_throttle_wait_ns_total`): the
     wait hides inside the step's launches, where the step loop cannot see
     it. A caller's explicit throttle_wait_ns is kept. With CommTelemetry's
     counters (`comm_fns`), each record also gets the copies and
-    collectives the interposer measured since the previous one, as the
+    collectives the interposer measured since the previous one, and with
+    the overflow tier's (`spill_fill_fn`) the time it spent there, as the
     JAX writer charges them (`runtime/client.py:243-310`)."""
 
     __slots__ = ("ring", "_wait_total_fn", "_last_wait_ns", "_comm_fns",
-                 "_last_comm")
+                 "_last_comm", "_spill_fill_fn", "_last_spill_fill_ns")
 
-    def __init__(self, ring, wait_total_fn, comm_fns=None):
+    def __init__(self, ring, wait_total_fn, comm_fns=None,
+                 spill_fill_fn=None):
         self.ring = ring
         self._wait_total_fn = wait_total_fn
         self._last_wait_ns = int(wait_total_fn())
         self._comm_fns = comm_fns
         self._last_comm = tuple(int(fn()) for fn in comm_fns) \
             if comm_fns else (0, 0, 0)
+        self._spill_fill_fn = spill_fill_fn
+        self._last_spill_fill_ns = int(spill_fill_fn()) \
+            if spill_fill_fn else 0
 
     @property
     def writes(self) -> int:
@@ -242,11 +258,17 @@ class _ShimWaitStepRing:
             throttle_wait_ns = max(0, total - self._last_wait_ns)
             self._last_wait_ns = total
         comm_ns, comm_bytes, collectives = self._comm_deltas()
+        spill_fill_ns = 0
+        if self._spill_fill_fn is not None:
+            total = int(self._spill_fill_fn())
+            spill_fill_ns = max(0, total - self._last_spill_fill_ns)
+            self._last_spill_fill_ns = total
         self.ring.record(duration_ns, throttle_wait_ns=throttle_wait_ns,
                          hbm_highwater_bytes=hbm_highwater_bytes,
                          compiled=compiled, start_mono_ns=start_mono_ns,
                          comm_time_ns=comm_ns, bytes_transferred=comm_bytes,
-                         collective_count=collectives)
+                         collective_count=collectives,
+                         spill_fill_time_ns=spill_fill_ns)
 
     def close(self) -> None:
         self.ring.close()
@@ -293,7 +315,8 @@ def step_telemetry():
         wait_fn = _interposer_counter("vtpu_throttle_wait_ns_total")
         if wait_fn is not None:
             _step_telemetry = _ShimWaitStepRing(
-                _step_telemetry, wait_fn, comm_fns=_interposer_comm_sources())
+                _step_telemetry, wait_fn, comm_fns=_interposer_comm_sources(),
+                spill_fill_fn=_interposer_spill_fill_source())
         import atexit
         atexit.register(_step_telemetry.close)
     except (OSError, ValueError) as e:

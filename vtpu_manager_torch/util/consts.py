@@ -49,6 +49,11 @@ VMEM_DIR = "/tmp/.vmem_node"
 VMEM_NODE_CONFIG = f"{VMEM_DIR}/vmem_node.config"
 ENV_VMEM_PATH = "VTPU_VMEM_PATH"
 ENV_VMEM_STALE_S = "VTPU_VMEM_STALE_S"
+# HBMOvercommit's host pool: one node-shared dir under the ledger's (so the
+# ledger's mount carries it), whose files `overcommit/spill.py` accounts in
+# the ledger's `spilled`; the variable arms the interposer's overflow tier
+SPILL_DIR = f"{VMEM_DIR}/spill"
+ENV_SPILL_POOL_DIR = "VTPU_SPILL_POOL_DIR"
 ENV_POD_UID = "VTPU_POD_UID"
 ENV_CONTAINER_NAME = "VTPU_CONTAINER_NAME"
 
@@ -148,6 +153,13 @@ def node_pressure_annotation() -> str:
     `<throttle_frac>:<hbm_headroom>@<ts>` (telemetry/pressure.py), which
     the scheduler scores by."""
     return _ann("node-pressure")
+
+
+def node_overcommit_annotation() -> str:
+    """The node's per-class memory ratios and spill signal,
+    `<class>:<ratio>;...|<spill_frac>:<spilled_bytes>@<ts>`
+    (overcommit/ratio.py), which the scheduler admits against."""
+    return _ann("node-overcommit")
 
 
 def node_cache_keys_annotation() -> str:

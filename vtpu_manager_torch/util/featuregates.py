@@ -24,6 +24,7 @@ TRACING = "Tracing"                     # allocation-path spans
 FAULT_INJECTION = "FaultInjection"      # the failpoint registry
 CLIENT_MODE = "ClientMode"              # the registry socket's pid sets
 QUOTA_MARKET = "QuotaMarket"            # the workload class in Allocate
+HBM_OVERCOMMIT = "HBMOvercommit"        # virtual memory + the host overflow
 
 _KNOWN = {
     TC_WATCHER: False,
@@ -47,6 +48,11 @@ _KNOWN = {
     # market manager that lends between classes is a plane, not ported
     # (cmd/device_plugin.py refuses the gate on)
     QUOTA_MARKET: False,
+    # the node's policy publishes per-class ratios from the rings' memory
+    # high-waters, Allocate stamps each device's virtual capacity and the
+    # node's spill budget, and the interposer serves an allocation past
+    # the card's physical memory from host memory within both
+    HBM_OVERCOMMIT: False,
 }
 
 
