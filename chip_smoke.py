@@ -85,20 +85,32 @@ result line:
    as over the fake client. One `CLUSTER {json}` line per check;
 9. monitor (`vtpu_manager_torch/bench_monitor.py`): the port's node
    exporter (`cmd/device_monitor.py`, a subprocess on 127.0.0.1 with a
-   bearer token) reports each tenant's slice. The device plugin allocates
-   50 % / 16 GiB (one attention-kernel launch per step) and 25 % / 8 GiB,
-   both with the step ring, beside a kubelet checkpoint naming both and an
-   orphan config dir it does not name; while the two tenants run, scrapes
-   must show the card's memory and 4 slots, both tenants' limits, memory
-   in use equal to the ledger, attributed shares above 0 in quota order
-   and each within 8 points of the share of the card its steps took,
-   75 % of the cores assigned, the orphan flagged and no feed in error;
-   after they exit, each pod's step count equals its ring's records, the
-   throttle-wait fractions are above 0 in quota order and the node
-   pressure is the rings' own. The pressure annotation goes through the
+   bearer token and UtilizationLedger) reports each tenant's slice. The
+   device plugin allocates 50 % / 16 GiB (one attention-kernel launch per
+   step) and 25 % / 8 GiB, both with the step ring, and an idle pod of
+   50 % / 8 GiB that sleeps between steps (about 10 % of the card),
+   beside a kubelet checkpoint naming them and an orphan config dir it
+   does not name; while the tenants run, scrapes must show the card's
+   memory and 4 slots, the two tenants' limits, memory in use equal to
+   the ledger, attributed shares above 0 in quota order and each within 8
+   points of the share of the card its steps took, 125 % of the cores
+   assigned, the orphan flagged and no feed in error. The utilization
+   ledger (`utilization/`): each /utilization row's allocation is its
+   config's, each tenant's used core % lies within 8 points of the share
+   its steps took from the exporter's feed and again from a fold of the
+   rings alone (U1), the idle pod's reclaimable core is above the busy
+   pods' and what its row gives, the headroom annotation goes through a
+   TLS stub API server and decodes to the ledger's rollup, vtpu_smi
+   prints one row per tenant and the vtrace splice finds the idle pod;
+   /utilization answers 401 without the token. After they exit, each
+   pod's step count equals its ring's records, the throttle-wait
+   fractions are above 0 in quota order, the node pressure is the rings'
+   own, and the ledger's series equal the document's rows, each memory
+   high-water its ring's peak. The pressure annotation goes through the
    in-cluster client to a TLS stub API server and decodes to what was
    published; the reporters list 100 core devices and one per 256 MiB;
-   /healthz, /traces and /utilization (404) answer. Each tenant's share
+   /healthz and /traces answer, and an exporter with the gate off answers
+   /utilization 404 with no utilization series. Each tenant's share
    of the card lies within 5 points of its quota, and what the interposer
    charged it per step within 5 % of the step's card time alone at the
    tenant's duty (R9). F4's pair (a tenant beside a process outside the
@@ -686,9 +698,10 @@ def monitor(torch, shim: str) -> dict:
     from vtpu_manager_torch import bench_monitor as bm
 
     results = run_checks("monitor", functools.partial(bm.Phase, f4=False),
-                         torch, shim, ("setup", "running", "after",
-                                       "publish"))
+                         torch, shim, ("setup", "running", "utilization",
+                                       "after", "publish"))
     running, after = results["running"], results["after"]
+    util = results["utilization"]
     return {"mean_share": {p: running["pods"][p]["mean_share"]
                            for p in bm.PODS},
             "taken_share": {p: running["pods"][p]["taken_share"]
@@ -707,6 +720,11 @@ def monitor(torch, shim: str) -> dict:
             "wait_fraction": {p: after["pods"][p]["wait_fraction"]
                               for p in bm.PODS},
             "pressure": [after["pressure_frac"], after["pressure_headroom"]],
+            # each pod's used core % from the feed and from the rings
+            # alone, beside the share its steps took
+            "utilization": {p: {k: util["pods"][p][k] for k in (
+                "taken_share", "taken_at_duty", "used_feed", "used_rings",
+                "source_feed", "reclaimable_core_pct")} for p in bm.ALL_PODS},
             "scrape_s": results["publish"]["scrape_s"]}
 
 

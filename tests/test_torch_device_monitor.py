@@ -274,12 +274,14 @@ def test_unported_gates_exit_2(tmp_path, gate, caplog):
 
 def test_gates_the_port_knows_or_leaves_off_pass():
     spec, refused = dm.split_gates(
-        "StepTelemetry=true, UtilizationLedger=false,HealthPlane=true,"
-        "CommTelemetry=true")
+        "StepTelemetry=true, DecisionExplain=false,HealthPlane=true,"
+        "UtilizationLedger=true,CommTelemetry=true")
     assert refused == ["HealthPlane"]
-    assert spec == "StepTelemetry=true,CommTelemetry=true"
+    assert spec == "StepTelemetry=true,UtilizationLedger=true," \
+        "CommTelemetry=true"
     with pytest.raises(SystemExit):
-        dm.parse_args(["--fake-client"])
+        dm.parse_args(["--explain-dir", "/tmp"])
+    assert dm.parse_args(["--fake-client"]).fake_client
 
 
 def test_node_config_shapes_the_slots(tmp_path):

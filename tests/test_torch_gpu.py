@@ -654,6 +654,98 @@ def test_a_lease_adopted_under_graph_replays_paces_them(card, tmp_path):
                        rec["counters"])
 
 
+# --- the utilization ledger's rings-only fold (ROADMAP U1) --------------------
+
+
+@pytest.mark.gpu
+def test_a_throttled_tenants_rings_alone_read_its_share(card, tmp_path):
+    """U1's pin on the card: a hard-25 tenant of the 16384 bf16 quota step
+    under the interposer, its ring written by its Python writer. A
+    utilization ledger whose feed path names nothing folds the ring every
+    SCRAPE_GAP_S while the tenant steps; its used core % lies within
+    SHARE_BAND points of the share of the card the tenant's steps took
+    (the steps times one step's card time at 25 % duty, timed alone here
+    first, over the window)."""
+    import shutil
+    import time
+    from pathlib import Path
+    from types import SimpleNamespace
+
+    from vtpu_manager_torch import bench_monitor as bm
+    from vtpu_manager_torch import bench_quota as bq
+    from vtpu_manager_torch import build
+    from vtpu_manager_torch.bench_steps import _quota_input, _quota_step
+    from vtpu_manager_torch.telemetry.stepring import StepRingReader
+    from vtpu_manager_torch.util import consts
+    from vtpu_manager_torch.utilization import UtilizationLedger
+
+    quota = 25
+    x = _quota_input(bm.DIM, torch.device("cuda"))
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    times = []
+    for i in range(12):
+        start.record()
+        x, _ = _quota_step(x)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / 1e3)
+        time.sleep(times[-1] * (100.0 / quota - 1.0))
+    step_s = sorted(times[2:])[len(times[2:]) // 2]
+    del x
+    torch.cuda.empty_cache()
+
+    world = bq.World(str(tmp_path / "node"))
+    env = world.env(str(build.build_shim()), "uid-u1", hard_core=quota,
+                    uuid="GPU-u1", real_memory=0)
+    entry = tmp_path / "mgr" / "uid-u1_main"
+    (entry / "config").mkdir(parents=True)
+    shutil.copy(env[consts.ENV_CONFIG_PATH], entry / "config" / "vtpu.config")
+    ring = entry / consts.TELEMETRY_SUBDIR / consts.STEP_RING_NAME
+    env.update({consts.ENV_CONFIG_PATH: str(entry / "config" / "vtpu.config"),
+                consts.ENV_STEP_TELEMETRY: "true",
+                consts.ENV_STEP_RING_PATH: str(ring)})
+    files = {k: str(tmp_path / k) for k in ("go", "pause", "resume")}
+    tenant = bq.Tenant("u1", [
+        "-m", "vtpu_manager_torch.bench_monitor", "--tenant", "--dim",
+        str(bm.DIM), "--hold-mib", "64", "--go-file", files["go"],
+        "--pause-file", files["pause"], "--resume-file", files["resume"]],
+        env, str(tmp_path))
+
+    def head():
+        reader = StepRingReader(str(ring))
+        try:
+            return reader.poll(0)[1]
+        finally:
+            reader.close()
+    try:
+        tenant.line("READY", 240)
+        ledger = UtilizationLedger(
+            "n1", [SimpleNamespace(index=0, uuid="GPU-u1")],
+            base_dir=str(tmp_path / "mgr"), tc_path=str(tmp_path / "none"))
+        ledger.fold()
+        Path(files["go"]).touch()
+        time.sleep(bm.SETTLE_S)
+        h0, t0 = head(), time.monotonic()
+        ledger.fold()
+        for _ in range(bm.SCRAPES):
+            time.sleep(bm.SCRAPE_GAP_S)
+            ledger.fold()
+        h1, window_s = head(), time.monotonic() - t0
+        Path(files["pause"]).touch()
+        tenant.line("PAUSED", 60)
+        Path(files["resume"]).touch()
+        tenant.line("WORKER ", 120)
+        assert tenant.proc.wait(timeout=60) == 0
+    finally:
+        tenant.stop()
+    (row,) = ledger.tenants()
+    taken = 100.0 * (h1 - h0) * step_s / window_s
+    assert row.used_source == "ring"
+    assert abs(taken - quota) <= bm.QUOTA_BAND, (taken, h1 - h0, step_s)
+    assert abs(row.used_ewma - taken) <= bm.SHARE_BAND, (
+        row.used_ewma, taken, row.wait_frac)
+
+
 # --- HBMOvercommit's overflow tier on the card --------------------------------
 
 

@@ -58,15 +58,26 @@ def pkg(request):
 
 # --- the measurement (tests/test_obs_calibrate.py:25-102) --------------------
 
+@pytest.fixture
+def clock(pkg, monkeypatch):
+    """One fake clock for the module's sleeps and stamps and the fake
+    program's: the wall clock of a loaded host oversleeps a 5 or 9 ms
+    sleep by milliseconds, which moved the measured excess out of its
+    bounds in either package."""
+    fake = _FakeTime()
+    monkeypatch.setattr(pkg, "time", fake)
+    return fake
+
+
 class TestMeasurement:
-    def test_excess_over_b2b_floor(self, pkg):
+    def test_excess_over_b2b_floor(self, pkg, clock):
         state = {}
 
         def run_once():
-            now = time.perf_counter()
+            now = clock.perf_counter()
             gap = now - state.get("last", now) > 0.02
-            time.sleep((9 if gap else 5) / 1000.0)
-            state["last"] = time.perf_counter()
+            clock.sleep((9 if gap else 5) / 1000.0)
+            state["last"] = clock.perf_counter()
 
         table = pkg.measure_excess_table(run_once, gaps_ms=(30, 60),
                                          b2b_samples=4, gap_samples=3)
@@ -75,24 +86,24 @@ class TestMeasurement:
         assert 3500 <= gaps[30000] <= 7000
         assert 3500 <= gaps[60000] <= 7000
 
-    def test_phase_dependent_inflation_not_certified_clean(self, pkg):
+    def test_phase_dependent_inflation_not_certified_clean(self, pkg, clock):
         state = {"n": 0}
 
         def run_once():
-            now = time.perf_counter()
+            now = clock.perf_counter()
             gap = now - state.get("last", now) > 0.02
             state["n"] += 1
-            time.sleep((5 + (0 if not gap or state["n"] % 3 == 0 else 8))
-                       / 1000.0)
-            state["last"] = time.perf_counter()
+            clock.sleep((5 + (0 if not gap or state["n"] % 3 == 0 else 8))
+                        / 1000.0)
+            state["last"] = clock.perf_counter()
 
         table = pkg.measure_excess_table(run_once, gaps_ms=(30,),
                                          b2b_samples=4, gap_samples=7)
         assert table is not None
         assert 6000 <= dict(table)[30000] <= 12000
 
-    def test_clean_transport_calibrates_to_zero(self, pkg):
-        table = pkg.measure_excess_table(lambda: time.sleep(0.004),
+    def test_clean_transport_calibrates_to_zero(self, pkg, clock):
+        table = pkg.measure_excess_table(lambda: clock.sleep(0.004),
                                          gaps_ms=(30,), b2b_samples=4,
                                          gap_samples=3)
         assert table is not None and table[0] == (0, 0)

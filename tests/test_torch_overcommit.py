@@ -2,9 +2,9 @@
 
 The node half held to the JAX package on the same inputs: the overcommit
 annotation's codec (`overcommit/ratio.py`), the policy over one node's
-rings, configs and feed (`overcommit/policy.py` over the port's evidence
-fold, `overcommit/ledger.py`, against the JAX policy over its utilization
-ledger), the host pool (`overcommit/spill.py`: `tests/test_overcommit.py`'s
+rings, configs and feed (`overcommit/policy.py` over the port's
+utilization ledger, `utilization/ledger.py`, against the JAX policy over
+its own), the host pool (`overcommit/spill.py`: `tests/test_overcommit.py`'s
 TestSpillPool cases through both packages, then both pools on one
 directory and one ledger), Allocate's config bytes and environment, the
 exporter's spill series, and a pod past the node's physical memory that
@@ -43,13 +43,13 @@ from vtpu_manager_torch.config import tc_watcher, vmem
 from vtpu_manager_torch.config import vtpu_config as vc
 from vtpu_manager_torch.config.node_config import NodeConfig
 from vtpu_manager_torch.deviceplugin.vnum import VnumPlugin, device_id
-from vtpu_manager_torch.overcommit import ledger as tledger
 from vtpu_manager_torch.overcommit import policy as tpolicy
 from vtpu_manager_torch.overcommit import ratio as tratio
 from vtpu_manager_torch.overcommit import spill as tspill
 from vtpu_manager_torch.resilience import failpoints as tfp
 from vtpu_manager_torch.resilience.failpoints import CrashFailpoint
 from vtpu_manager_torch.telemetry import stepring
+from vtpu_manager_torch.utilization import ledger as tledger
 from vtpu_manager_torch.util import consts
 
 GIB = 2**30
@@ -218,7 +218,8 @@ def test_policy_equals_the_jax_policy(tmp_path, scenario, age):
     tenants = SCENARIOS[scenario]
     chips = [SimpleNamespace(index=0), SimpleNamespace(index=1)]
     theirs = UtilizationLedger("n1", chips, base_dir=base, tc_path=tc_path)
-    mine = tledger.OvercommitLedger(chips, base_dir=base, tc_path=tc_path)
+    mine = tledger.UtilizationLedger("n1", chips, base_dir=base,
+                                    tc_path=tc_path)
     for round_, (mono, wall) in enumerate(((100.0, NOW), (105.0, NOW + 5))):
         _write_node(base, tc_path, tenants, round_)
         theirs.fold(now_mono=mono, now_wall=wall)
@@ -247,8 +248,8 @@ def test_the_policy_formula_on_two_tenants(tmp_path):
     base, tc_path = str(tmp_path / "mgr"), str(tmp_path / "tc_util.config")
     tenants = [(u, vc.WORKLOAD_CLASS_NONE, 16 * GIB, [0], [2 * GIB], None)
                for u in ("a", "b")]
-    led = tledger.OvercommitLedger([SimpleNamespace(index=0)],
-                                   base_dir=base, tc_path=tc_path)
+    led = tledger.UtilizationLedger("n1", [SimpleNamespace(index=0)],
+                                    base_dir=base, tc_path=tc_path)
     for round_, (mono, wall) in enumerate(((1.0, NOW), (2.0, NOW + 1))):
         _write_node(base, tc_path, tenants, round_)
         led.fold(now_mono=mono, now_wall=wall)
@@ -264,7 +265,8 @@ def test_publisher_patches_the_node_and_reaps_the_pool(tmp_path):
     pool = tmp_path / "spill"
     pool.mkdir()
     (pool / f"{1:016x}-4000000-0-buf.spill").write_bytes(b"x" * 10)
-    led = tledger.OvercommitLedger([], base_dir=str(tmp_path / "mgr"))
+    led = tledger.UtilizationLedger("n1", [],
+                                    base_dir=str(tmp_path / "mgr"))
     pub = tpolicy.OvercommitPublisher(client, "n1",
                                       tpolicy.OvercommitPolicy(led),
                                       pool_dir=str(pool))
@@ -621,8 +623,9 @@ def test_jax_scheduler_admits_past_physical_against_the_ports_annotation(
     tenants = [(u, vc.WORKLOAD_CLASS_NONE, 16 * GIB, [chip.index],
                 [2 * GIB], None) for u in ("a", "b")]
     tc_path = str(tmp_path / "tc_util.config")
-    led = tledger.OvercommitLedger(mgr.chips, base_dir=dirs["base_dir"],
-                                   tc_path=tc_path)
+    led = tledger.UtilizationLedger("gpu-node", mgr.chips,
+                                    base_dir=dirs["base_dir"],
+                                    tc_path=tc_path)
     policy = tpolicy.OvercommitPolicy(led)
     for round_ in (0, 1):
         _write_node(dirs["base_dir"], tc_path, tenants, round_)

@@ -784,9 +784,9 @@ def test_vtrace_cli_prints_the_jax_documents(tmp_path, monkeypatch, mode):
     if mode[0] == "--pod":
         # the planes the port does not have: their keys are absent, and
         # the JAX CLI has nothing to put in them on this node
-        assert {k: jdoc.pop(k) for k in ("utilization", "placement_decision",
-                                         "slo")} == {
-            "utilization": [], "placement_decision": None, "slo": []}
+        assert {k: jdoc.pop(k) for k in ("placement_decision", "slo")} == {
+            "placement_decision": None, "slo": []}
+        assert doc["utilization"] == jdoc["utilization"] == []
         assert [r["outcome"] for r in doc["compile_cache"]] == ["miss"]
     assert doc == jdoc
 
@@ -801,7 +801,7 @@ def test_vtrace_cli_text_and_exit_codes(tmp_path, monkeypatch):
     # the timeline and the compile-cache row print as the JAX CLI prints
     assert mine.stdout.splitlines() == [
         ln for ln in theirs.stdout.splitlines()
-        if not ln.startswith(("  utilization", "  slo", "  decision"))]
+        if not ln.startswith(("  slo", "  decision"))]
     assert "compile-cache: miss" in mine.stdout
     assert _cli(PORT_VTRACE + args + ["--pod", "nobody"]).returncode == 1
     assert _cli(PORT_VTRACE + args).returncode == 2

@@ -3,12 +3,16 @@ chip_smoke.py's `monitor` phase.
 
 On a private node (`bench_allocate.Node`: NVML discovery split 4 ways, the
 interposer installed, locks, ledger and the NVML-fed watcher in
-directories of their own), the port's device plugin allocates two pods
+directories of their own), the port's device plugin allocates three pods
 with the step ring, and the port's exporter
-(`python -m vtpu_manager_torch.cmd.device_monitor`) runs as a subprocess
-on 127.0.0.1 over that node's base dir, feed, ledger and a kubelet
-checkpoint the phase writes. Its pod-resources socket names a path that
-does not exist: the card machine has no kubelet and no grpc.
+(`python -m vtpu_manager_torch.cmd.device_monitor`, with UtilizationLedger
+and `--fake-client`) runs as a subprocess on 127.0.0.1 over that node's
+base dir, feed, ledger and a kubelet checkpoint the phase writes. Its
+pod-resources socket names a path that does not exist: the card machine
+has no kubelet and no grpc. The third pod, the idle pod (`IDLE_POD`: 50 %
+and 8 GiB), runs the same step and sleeps IDLE_SLEEP_STEPS step times
+after each, so it takes about a tenth of the card; the checks of 1 and 2
+judge the other two.
 
 Checks, each a record with an `ok` verdict:
 
@@ -22,7 +26,7 @@ Checks, each a record with an `ok` verdict:
    warm up, hold `HOLD_MIB` and step. `SCRAPES` scrapes while they step:
    a scrape without the token is 401; the card's memory total is the
    registry's, 4 slots, one card, core limits 50 and 25, memory limits 16
-   and 8 GiB, 75 % of the card's cores assigned, both pods corroborated by
+   and 8 GiB, 125 % of the card's cores assigned, both pods corroborated by
    the checkpoint and the orphan flagged, the source "checkpoint", no
    feed in error; each tenant's attributed share, averaged over the
    scrapes, above 0, q50's above q25's, and within SHARE_BAND points of
@@ -40,14 +44,37 @@ Checks, each a record with an `ok` verdict:
    span. Then the tenants pause (they hold their memory and write no step
    record) and one more scrape: each tenant's memory gauge equals the sum
    of its ledger entries, read just before and just after it, and is at
-   least the held buffer;
-3. after: the tenants step `TAIL_STEPS` more and exit; a scrape then
+   least the held buffer. While the tenants step, the phase folds two
+   utilization ledgers of its own between the scrapes
+   (`utilization/ledger.py`): one over the feed and one whose feed path
+   names nothing (the rings alone). At the end of the scrapes it reads
+   /utilization with the token and without (401); after the pause the
+   headroom publisher's ledger publishes the annotation;
+3. utilization: each tenant's row (three pods and the orphan) carries its
+   config's allocation exactly; each pod's used core % lies within
+   SHARE_BAND points of the share of the card its steps took: from the
+   exporter's document (the feed) against `taken_share`, the yardstick
+   the attributed shares of 2 hold the same feed to, and from the phase's
+   rings-only fold (U1) against `taken_at_duty`, the yardstick the
+   charges are held to (a rings-only fold reads the charged card time);
+   with the source each ledger took; the idle pod's reclaimable core % is above each busy pod's and
+   within SHARE_BAND of max(0, allocated - (used + K sigma)) x confidence
+   from the row it reports (sigma from the phase's feed fold); the
+   headroom annotation, patched through the TLS stub API server, decodes
+   with `parse_headroom` to what the ledger's `headroom()` gave, at the
+   codec's rounding; `tools/vtpu_smi.py --from-file` on the document
+   prints one row per tenant; the vtrace splice
+   (`utilization_stats_for_pod`) returns the idle pod's row;
+4. after: the tenants step `TAIL_STEPS` more and exit; a scrape then
    counts, per pod, as many steps as its ring holds (at most
    RING_CAPACITY), a throttle-wait fraction above 0 with q25's above
    q50's, and the node pressure (fraction and memory headroom) that a
    `TenantStepTelemetry` over the same rings gives, scanned at the pause
-   and after the exit as the exporter was;
-4. outside: F4's pair (ROADMAP R11, F4; `F4Pair`). On a second private
+   and after the exit as the exporter was. Then, with nothing left to
+   fold, /utilization and /metrics: each tenant's `vtpu_utilization_*`
+   series equal its document row (the confidence within its decay between
+   the two reads), and each row's memory high-water is its ring's peak;
+5. outside: F4's pair (ROADMAP R11, F4; `F4Pair`). On a second private
    node of its own (so the first node's exporter counts no third pod), a
    50 % / 16 GiB pod's tenant under the interposer runs the same 16384
    bf16 step beside a process outside the interposer. The yardstick is
@@ -60,13 +87,14 @@ Checks, each a record with an `ok` verdict:
    draw and clock-event reasons per stretch. Not a check of
    chip_smoke.py's; `python -m vtpu_manager_torch.bench_monitor --f4`
    runs the phase with it and exits 1 when a check fails;
-5. publish: `PressurePublisher.publish_once` over the in-cluster client
+6. publish: `PressurePublisher.publish_once` over the in-cluster client
    patches the node annotation on `client.apistub.ApiStub` (TLS), and the
    annotation decodes with `parse_pressure` to what was published; the
    vtpu-cores reporter lists 100 devices and the vtpu-memory reporter one
-   per 256 MiB of the card's usable memory; /healthz answers `ok`,
-   /traces an empty document and /utilization 404; the scrape's own
-   duration is recorded.
+   per 256 MiB of the card's usable memory; /healthz answers `ok` and
+   /traces an empty document; a second exporter with the gate off answers
+   /utilization 404 and renders no `vtpu_utilization_*` or
+   `vtpu_reclaimable_*` series; the scrape's own duration is recorded.
 
 Run `python -m vtpu_manager_torch.bench_monitor --tenant ...` only as the
 tenant subprocess the phase starts.
@@ -95,13 +123,22 @@ GIB = 2**30
 MIB = 2**20
 # pod: (cores %, memory GiB, one attention launch per step, kubelet's slot)
 PODS = {"pod-q50": (50, 16, True, 0), "pod-q25": (25, 8, False, 1)}
+# the idle pod: its tenant sleeps IDLE_SLEEP_STEPS step times after each
+# step, so it takes 100 / (1 + IDLE_SLEEP_STEPS) % of the card
+IDLE_POD = "pod-idle"
+IDLE_SPEC = (50, 8, False, 2)
+IDLE_SLEEP_STEPS = 9
+IDLE_DUTY = 100.0 / (1 + IDLE_SLEEP_STEPS)
+ALL_PODS = {**PODS, IDLE_POD: IDLE_SPEC}
+UTIL_GATES = "UtilizationLedger=true"
 ORPHAN = ("bogus-uid", "main")
 TOKEN = "monitor-phase-token"
 HOLD_MIB = 256
 DIM = 16384          # ~15 ms a step alone: 256 records last seconds at q50
 WARMUP = 5
 TAIL_STEPS = 20
-MAX_STEPS = 240      # warm-up, running and tail stay inside one ring
+# warm-up, running and tail stay inside one ring
+MAX_STEPS = 256
 SETTLE_S = 2.0       # NVML's utilization averages over about a second
 SCRAPES = 10
 SCRAPE_GAP_S = 0.25
@@ -173,7 +210,8 @@ class Exporter:
     --feature-gates."""
 
     def __init__(self, root: Path, node: ba.Node, checkpoint: str,
-                 node_config: str, gates: str = "", tag: str = "monitor"):
+                 node_config: str, gates: str = "", tag: str = "monitor",
+                 extra: tuple = ()):
         self.token_file = root / f"{tag}-token"
         self.token_file.write_text(TOKEN + "\n")
         self.log_path = root / f"{tag}.log"
@@ -197,7 +235,7 @@ class Exporter:
              "--kubelet-checkpoint", checkpoint,
              "--pod-resources-socket", str(root / "no-kubelet.sock"),
              "--metrics-token-file", str(self.token_file),
-             "--feature-gates", gates],
+             "--feature-gates", gates, *extra],
             cwd=str(REPO), env=env, stdout=self._log,
             stderr=subprocess.STDOUT)
         self.url = self._wait_for_port()
@@ -272,6 +310,11 @@ class Phase:
         # last two scrapes were (the pause, and after the exit)
         self.rings = TenantStepTelemetry(self.node.base_dir)
         self.scrape_s: list[float] = []
+        # the phase's own utilization ledgers (check_running) and what the
+        # running stretch left for check_utilization
+        self.ledgers: dict = {}
+        self.util: dict = {}
+        self.exporter_args: tuple = ()
         self.solo_s: dict[str, float] = {}
         self.duty_s: dict[str, float] = {}
         self.again_s: dict[str, float] = {}
@@ -301,7 +344,7 @@ class Phase:
         chip, node = self.chip, self.node
         plugin = node.plugin(True)
         ids = {}
-        for pod, (cores, gib, _, slot) in PODS.items():
+        for pod, (cores, gib, _, slot) in ALL_PODS.items():
             node.client.add_pod(ba.committed_pod(pod, chip, cores, gib * GIB))
             ids[pod] = [device_id(chip.uuid, slot)]
             (self.responses[pod],) = plugin.allocate(api.AllocateRequest(
@@ -316,7 +359,7 @@ class Phase:
                 [device_id(chip.uuid, slot)])])).container_responses
         checkpoint = str(self.root / "kubelet_internal_checkpoint")
         write_checkpoint(checkpoint, [(pod_uid(p), "main", ids[p])
-                                      for p in PODS])
+                                      for p in ALL_PODS])
         vc.write_config(
             os.path.join(node.base_dir, "_".join(ORPHAN), "config",
                          "vtpu.config"),
@@ -329,8 +372,10 @@ class Phase:
         node_config.write_text(json.dumps({"default": {
             "deviceSplitCount": ba.SPLIT}}))
         t0 = time.perf_counter()
+        self.exporter_args = (checkpoint, str(node_config))
         self.exporter = Exporter(self.root, node, checkpoint,
-                                 str(node_config))
+                                 str(node_config), gates=UTIL_GATES,
+                                 extra=("--fake-client",))
         start_s = time.perf_counter() - t0
         health = self.exporter.get("/healthz", token=False)
         rec = {"exporter": self.exporter.url, "exporter_start_s": start_s,
@@ -338,7 +383,7 @@ class Phase:
                "envs": {p: {k: v for k, v in r.envs.items()
                             if k.startswith(("VTPU_", "NVIDIA"))}
                         for p, r in self.responses.items()}}
-        specs = {**PODS, OUTSIDE_POD: OUTSIDE_SPEC}
+        specs = {**ALL_PODS, OUTSIDE_POD: OUTSIDE_SPEC}
         rec["ok"] = bool(
             health == (200, "ok")
             and all(r.envs.get(consts.ENV_STEP_TELEMETRY) == "true"
@@ -398,8 +443,9 @@ class Phase:
             end.synchronize()
             return start.elapsed_time(end) / 1e3 / SOLO_STEPS
 
-        solo = {**PODS, OUTSIDE_POD: OUTSIDE_SPEC}
+        solo = {**ALL_PODS, OUTSIDE_POD: OUTSIDE_SPEC}
         for pod, (cores, _, with_attn, _) in solo.items():
+            duty = IDLE_DUTY if pod == IDLE_POD else cores
             for _ in range(2):
                 step(with_attn)
             back_to_back[pod] = run_back_to_back(with_attn)
@@ -410,7 +456,7 @@ class Phase:
                 end.record()
                 end.synchronize()
                 times.append(start.elapsed_time(end) / 1e3)
-                time.sleep(times[-1] * (100.0 / cores - 1.0))
+                time.sleep(times[-1] * (100.0 / duty - 1.0))
             at_duty[pod] = sorted(times)[len(times) // 2]
         for pod, (_, _, with_attn, _) in solo.items():
             again[pod] = run_back_to_back(with_attn)
@@ -425,7 +471,7 @@ class Phase:
     def _ring_heads(self) -> dict[str, int]:
         from vtpu_manager_torch.telemetry.stepring import StepRingReader
         heads = {}
-        for p in PODS:
+        for p in ALL_PODS:
             reader = StepRingReader(self._ring_path(p))
             try:
                 heads[p] = reader.poll(0)[1]
@@ -435,13 +481,16 @@ class Phase:
 
     def _start_tenants(self) -> None:
         go = str(self.root / "go")
-        for pod, (_, _, attn, _) in PODS.items():
+        for pod, (_, _, attn, _) in ALL_PODS.items():
             args = ["-m", "vtpu_manager_torch.bench_monitor", "--tenant",
                     "--dim", str(DIM), "--hold-mib", str(HOLD_MIB),
                     "--go-file", go, "--pause-file", str(self.root / "pause"),
                     "--resume-file", str(self.root / "resume")]
             if attn:
                 args.append("--attn")
+            if pod == IDLE_POD:
+                args += ["--sleep-ms", str(self.solo_s[pod] * 1e3
+                                           * IDLE_SLEEP_STEPS)]
             self.tenants[pod] = bq.Tenant(
                 pod, args, ba.container_env(self.responses[pod]),
                 str(self.root))
@@ -454,18 +503,24 @@ class Phase:
         self.solo_s, self.duty_s, self.again_s = self._solo_step_s()
         self._start_tenants()
         time.sleep(SETTLE_S)
+        self._make_ledgers()
         unauthorized = self.exporter.get("/metrics", token=False)[0]
         shares = {p: [] for p in PODS}
         heads0, t0 = self._ring_heads(), time.monotonic()
         for i in range(SCRAPES):
             if i:
-                time.sleep(SCRAPE_GAP_S)
+                self._fold_ledgers(SCRAPE_GAP_S)
             _, samples = self._scrape()
             for p in PODS:
                 shares[p].append(value(
                     samples, "vtpu_container_utilization_percent",
                     pod_uid=pod_uid(p), container="main"))
         heads1, window_s = self._ring_heads(), time.monotonic() - t0
+        # /utilization folds the exporter's ledger once more: two watcher
+        # ticks later, or that fold would take the last scrape's feed
+        # sample (the same tick) a second time
+        self._fold_ledgers(2 * consts.NODE_WATCHER_INTERVAL_MS / 1e3)
+        self._read_utilization(heads0, heads1, window_s)
         Path(self.root / "pause").touch()
         paused = {}
         for p, t in self.tenants.items():
@@ -474,6 +529,7 @@ class Phase:
         before = self._ledger_bytes()
         text, samples = self._scrape()
         after = self._ledger_bytes()
+        self._publish_headroom()
         self.rings.scan()
         (self.root / "scrape-paused.txt").write_text(text)
         dev = {"uuid": chip.uuid, "index": str(chip.index)}
@@ -550,7 +606,8 @@ class Phase:
             unauthorized == 401
             and rec["memory_total"] == chip.memory
             and rec["slots_total"] == ba.SPLIT and rec["chips"] == ["1"]
-            and rec["cores_assigned"] == 75
+            and rec["cores_assigned"] == sum(
+                spec[0] for spec in ALL_PODS.values())
             and rec["orphan_mismatch"] == 1.0
             and rec["mapping_source"] == 1.0
             and errors and not any(errors.values())
@@ -559,7 +616,182 @@ class Phase:
             > per_pod["pod-q25"]["mean_share"])
         return rec
 
-    # --- 3. after the tenants exit ---------------------------------------
+    def _make_ledgers(self) -> None:
+        """The phase's ledgers, each of its own: over the feed, over the
+        rings alone (a feed path that names nothing) and the headroom
+        publisher's (over the feed, as the device plugin builds it). Each
+        folds once as the scrapes begin: what the rings hold then is a
+        backlog with no window, so the first sample is a scrape gap's."""
+        from vtpu_manager_torch.utilization import UtilizationLedger
+        feed = os.path.join(self.node.watcher_dir,
+                            os.path.basename(consts.TC_UTIL_CONFIG))
+        for name, tc_path in (("feed", feed),
+                              ("rings", str(self.root / "no-feed")),
+                              ("publisher", feed)):
+            self.ledgers[name] = UtilizationLedger(
+                self.node.name, [self.chip], base_dir=self.node.base_dir,
+                tc_path=tc_path)
+            self.ledgers[name].fold()
+
+    def _fold_ledgers(self, gap_s: float) -> None:
+        """The judged ledgers fold between two scrapes, as the exporter's
+        folds at each, inside the gap `gap_s` (the folds do not lengthen
+        the running stretch); the publisher's folds when it publishes."""
+        t0 = time.monotonic()
+        for name in ("feed", "rings"):
+            self.ledgers[name].fold()
+        time.sleep(max(0.0, gap_s - (time.monotonic() - t0)))
+
+    def _read_utilization(self, heads0: dict, heads1: dict,
+                          window_s: float) -> None:
+        """At the end of the running stretch: each pod's share taken (the
+        steps its ring gained times its step at its duty, over the
+        window), the exporter's /utilization with and without the token,
+        and the phase's ledgers' rows (not folded again)."""
+        taken = {p: 100.0 * (heads1[p] - heads0[p]) * self.duty_s[p]
+                 / window_s for p in ALL_PODS}
+        taken_share = {p: 100.0 * (heads1[p] - heads0[p]) * self.solo_s[p]
+                       / window_s for p in ALL_PODS}
+        t0 = time.perf_counter()
+        status, body = self.exporter.get("/utilization")
+        utilization_s = time.perf_counter() - t0
+        unauthorized = self.exporter.get("/utilization", token=False)[0]
+        rows = {name: {(s.pod_uid, s.container): s
+                       for s in self.ledgers[name].tenants()}
+                for name in ("feed", "rings")}
+        self.util = {"taken": taken, "taken_share": taken_share,
+                     "window_s": window_s,
+                     "status": status, "body": body,
+                     "unauthorized": unauthorized,
+                     "utilization_s": utilization_s, "rows": rows}
+
+    def _publish_headroom(self) -> None:
+        """The headroom annotation, published from the publisher's ledger
+        through the in-cluster client to the TLS stub API server (after
+        the pause: the stub's start is not the running stretch's)."""
+        from vtpu_manager_torch.bench_cluster import CERTS
+        from vtpu_manager_torch.client.apistub import ApiStub
+        from vtpu_manager_torch.client.kube import InClusterClient
+        from vtpu_manager_torch.utilization import HeadroomPublisher
+        stub = ApiStub(str(CERTS / "server.crt"), str(CERTS / "server.key"),
+                       token=TOKEN)
+        stub.store.add_node({"metadata": {"name": ba.NODE,
+                                          "annotations": {}}})
+        stub.start()
+        try:
+            token = self.root / "api-token"
+            token.write_text(TOKEN)
+            client = InClusterClient(stub.url, str(token),
+                                     str(CERTS / "ca.crt"))
+            published = HeadroomPublisher(
+                client, ba.NODE, self.ledgers["publisher"]).publish_once()
+            raw = stub.store.get_node(ba.NODE)["metadata"][
+                "annotations"].get(
+                    consts.node_reclaimable_headroom_annotation())
+        finally:
+            stub.stop()
+        self.util.update(published=published, annotation=raw)
+
+    # --- 3. the utilization ledger ----------------------------------------
+
+    def check_utilization(self) -> dict:
+        import contextlib
+        import io
+        import math
+
+        from vtpu_manager_torch.tools import vtpu_smi
+        from vtpu_manager_torch.utilization import (ledger as led,
+                                                    parse_headroom,
+                                                    utilization_stats_for_pod)
+        u = self.util
+        if u.get("status") != 200:
+            return {"ok": False, "status": u.get("status"),
+                    "body": u.get("body", "")[:500]}
+        doc = json.loads(u["body"])
+        (self.root / "utilization.json").write_text(u["body"])
+        rows = {(t["pod_uid"], t["container"]): t for t in doc["tenants"]}
+        per_pod = {}
+        for p, (cores, gib, _, _) in ALL_PODS.items():
+            key = (pod_uid(p), "main")
+            row = rows.get(key, {})
+            feed, rings = u["rows"]["feed"].get(key), u["rows"]["rings"].get(
+                key)
+            r = per_pod[p] = {
+                "allocated_core_pct": row.get("allocated_core_pct"),
+                "allocated_hbm_bytes": row.get("allocated_hbm_bytes"),
+                "taken_at_duty": u["taken"][p],
+                "taken_share": u["taken_share"][p],
+                "used_feed": row.get("used_core_pct"),
+                "used_rings": round(rings.used_ewma, 2) if rings else None,
+                "source_feed": feed.used_source if feed else None,
+                "source_rings": rings.used_source if rings else None,
+                "wait_frac_rings": round(rings.wait_frac, 4)
+                if rings else None,
+                "reclaimable_core_pct": row.get("reclaimable_core_pct"),
+                "confidence": row.get("confidence"),
+                "sigma_feed": math.sqrt(max(feed.used_var, 0.0))
+                if feed else None}
+            r["ok"] = bool(
+                r["allocated_core_pct"] == cores
+                and r["allocated_hbm_bytes"] == gib * GIB
+                and r["used_feed"] is not None and r["used_rings"] is not None
+                and abs(r["used_feed"] - r["taken_share"]) <= SHARE_BAND
+                and abs(r["used_rings"] - r["taken_at_duty"]) <= SHARE_BAND
+                and r["source_rings"] == "ring")
+        orphan = rows.get(ORPHAN, {})
+        idle = per_pod[IDLE_POD]
+        expected_reclaim = None
+        if idle["used_feed"] is not None and idle["confidence"] is not None:
+            expected_reclaim = max(0.0, IDLE_SPEC[0] - (
+                idle["used_feed"] + led.BURST_SIGMA_K * idle["sigma_feed"]))                 * idle["confidence"]
+        published, raw = u["published"], u["annotation"]
+        decoded = parse_headroom(raw)
+        want = {i: (round(c.alloc_core_pct, 1), round(c.used_core_pct, 1),
+                    round(c.reclaim_core_pct, 1), c.reclaim_hbm_bytes)
+                for i, c in published.chips.items()}
+        got = ({i: (c.alloc_core_pct, c.used_core_pct, c.reclaim_core_pct,
+                    c.reclaim_hbm_bytes) for i, c in decoded.chips.items()}
+               if decoded else None)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            smi_rc = vtpu_smi.main(["--from-file",
+                                    str(self.root / "utilization.json")])
+        lines = out.getvalue().splitlines()
+        header = next((i for i, ln in enumerate(lines)
+                       if ln.startswith("POD ")), None)
+        smi_rows = len(lines) - header - 1 if header is not None else 0
+        splice = utilization_stats_for_pod(self.node.base_dir, "",
+                                           pod_uid(IDLE_POD))
+        rec = {"pods": per_pod, "orphan": orphan,
+               "tenant_rows": len(doc["tenants"]),
+               "unauthorized": u["unauthorized"],
+               "utilization_s": u["utilization_s"],
+               "expected_idle_reclaim": expected_reclaim,
+               "annotation": raw, "published": want, "decoded": got,
+               "smi_rc": smi_rc, "smi_rows": smi_rows,
+               "smi": out.getvalue()[-3000:], "splice": splice,
+               "errors": doc.get("errors")}
+        rec["ok"] = bool(
+            all(r["ok"] for r in per_pod.values())
+            and orphan.get("allocated_core_pct") == 0.0
+            and orphan.get("allocated_hbm_bytes") == GIB
+            and rec["tenant_rows"] == len(ALL_PODS) + 1
+            and u["unauthorized"] == 401 and doc.get("errors") == []
+            and all(idle["reclaimable_core_pct"]
+                    > per_pod[p]["reclaimable_core_pct"] for p in PODS)
+            and expected_reclaim is not None
+            and abs(idle["reclaimable_core_pct"] - expected_reclaim)
+            <= SHARE_BAND
+            and got is not None and got == want
+            and decoded.ts == round(published.ts, 3)
+            and smi_rc == 0 and smi_rows == rec["tenant_rows"]
+            and [r["pod_uid"] for r in splice] == [pod_uid(IDLE_POD)]
+            and splice[0]["allocated_core_pct"] == IDLE_SPEC[0]
+            and splice[0]["allocated_hbm_bytes"] == IDLE_SPEC[1] * GIB
+            and splice[0]["used_core_pct"] > 0)
+        return rec
+
+    # --- 4. after the tenants exit ---------------------------------------
 
     def check_after(self) -> dict:
         from vtpu_manager_torch.telemetry.stepring import (RING_CAPACITY,
@@ -605,15 +837,67 @@ class Phase:
                    samples, "vtpu_node_pressure_hbm_headroom_bytes"),
                "expected_frac": round(frac, 6),
                "expected_headroom": headroom}
+        rec["ledger"] = self._series_against_document()
         rec["ok"] = bool(
             all(r["ok"] for r in per_pod.values())
             and per_pod["pod-q25"]["wait_fraction"]
             > per_pod["pod-q50"]["wait_fraction"]
             and rec["pressure_frac"] == rec["expected_frac"]
-            and rec["pressure_headroom"] == headroom)
+            and rec["pressure_headroom"] == headroom
+            and rec["ledger"]["ok"])
         return rec
 
-    # --- 4. F4's pair: a tenant beside a process outside the interposer ----
+    def _series_against_document(self) -> dict:
+        """With every tenant gone (the feed drops them within its listing's
+        lag) nothing moves the exporter's ledger but the confidence's
+        decay: /utilization, then /metrics, must agree row by row, and
+        each row's high-water is its ring's peak."""
+        from vtpu_manager_torch.telemetry.stepring import StepRingReader
+        from vtpu_manager_torch.utilization import ledger as led
+        time.sleep(PAIR_SETTLE_S)
+        t0 = time.monotonic()
+        status, body = self.exporter.get("/utilization")
+        text, samples = self._scrape()
+        elapsed = time.monotonic() - t0
+        if status != 200:
+            return {"ok": False, "status": status, "body": body[:500]}
+        fields = ((led.ALLOC_CORE, "allocated_core_pct"),
+                  (led.USED_CORE, "used_core_pct"),
+                  (led.ALLOC_HBM, "allocated_hbm_bytes"),
+                  (led.HBM_HW, "hbm_highwater_bytes"),
+                  (led.WAIT_FRAC, "throttle_wait_frac"))
+        # the confidence falls 1/STALENESS_S a second, shown to 3 places
+        conf_tol = elapsed / led.STALENESS_S + 0.0011
+        rows, mismatches = json.loads(body)["tenants"], []
+        for t in rows:
+            lab = {"pod_uid": t["pod_uid"], "container": t["container"],
+                   "uuid": t["chip_uuid"]}
+            for name, key in fields:
+                if value(samples, name, **lab) != t[key]:
+                    mismatches.append([t["pod_uid"], name,
+                                       value(samples, name, **lab), t[key]])
+            conf = value(samples, led.CONFIDENCE, **lab)
+            if conf is None or abs(conf - t["confidence"]) > conf_tol:
+                mismatches.append([t["pod_uid"], led.CONFIDENCE, conf,
+                                   t["confidence"]])
+        peaks = {}
+        by_uid = {t["pod_uid"]: t for t in rows}
+        for p in ALL_PODS:
+            reader = StepRingReader(self._ring_path(p))
+            try:
+                records, _, _ = reader.poll(0)
+            finally:
+                reader.close()
+            peaks[p] = [max(r.hbm_highwater_bytes for r in records),
+                        by_uid.get(pod_uid(p), {}).get(
+                            "hbm_highwater_bytes")]
+        return {"ok": bool(len(rows) == len(ALL_PODS) + 1
+                           and not mismatches
+                           and all(a == b for a, b in peaks.values())),
+                "mismatches": mismatches, "peaks": peaks,
+                "series_rows": len(rows), "elapsed_s": elapsed}
+
+    # --- 5. F4's pair: a tenant beside a process outside the interposer ----
 
     def check_outside(self) -> dict:
         if not self.f4:
@@ -624,7 +908,7 @@ class Phase:
         rec["solo_step_ms"] = self.solo_s[OUTSIDE_POD] * 1e3
         return rec
 
-    # --- 5. the annotation, the reporters and the other routes ------------
+    # --- 6. the annotation, the reporters and the other routes ------------
 
     def check_publish(self) -> dict:
         from vtpu_manager_torch.bench_cluster import CERTS
@@ -658,6 +942,13 @@ class Phase:
         cores = VcorePlugin(self.node.manager).list_devices()
         mem = VmemPlugin(self.node.manager).list_devices()
         traces = self.exporter.get("/traces")
+        gate_off = Exporter(self.root, self.node, *self.exporter_args,
+                            tag="gate-off")
+        try:
+            off_status = gate_off.get("/utilization")[0]
+            off_text, _ = gate_off.metrics()
+        finally:
+            gate_off.close()
         rec = {"annotation": raw, "patches": patches,
                "published": [published.throttle_frac,
                              published.hbm_headroom_bytes],
@@ -667,7 +958,10 @@ class Phase:
                "usable_mib": self.chip.memory // MIB,
                "healthz": self.exporter.get("/healthz", token=False),
                "traces": traces,
-               "utilization": self.exporter.get("/utilization")[0],
+               "utilization_gate_off": off_status,
+               "series_gate_off": [ln for ln in off_text.splitlines()
+                                   if ln.startswith(("vtpu_utilization_",
+                                                     "vtpu_reclaimable_"))],
                "scrape_s": self.scrape_s}
         rec["ok"] = bool(
             got is not None and "PATCH" in patches
@@ -679,7 +973,8 @@ class Phase:
             and traces[0] == 200 and json.loads(traces[1]) == {
                 "pods": [], "timelines": [], "outliers": [],
                 "spool_drops": 0}
-            and rec["utilization"] == 404)
+            and rec["utilization_gate_off"] == 404
+            and rec["series_gate_off"] == [])
         return rec
 
 
@@ -728,6 +1023,7 @@ def _tenant(args) -> None:
     while steps < args.max_steps - TAIL_STEPS and not os.path.exists(
             args.pause_file):
         step()
+        time.sleep(args.sleep_ms / 1e3)
     print("PAUSED " + json.dumps({
         "records": steps, "run_steps": steps - steps0,
         "charged_ns": charged() - charged0}), flush=True)
@@ -1004,6 +1300,9 @@ def main(argv=None) -> int:
     ap.add_argument("--pause-file")
     ap.add_argument("--resume-file")
     ap.add_argument("--max-steps", type=int, default=MAX_STEPS)
+    ap.add_argument("--sleep-ms", type=float, default=0.0,
+                    help="host idle after each step of the running stretch "
+                    "(the idle pod)")
     ap.add_argument("--pair-worker", action="store_true",
                     help="one process of F4's pair, on stdin's commands")
     ap.add_argument("--f4", action="store_true",
@@ -1037,7 +1336,8 @@ def _f4_phase() -> int:
     with tempfile.TemporaryDirectory(prefix="vtpu-node-") as root:
         phase = Phase(torch, shim, root)
         try:
-            for name in ("setup", "running", "after", "outside", "publish"):
+            for name in ("setup", "running", "utilization", "after",
+                         "outside", "publish"):
                 rec = getattr(phase, f"check_{name}")()
                 ok &= bool(rec["ok"])
                 print("MONITOR " + json.dumps({"check": name, **rec},

@@ -26,7 +26,8 @@ Checks, each a record with an `ok` verdict:
    (`vtpu_obs_excess_at_us`: adopted); its ring (written by the
    interposer) holds one record per step (one more or less at the ends),
    with the median record within DURATION_REL of the tenant's own median
-   step, throttle waits that add up to the interposer's counter and
+   step, waits that add up to the interposer's step-wait counter
+   (`vtpu_step_wait_ns_total`: each step's time off the card) and
    `compiled` only on the first steps; the exporter's fold counts the
    ring's records as the tenant's steps; and the tenant's share of the
    card (the step alone, timed by the phase before it went, over its step
@@ -264,7 +265,8 @@ class Phase:
                "median_wall_ms": med_wall / 1e6,
                "duration_rel": med_rec / med_wall - 1.0,
                "wait_sum_ns": sum(r.throttle_wait_ns for r in recs),
-               "wait_counter_ns": worker["vtpu_throttle_wait_ns_total"],
+               "wait_counter_ns": worker["vtpu_step_wait_ns_total"],
+               "throttle_wait_ns": worker["vtpu_throttle_wait_ns_total"],
                "compiled": compiled, "hbm_highwater": [
                    recs[0].hbm_highwater_bytes, recs[-1].hbm_highwater_bytes]
                if recs else None,

@@ -14,8 +14,7 @@ that subprocess only):
 - memory cap: under a 64 MiB cap the card must report a 64 MiB total and
   a 256 MiB tensor must fail with torch.cuda.OutOfMemoryError;
 - fake sweep: the same quotas against the fake driver, with no card,
-  unpaired (`run_fake_sweep`) or paired as the card's sweep is
-  (`paired_fake_sweep`);
+  paired as the card's sweep is (`paired_fake_sweep`);
 - co-tenancy (`World`, `run_tenants`): tenants that each read their limits
   from their own `vtpu.config` (`tenant_config`, fields as the device
   plugin writes them, `deviceplugin/vnum.py:370-399`) and share one memory
@@ -318,23 +317,6 @@ def run_fake_harness(mode: str, timeout: float = 120, **extra) -> dict:
             **parse_harness(res.stdout)}
 
 
-def run_fake_sweep(iters: int = 100, exec_us: int = 2000,
-                   quotas=QUOTAS, launch: str = "kernel"
-                   ) -> dict[int, float] | None:
-    """ms per launch+synchronize step at each quota, against the fake
-    driver: the interposer's pacing with no card and no host noise.
-    `launch` is the harness's launch path: kernel, graph or coop."""
-    out: dict[int, float] = {}
-    for quota in quotas:
-        res = run_fake_harness(
-            "--throttle-only", VTPU_CORE_LIMIT_0=quota if quota < 100 else 0,
-            FAKE_EXEC_US=exec_us, SHIM_TEST_ITERS=iters,
-            SHIM_TEST_LAUNCH=launch)
-        if "wall_ms" in res:
-            out[quota] = res["wall_ms"] / iters
-    return out if len(out) == len(quotas) else None
-
-
 def paired_fake_sweep(**env) -> tuple[dict[int, float],
                                       dict[int, float]] | None:
     """(ms/step, share %) per quota against the fake driver, paired as the
@@ -373,6 +355,8 @@ COUNTERS = ("vtpu_launches_total", "vtpu_sampled_launches_total",
             # and the time launches parked under a migration freeze
             "vtpu_quota_reloads_total", "vtpu_quota_epoch",
             "vtpu_freeze_wait_ns_total",
+            # the part of the throttle wait the interposer's ring took
+            "vtpu_step_wait_ns_total",
             # HBMOvercommit's overflow tier: grants, refusals, time
             "vtpu_spills_total", "vtpu_spill_rejected_total",
             "vtpu_spill_fill_ns_total")

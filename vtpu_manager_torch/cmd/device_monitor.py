@@ -4,6 +4,7 @@ Prometheus metrics.
     python -m vtpu_manager_torch.cmd.device_monitor --node-name n1 \\
         [--port 9394] [--metrics-token-file <file>] [--fake-chips 1]
         [--feature-gates CommTelemetry=true,HBMOvercommit=true]
+        [--feature-gates UtilizationLedger=true [--fake-client]]
 
 The port of the JAX package's `cmd/device_monitor.py`, served over the
 standard library (`http.server.ThreadingHTTPServer`; the card machine has
@@ -15,6 +16,14 @@ no aiohttp, grpc or protobuf):
 - `/traces`: the spools assembled into per-pod timelines, or one pod's
   timeline and critical path with `?pod=<uid or trace id>`;
 - `/healthz`: `ok`;
+- `/utilization` with UtilizationLedger: the cluster rollup
+  (`utilization/rollup.ClusterRollup` over the collector's ledger, JAX
+  `cmd/device_monitor.py:249-275, 389-412, 610`), behind the same token as
+  `/metrics`; `?node=` and `?pod=` cut it (`filter_document`), and a
+  rollup that fails answers 503 with the error, never an empty document.
+  The cluster comes from the in-cluster API client, or from an in-memory
+  one with `--fake-client`; without either the document is this node's
+  cut. With the gate off there is no route (404);
 - `/debug/stacks` with `--debug-endpoints`: every thread's stack
   (`util/debug.format_stacks`), behind the same token as `/metrics`;
 - `/cache/entry?key=<64 hex>` with ClusterCompileCache: the raw entry
@@ -25,6 +34,9 @@ no aiohttp, grpc or protobuf):
   missing entry 404, and a corrupt one is quarantined and gets 404. With
   the gate off there is no route (404).
 
+UtilizationLedger renders each tenant's `vtpu_utilization_*` and each
+chip's `vtpu_reclaimable_*` families from a budgeted fold of the
+utilization ledger (JAX `metrics/collector.py:121-145, 563-580`).
 CommTelemetry renders the tenants' `vtpu_tenant_comm_*` families from
 the step rings' comm block (JAX `metrics/collector.py:78, 111-115`).
 HBMOvercommit renders the node's spill series (`vtpu_node_spill_*`, JAX
@@ -35,7 +47,7 @@ FaultInjection arms the failpoint registry from `VTPU_FAILPOINTS` (seed
 `VTPU_FAILPOINTS_SEED`), as the JAX monitor does; a malformed spec exits
 2.
 
-With `--metrics-token-file`, `/metrics` and `/traces` want
+With `--metrics-token-file`, `/metrics`, `/traces` and `/utilization` want
 `Authorization: Bearer <token>`; the file is read again on every request
 (a rotated secret takes effect at once), and an empty file refuses to
 start. Discovery is NVML's, or `--fake-chips N` synthetic H100s, shaped
@@ -65,11 +77,9 @@ from urllib.parse import parse_qs, urlsplit
 # JAX flags of parts not ported yet: refused when given
 NOT_PORTED_FLAGS = {
     "--explain-dir": "the decision-explain spools (DecisionExplain)",
-    "--fake-client": "the cluster fan-ins (/utilization, /explain)",
 }
 # JAX gates of planes not ported yet: refused when set true
 NOT_PORTED_GATES = {
-    "UtilizationLedger": "the utilization ledger and /utilization",
     "DecisionExplain": "the decision audit and /explain",
     "SLOAttribution": "SLO attribution and /slo",
     "SLOAutopilot": "the SLO autopilot and /autopilot",
@@ -108,9 +118,12 @@ def parse_args(argv: list[str] | None) -> argparse.Namespace:
     ap.add_argument("--feature-gates", default="")
     ap.add_argument("--metrics-token-file", default=None,
                     help="require 'Authorization: Bearer <token>' on "
-                    "/metrics and /traces, the token read from this file")
+                    "/metrics, /traces and /utilization, the token read "
+                    "from this file")
     ap.add_argument("--explain-dir", default=None)
-    ap.add_argument("--fake-client", action="store_true")
+    ap.add_argument("--fake-client", action="store_true",
+                    help="back the /utilization fan-in with an in-memory "
+                    "API client (tests and demos)")
     ap.add_argument("--debug-endpoints", action="store_true")
     ap.add_argument("-v", "--verbose", action="count", default=0)
     args = ap.parse_args(argv)
@@ -134,9 +147,11 @@ def split_gates(spec: str) -> tuple[str, list[str]]:
     return ",".join(kept), refused
 
 
-def make_handler(collector, args, read_token, cache_root: str | None = None):
+def make_handler(collector, args, read_token, cache_root: str | None = None,
+                 rollup=None):
     """The request handler; `cache_root` (ClusterCompileCache) serves
-    /cache/entry from that store."""
+    /cache/entry from that store, `rollup` (UtilizationLedger)
+    /utilization."""
     from vtpu_manager_torch.resilience.policy import render_resilience_metrics
     from vtpu_manager_torch.trace import assemble
     from vtpu_manager_torch.trace.metrics import render_trace_metrics
@@ -153,6 +168,18 @@ def make_handler(collector, args, read_token, cache_root: str | None = None):
             reap_stale_spools(args.trace_spool_dir)
             text += render_trace_metrics(args.trace_spool_dir)
         return text + render_resilience_metrics() + "\n"
+
+    def utilization_doc(query: dict) -> tuple[int, dict]:
+        from vtpu_manager_torch.utilization.rollup import filter_document
+        try:
+            # the collect folds the collector's ledger: one at a time
+            with scrape_lock:
+                doc = rollup.collect()
+        except Exception as e:  # noqa: BLE001 - a failed fan-in is said
+            log.warning("utilization rollup failed: %s", e)
+            return 503, {"error": f"utilization rollup failed: {e}"}
+        return 200, filter_document(doc, node=query.get("node", [""])[0],
+                                    pod=query.get("pod", [""])[0])
 
     def traces_doc(pod: str) -> tuple[int, dict]:
         reap_stale_spools(args.trace_spool_dir)
@@ -204,6 +231,11 @@ def make_handler(collector, args, read_token, cache_root: str | None = None):
                     else:
                         pod = parse_qs(url.query).get("pod", [""])[0]
                         self._json(*traces_doc(pod))
+                elif url.path == "/utilization" and rollup is not None:
+                    if not self._authorized():
+                        self._json(401, {"error": "unauthorized"})
+                    else:
+                        self._json(*utilization_doc(parse_qs(url.query)))
                 elif url.path == "/cache/entry" and cache_root is not None:
                     self._cache_entry(parse_qs(url.query).get("key",
                                                               [""])[0])
@@ -242,6 +274,21 @@ def make_handler(collector, args, read_token, cache_root: str | None = None):
             log.debug("%s " + fmt, self.address_string(), *a)
 
     return Handler
+
+
+def fan_client(args):
+    """The /utilization fan-in's API client: in memory with
+    `--fake-client`, else the pod's service account; None (the node-local
+    cut) outside a cluster."""
+    if args.fake_client:
+        from vtpu_manager_torch.client.fake import FakeKubeClient
+        return FakeKubeClient(upsert_on_patch=True)
+    from vtpu_manager_torch.client.kube import in_cluster_client
+    client = in_cluster_client()
+    if client is None:
+        log.warning("no in-cluster client; /utilization serves the "
+                    "node-local cut only")
+    return client
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -293,6 +340,9 @@ def main(argv: list[str] | None = None) -> int:
     chips = shape_chips(result.chips if result else [],
                         load_node_config(args.node_config, node_name),
                         node_name)
+    spill_dir = os.path.join(os.path.dirname(args.vmem_path),
+                             os.path.relpath(consts.SPILL_DIR,
+                                             consts.VMEM_DIR))
     collector = NodeCollector(
         node_name, chips, base_dir=args.base_dir,
         tc_path=args.tc_path, vmem_path=args.vmem_path,
@@ -300,14 +350,25 @@ def main(argv: list[str] | None = None) -> int:
         kubelet_checkpoint=args.kubelet_checkpoint,
         comm_enabled=gates.enabled(fg.COMM_TELEMETRY),
         overcommit_enabled=gates.enabled(fg.HBM_OVERCOMMIT),
-        spill_dir=os.path.join(os.path.dirname(args.vmem_path),
-                               os.path.relpath(consts.SPILL_DIR,
-                                               consts.VMEM_DIR)))
+        spill_dir=spill_dir,
+        utilization_enabled=gates.enabled(fg.UTILIZATION_LEDGER))
     cache_root = (os.path.join(args.base_dir, consts.COMPILE_CACHE_SUBDIR)
                   if gates.enabled(fg.CLUSTER_COMPILE_CACHE) else None)
+    rollup = None
+    if gates.enabled(fg.UTILIZATION_LEDGER):
+        from vtpu_manager_torch.utilization.rollup import ClusterRollup
+        rollup = ClusterRollup(
+            collector.util_ledger, client=fan_client(args),
+            cache_root=os.path.join(args.base_dir,
+                                    consts.COMPILE_CACHE_SUBDIR),
+            fold_budget_s=collector.util_fold_budget_s,
+            overcommit=gates.enabled(fg.HBM_OVERCOMMIT),
+            cluster_cache=gates.enabled(fg.CLUSTER_COMPILE_CACHE),
+            comm=gates.enabled(fg.COMM_TELEMETRY),
+            vmem_path=args.vmem_path, spill_dir=spill_dir)
     server = ThreadingHTTPServer(
         (args.host, args.port),
-        make_handler(collector, args, read_token, cache_root))
+        make_handler(collector, args, read_token, cache_root, rollup))
     server.daemon_threads = True
     stop = threading.Event()
     for sig in (signal.SIGTERM, signal.SIGINT):

@@ -11,6 +11,7 @@
         [--feature-gates ClientMode=true --registry-socket <path>]
         [--feature-gates FaultInjection=true] [--metrics-port 9395]
         [--feature-gates HBMOvercommit=true --spill-budget-gib 16]
+        [--feature-gates UtilizationLedger=true]
 
 The port of the JAX package's `cmd/device_plugin.py:108-290`, the parts
 ported so far: discovery (NVML, or `--fake-chips N` synthetic H100s), the
@@ -44,7 +45,12 @@ malformed spec exits 2) and memory over-commit (HBMOvercommit: Allocate
 stamps each device's virtual capacity from the node's policy and the
 `--spill-budget-gib` budget and arms the host pool under the ledger's
 directory, and this agent publishes the policy's per-class ratios in the
-node's overcommit annotation every 15 s). `--metrics-port` serves this process's
+node's overcommit annotation every 15 s) and the utilization ledger
+(UtilizationLedger: every 15 s this agent folds a utilization ledger of
+its own and patches the node's reclaimable-headroom annotation,
+`utilization/ledger.HeadroomPublisher`, JAX `cmd/device_plugin.py:532-547`;
+the overcommit policy folds another, so no two consumers share a fold's
+cursors). `--metrics-port` serves this process's
 resilience counters (retries, breakers, failpoint fires) on `/metrics`
 and answers 404 on any other path; 0, the default, serves nothing.
 
@@ -209,21 +215,41 @@ def start_overcommit(vnum, client, node_name: str, chips: list,
     ratio and the node's spill budget and arms the host pool, and this
     agent, the owner of the node's annotations, publishes the policy's
     rollup every `interval_s`, reaping the pool's files of dead spillers
-    first. The policy folds its own evidence (its own cursors). Returns the
-    started publisher; the caller stops it."""
-    from vtpu_manager_torch.overcommit.ledger import OvercommitLedger
+    first. The policy folds a utilization ledger of its own (its own
+    cursors). Returns the started publisher; the caller stops it."""
     from vtpu_manager_torch.overcommit.policy import (OvercommitPolicy,
                                                       OvercommitPublisher)
+    from vtpu_manager_torch.utilization import UtilizationLedger
     vnum.hbm_overcommit_enabled = True
     vnum.spill_budget_bytes = int(budget_gib * 2**30)
     vnum.overcommit_policy = OvercommitPolicy(
-        OvercommitLedger(chips, base_dir=base_dir, tc_path=tc_path))
+        UtilizationLedger(node_name, chips, base_dir=base_dir,
+                          tc_path=tc_path))
     publisher = OvercommitPublisher(client, node_name, vnum.overcommit_policy,
                                     interval_s=interval_s,
                                     pool_dir=vnum.spill_pool_host_dir())
     publisher.start()
     logging.getLogger("vtpu-device-plugin").info(
         "overcommit policy publisher running (budget %.1f GiB)", budget_gib)
+    return publisher
+
+
+def start_headroom(client, node_name: str, chips: list, base_dir: str,
+                   tc_path: str, interval_s: float = 15.0):
+    """UtilizationLedger's node half (JAX `cmd/device_plugin.py:532-547`):
+    this agent, the owner of the node's annotations, folds a utilization
+    ledger of its own and publishes its reclaimable headroom every
+    `interval_s`. Returns the started publisher; the caller stops it."""
+    from vtpu_manager_torch.utilization import (HeadroomPublisher,
+                                                UtilizationLedger)
+    publisher = HeadroomPublisher(
+        client, node_name,
+        UtilizationLedger(node_name, chips, base_dir=base_dir,
+                          tc_path=tc_path),
+        interval_s=interval_s)
+    publisher.start()
+    logging.getLogger("vtpu-device-plugin").info(
+        "utilization headroom publisher running")
     return publisher
 
 
@@ -461,6 +487,14 @@ def main(argv: list[str] | None = None) -> int:
         pressure.start()
         log.info("step-telemetry pressure publisher running")
 
+    headroom = None
+    if gates.enabled(fg.UTILIZATION_LEDGER):
+        from vtpu_manager_torch.util import consts
+        headroom = start_headroom(
+            client, args.node_name, chips, args.base_dir,
+            os.path.join(args.watcher_dir,
+                         os.path.basename(consts.TC_UTIL_CONFIG)))
+
     overcommit = None
     if gates.enabled(fg.HBM_OVERCOMMIT):
         from vtpu_manager_torch.util import consts
@@ -508,6 +542,8 @@ def main(argv: list[str] | None = None) -> int:
         watcher.stop()
     if pressure is not None:
         pressure.stop()
+    if headroom is not None:
+        headroom.stop()
     if overcommit is not None:
         overcommit.stop()
     if advertiser is not None:

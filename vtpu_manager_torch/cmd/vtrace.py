@@ -12,10 +12,12 @@ per-pod timelines and prints where the time from admission to the first
 step went: each stage's duration and the gaps between stages (queueing,
 kubelet's own work, a container's start), which are usually the finding.
 Under a pod's timeline come its step rings' statistics (`--steps-dir`,
-the containers' config root), its compile-cache outcomes and the
-scheduler's headroom events. The JAX report's utilization, SLO and
-placement-decision rows belong to planes the port does not have; their
-keys are absent from `--json`, and `--explain-dir` is refused.
+the containers' config root), its compile-cache outcomes, its used
+against allocated share off the same rings and configs
+(`utilization/ledger.utilization_stats_for_pod`) and the scheduler's
+headroom events. The JAX report's SLO and placement-decision rows belong
+to planes the port does not have; their keys are absent from `--json`,
+and `--explain-dir` is refused.
 
 Exit codes: 0 ok, 1 no matching trace, 2 usage error.
 """
@@ -85,11 +87,14 @@ def compile_cache_rows(tl: assemble.Timeline) -> list[dict]:
 def pod_report(tl: assemble.Timeline, steps_dir: str, pod: str) -> dict:
     """The `--pod --json` document."""
     from vtpu_manager_torch.telemetry.aggregate import step_stats_for_pod
+    from vtpu_manager_torch.utilization import utilization_stats_for_pod
     return {"timeline": tl.to_wire(),
             "critical_path": assemble.critical_path(tl),
             "steps": step_stats_for_pod(steps_dir, tl.trace_id,
                                         tl.pod_uid or pod),
             "compile_cache": compile_cache_rows(tl),
+            "utilization": utilization_stats_for_pod(
+                steps_dir, tl.trace_id, tl.pod_uid or pod),
             "placement_headroom": [
                 {"node": s.attrs.get("node", ""),
                  "signal": s.attrs.get("signal"),
@@ -119,6 +124,13 @@ def _print_pod(tl: assemble.Timeline, doc: dict) -> None:
             hint = "  <- this tenant compiled; replicas hit"
         print(f"  compile-cache: {c['outcome']} "
               f"({c['dur_s'] * 1000:.3f} ms, key {c['key']})" + hint)
+    for u in doc["utilization"]:
+        print(f"  utilization [{u['container']}]: "
+              f"used {u['used_core_pct']:.1f}% of "
+              f"{u['allocated_core_pct']:.0f}% quota  "
+              f"throttle-wait {u['throttle_wait_frac'] * 100:.1f}%  "
+              f"hbm-hw {u['hbm_highwater_bytes']}"
+              f"/{u['allocated_hbm_bytes']}")
     for h in doc["placement_headroom"]:
         sig = (f"reclaimable {h['reclaim_core_pct']}% core on the node"
                if h.get("signal") else "no headroom signal")

@@ -178,11 +178,19 @@
 //     when the step is kStepCapNs old (a tenant that never synchronises
 //     still writes a record a second).
 // The interposer's own calls go through the real driver, never a boundary.
-// A record holds the step's start and duration, the throttle wait
-// (vtpu_throttle_wait_ns_total) since the last record, the slot's HBM
+// A record holds the step's start and duration, its wait, the slot's HBM
 // high-water (the most the cap granted at once) and `compiled` when the
 // step launched a CUfunction or CUgraphExec seen for the first time (a
 // kernel Triton or Inductor just loaded; the reference's first_execute).
+// The wait of a step the bucket charged (a metered tenant's) is its time
+// off the card: its duration less the device time charged since the last
+// record. The bucket's own wait (vtpu_throttle_wait_ns_total) would not
+// do: a launch waits while the tenant's earlier kernels still run, and a
+// kernel waits behind co-tenants' time slices inside the step, so duration
+// less the bucket's wait read a throttled tenant as nearly idle and a
+// time-sliced one as busier than the card time it took. An unmetered step
+// keeps the bucket's wait (none). vtpu_step_wait_ns_total sums the waits
+// the records took.
 // One writer per ring: a Python writer arms after the interposer's on many
 // tenants (bench_steps launches before it calls step_telemetry()), so
 // runtime/client.py first calls vtpu_step_ring_release(), which closes this
@@ -1472,6 +1480,8 @@ int g_step_slot = 0;
 bool g_step_compiled = false;
 bool g_step_replay = false;
 uint64_t g_step_wait_ns = 0;  // the throttle wait at the last record
+int64_t g_step_charged_ns = 0;  // the charged device time at the last record
+std::atomic<uint64_t> g_step_wait_total_ns{0};  // the waits the records took
 std::unordered_set<CostKey> g_step_keys;
 std::atomic<uint64_t> g_step_records{0};
 
@@ -1487,6 +1497,7 @@ int ArmRing() {
     if (w->ok()) {
       g_ring = w;
       g_step_wait_ns = g_throttle_wait_ns.load(std::memory_order_relaxed);
+      g_step_charged_ns = g_charged_ns.load(std::memory_order_relaxed);
       state = kRingArmed;
       Log(kLogInfo, "step ring %s: this process writes it from index %llu",
           path, (unsigned long long)w->writes());
@@ -1505,14 +1516,20 @@ void CloseStepLocked(uint64_t end_ns) {
   uint64_t wait = g_throttle_wait_ns.load(std::memory_order_relaxed);
   uint64_t wait_delta = wait >= g_step_wait_ns ? wait - g_step_wait_ns : 0;
   g_step_wait_ns = wait;
+  uint64_t dur = end_ns > g_step_start_ns ? end_ns - g_step_start_ns : 0;
+  int64_t charged = g_charged_ns.load(std::memory_order_relaxed);
+  uint64_t on_card = charged > g_step_charged_ns
+                         ? (uint64_t)(charged - g_step_charged_ns) : 0;
+  g_step_charged_ns = charged;
+  if (on_card > 0) wait_delta = dur > on_card ? dur - on_card : 0;
+  g_step_wait_total_ns.fetch_add(wait_delta, std::memory_order_relaxed);
   int64_t peak = PeakBytes(g_step_slot);
   // the comm block: what was moved since the last record (zeros unarmed)
   CommWindow comm = TakeCommWindow();
   // the spill block: the overflow tier's bytes now, its grants and time
   SpillWindow spill = TakeSpillWindow();
-  g_ring->Record(g_step_start_ns,
-                 end_ns > g_step_start_ns ? end_ns - g_step_start_ns : 0,
-                 wait_delta, peak > 0 ? (uint64_t)peak : 0, g_step_compiled,
+  g_ring->Record(g_step_start_ns, dur, wait_delta,
+                 peak > 0 ? (uint64_t)peak : 0, g_step_compiled,
                  comm.time_ns, comm.bytes, comm.collectives,
                  spill.spilled_bytes, spill.spill_events, spill.time_ns);
   g_step_records.fetch_add(1, std::memory_order_relaxed);
@@ -1964,6 +1981,12 @@ VTPU_EXPORT int64_t vtpu_charged_ns_total() {
 
 VTPU_EXPORT uint64_t vtpu_throttle_wait_ns_total() {
   return g_throttle_wait_ns.load(std::memory_order_relaxed);
+}
+
+// The waits the interposer's ring records took: a metered step's time off
+// the card, an unmetered step's bucket wait (see "Steps").
+VTPU_EXPORT uint64_t vtpu_step_wait_ns_total() {
+  return g_step_wait_total_ns.load(std::memory_order_relaxed);
 }
 
 // Samples taken in a sampling window of this tenant's own, and the time

@@ -383,7 +383,8 @@ void PrintCounters() {
       "vtpu_graph_launches_total",  "vtpu_captured_launches_total",
       "vtpu_windows_total",         "vtpu_stand_aside_ns_total",
       "vtpu_clocked_total",         "vtpu_quota_reloads_total",
-      "vtpu_freeze_wait_ns_total",  "vtpu_quota_epoch"};
+      "vtpu_freeze_wait_ns_total",  "vtpu_quota_epoch",
+      "vtpu_step_wait_ns_total"};
   printf("COUNTERS");
   for (const char* name : kNames) {
     auto fn = reinterpret_cast<int64_t (*)()>(dlsym(RTLD_DEFAULT, name));

@@ -2,7 +2,7 @@
 what it uses, as Prometheus gauges.
 
 The port of the JAX package's `metrics/collector.py:19-651`, less the
-planes that are not ported (the utilization ledger, SLO attribution). One scrape reads, all node-local:
+plane that is not ported (SLO attribution). One scrape reads, all node-local:
 each container's `vtpu.config` (its limits), the memory ledger (bytes in
 use, per process), the watcher's feed (the card's duty cycle and each
 tenant's attributed share, the calibration block), kubelet's view of who
@@ -10,9 +10,12 @@ holds devices (the pod-resources socket and the checkpoint, to flag a
 config directory kubelet does not vouch for), the step rings (per-pod
 histograms and the node's pressure; with `comm_enabled`, CommTelemetry's
 `vtpu_tenant_comm_*` families from the rings' comm block), the compile
-cache's counters, with `overcommit_enabled` (HBMOvercommit) the node's
-spill series (the rings' spill block and the host pool's files), and its
-own duration and per-feed read errors.
+cache's counters, with `utilization_enabled` (UtilizationLedger) the
+`vtpu_utilization_*` and `vtpu_reclaimable_*` families from a budgeted
+fold of the utilization ledger (`utilization/ledger.py`), with
+`overcommit_enabled` (HBMOvercommit) the node's spill series (the same
+ledger's fold of the rings' spill block, and the host pool's files), and
+its own duration and per-feed read errors.
 """
 
 from __future__ import annotations
@@ -80,7 +83,8 @@ class NodeCollector:
                  kubelet_checkpoint: str | None = None,
                  comm_enabled: bool = False,
                  overcommit_enabled: bool = False,
-                 spill_dir: str = consts.SPILL_DIR):
+                 spill_dir: str = consts.SPILL_DIR,
+                 utilization_enabled: bool = False):
         self.node_name = node_name
         self.chips = chips
         self.base_dir = base_dir
@@ -112,19 +116,28 @@ class NodeCollector:
         # off renders none of them (the gate-off contract)
         self.comm_enabled = comm_enabled
         self.telemetry = TenantStepTelemetry(base_dir, comm=comm_enabled)
-        # HBMOvercommit: the node's spill series, from a fold of the rings'
-        # spill block with its own cursors and the pool dir; off renders
-        # none of them (the gate-off contract)
-        self.spill_dir = spill_dir
-        self.oc_ledger = None
-        if overcommit_enabled:
-            from vtpu_manager_torch.overcommit.ledger import OvercommitLedger
-            self.oc_ledger = OvercommitLedger(chips, base_dir=base_dir,
-                                              tc_path=tc_path)
         # per-feed last-read-error flags: a wedged file must show, not
         # serve stale gauges silently
         self._feed_errors: dict[str, float] = {
             "tc_util": 0.0, "vmem": 0.0, "telemetry": 0.0}
+        # UtilizationLedger: each scrape folds the utilization ledger under
+        # a time budget (rings it could not reach are counted and folded
+        # first next time) and renders its series. HBMOvercommit's spill
+        # series read the same ledger's fold, so either gate builds it;
+        # with both off there is no ledger and no series (the gate-off
+        # contract)
+        self.util_ledger = None
+        self.util_fold_budget_s = float(
+            os.environ.get("VTPU_UTIL_FOLD_BUDGET_S", "0.25"))
+        self.utilization_enabled = utilization_enabled
+        self.overcommit_enabled = overcommit_enabled
+        self.spill_dir = spill_dir
+        if utilization_enabled or overcommit_enabled:
+            from vtpu_manager_torch.utilization import UtilizationLedger
+            self.util_ledger = UtilizationLedger(
+                node_name, chips, base_dir=base_dir, tc_path=tc_path)
+            if utilization_enabled:
+                self._feed_errors["utilization"] = 0.0
         self._last_scrape_s: float = 0.0
 
     def _kubelet_view(self, force: bool = False
@@ -491,16 +504,30 @@ class NodeCollector:
                    g_node_assigned_pmem, g_info]
         return gauges
 
+    def _render_utilization(self) -> str:
+        """The budgeted ledger fold, then with UtilizationLedger its series
+        (JAX `collector.py:563-580`). A failed or torn fold flags the
+        utilization feed and the scrape goes on: the ledger's confidence
+        decay, not a blocked scrape, keeps stale claims out."""
+        on = self.utilization_enabled
+        if on:
+            self._feed_errors["utilization"] = 0.0
+        try:
+            if self.util_ledger.fold(budget_s=self.util_fold_budget_s) \
+                    and on:
+                self._feed_errors["utilization"] = 1.0
+        except Exception:  # noqa: BLE001 - an injected util.fold included
+            if on:
+                self._feed_errors["utilization"] = 1.0
+            log.warning("utilization ledger fold failed", exc_info=True)
+        return self.util_ledger.render() if on else ""
+
     def _render_spill(self) -> str:
         """The node's spill series (JAX `collector.py:580-620`): the rings'
-        spill signal and events beside the pool directory's own bytes. A
-        failed fold costs a warning, never the scrape."""
+        spill signal and events, from the scrape's ledger fold, beside the
+        pool directory's own bytes."""
         from vtpu_manager_torch.overcommit.spill import pool_totals
-        try:
-            self.oc_ledger.fold()
-        except Exception:  # noqa: BLE001 - the scrape goes on
-            log.warning("overcommit ledger fold failed", exc_info=True)
-        frac, ring_bytes = self.oc_ledger.node_spill_signal()
+        frac, ring_bytes = self.util_ledger.node_spill_signal()
         pool_files, pool_bytes = pool_totals(self.spill_dir)
         node = f'node="{self.node_name}"'
         families = (
@@ -515,10 +542,10 @@ class NodeCollector:
              "node's spill pool directory", pool_files),
             ("vtpu_node_spill_events_total", "counter", "HBM->host "
              "demotions observed across tenant step rings",
-             self.oc_ledger.spill_events_total),
+             self.util_ledger.spill_events_total),
             ("vtpu_node_fill_events_total", "counter", "host->HBM "
              "promotions observed across tenant step rings",
-             self.oc_ledger.fill_events_total))
+             self.util_ledger.fill_events_total))
         lines = []
         for name, kind, help_text, value in families:
             lines += [f"# HELP {name} {help_text}", f"# TYPE {name} {kind}",
@@ -549,8 +576,10 @@ class NodeCollector:
         text += render_node_metrics(
             os.path.join(self.base_dir, consts.COMPILE_CACHE_SUBDIR),
             self.node_name)
-        if self.oc_ledger is not None:
-            text += self._render_spill()
+        if self.util_ledger is not None:
+            text += self._render_utilization()
+            if self.overcommit_enabled:
+                text += self._render_spill()
         # self-observability: the scrape's own duration and per-feed
         # last-error flags, rendered last so a wedged feed still reports
         self._last_scrape_s = time.perf_counter() - t0

@@ -8,8 +8,10 @@ MAX_RATIO). The class's least confident tenant scales the claim:
 ratio = 1 + (raw - 1) x confidence, so a class going stale decays to 1.0
 and a class with fewer than MIN_CLASS_TENANTS sampled tenants is 1.0.
 
-The publisher runs in the device plugin: each tick it folds the rings
-(`overcommit/ledger.py`), computes the rollup, adds the node's spill signal
+The policy reads its evidence from a utilization ledger of its own
+(`utilization/ledger.py`: `hbm_fraction_samples`, `node_spill_signal`),
+as the JAX policy does. The publisher runs in the device plugin: each tick
+it folds that ledger, computes the rollup, adds the node's spill signal
 and patches the node annotation (`consts.node_overcommit_annotation`),
 after reaping the host pool's files of dead spillers when it has a pool.
 """
@@ -45,7 +47,7 @@ def _percentile(sorted_vals: list[float], q: float) -> float:
 
 
 class OvercommitPolicy:
-    """Folds one node's evidence (an `OvercommitLedger`) into a rollup."""
+    """Folds one node's `UtilizationLedger` into a rollup."""
 
     def __init__(self, ledger, max_ratio: float = MAX_RATIO):
         self.ledger = ledger

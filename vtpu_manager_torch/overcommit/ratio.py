@@ -50,6 +50,10 @@ class NodeOvercommit:
         return stalecodec.stamp(
             f"{body}|{self.spill_frac:.4f}:{self.spilled_bytes}", self.ts)
 
+    def max_ratio(self) -> float:
+        """The widest class's ratio (the rollup's VIRT column)."""
+        return max(self.ratios.values(), default=1.0)
+
 
 def parse_overcommit(raw: str | None, now: float | None = None,
                      max_age_s: float = MAX_OVERCOMMIT_AGE_S

@@ -169,16 +169,17 @@ def _arm_torch_compile_cache() -> None:
                           os.path.join(root, "triton"))
 
 
-def _interposer_counter(symbol: str):
-    """A ctypes accessor for one of the interposer's cumulative counters,
-    or None in a process without it. The dynamic linker preloads the
-    interposer (LD_PRELOAD or /etc/ld.so.preload) into the global scope,
-    so the lookup goes there: the live counter of this very process."""
+def _interposer_counter(symbol: str, signed: bool = False):
+    """A ctypes accessor for one of the interposer's cumulative counters
+    (`signed`: an int64 one), or None in a process without it. The dynamic
+    linker preloads the interposer (LD_PRELOAD or /etc/ld.so.preload) into
+    the global scope, so the lookup goes there: the live counter of this
+    very process."""
     try:
         fn = getattr(ctypes.CDLL(None), symbol)
     except (OSError, AttributeError):
         return None
-    fn.restype = ctypes.c_uint64
+    fn.restype = ctypes.c_int64 if signed else ctypes.c_uint64
     fn.argtypes = []
     fn()     # a broken export fails here, not at every step
     return fn
@@ -213,20 +214,31 @@ class _ShimWaitStepRing:
     """A StepRingWriter that charges each record the interposer's token
     wait since the previous record (`vtpu_throttle_wait_ns_total`): the
     wait hides inside the step's launches, where the step loop cannot see
-    it. A caller's explicit throttle_wait_ns is kept. With CommTelemetry's
+    it. A step the interposer charged (`charged_fn`,
+    `vtpu_charged_ns_total`: a metered tenant's) records its time off the
+    card instead, its duration less the device time charged since the
+    previous record, as the interposer's own records take it
+    (`csrc/shim/enforce_rate.cc CloseStepLocked`): a launch waits in the
+    bucket while the step's earlier kernels still run, and a kernel waits
+    behind co-tenants' time slices, so the bucket's wait read against the
+    duration says nothing of the card time the step took. A caller's
+    explicit throttle_wait_ns is kept. With CommTelemetry's
     counters (`comm_fns`), each record also gets the copies and
     collectives the interposer measured since the previous one, and with
     the overflow tier's (`spill_fill_fn`) the time it spent there, as the
     JAX writer charges them (`runtime/client.py:243-310`)."""
 
     __slots__ = ("ring", "_wait_total_fn", "_last_wait_ns", "_comm_fns",
-                 "_last_comm", "_spill_fill_fn", "_last_spill_fill_ns")
+                 "_last_comm", "_spill_fill_fn", "_last_spill_fill_ns",
+                 "_charged_fn", "_last_charged_ns")
 
     def __init__(self, ring, wait_total_fn, comm_fns=None,
-                 spill_fill_fn=None):
+                 spill_fill_fn=None, charged_fn=None):
         self.ring = ring
         self._wait_total_fn = wait_total_fn
         self._last_wait_ns = int(wait_total_fn())
+        self._charged_fn = charged_fn
+        self._last_charged_ns = int(charged_fn()) if charged_fn else 0
         self._comm_fns = comm_fns
         self._last_comm = tuple(int(fn()) for fn in comm_fns) \
             if comm_fns else (0, 0, 0)
@@ -251,12 +263,19 @@ class _ShimWaitStepRing:
     def record(self, duration_ns: int, throttle_wait_ns: int | None = None,
                hbm_highwater_bytes: int = 0, compiled: bool = False,
                start_mono_ns: int | None = None) -> None:
+        on_card = None
+        if self._charged_fn is not None:
+            charged = int(self._charged_fn())
+            on_card = max(0, charged - self._last_charged_ns)
+            self._last_charged_ns = charged
         if throttle_wait_ns is None:
             total = int(self._wait_total_fn())
             # a reloaded interposer starts again at 0: a negative delta
             # re-baselines and never reaches the ring
             throttle_wait_ns = max(0, total - self._last_wait_ns)
             self._last_wait_ns = total
+            if on_card:
+                throttle_wait_ns = max(0, duration_ns - on_card)
         comm_ns, comm_bytes, collectives = self._comm_deltas()
         spill_fill_ns = 0
         if self._spill_fill_fn is not None:
@@ -316,7 +335,9 @@ def step_telemetry():
         if wait_fn is not None:
             _step_telemetry = _ShimWaitStepRing(
                 _step_telemetry, wait_fn, comm_fns=_interposer_comm_sources(),
-                spill_fill_fn=_interposer_spill_fill_source())
+                spill_fill_fn=_interposer_spill_fill_source(),
+                charged_fn=_interposer_counter("vtpu_charged_ns_total",
+                                               signed=True))
         import atexit
         atexit.register(_step_telemetry.close)
     except (OSError, ValueError) as e:

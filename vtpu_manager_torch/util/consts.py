@@ -162,6 +162,13 @@ def node_overcommit_annotation() -> str:
     return _ann("node-overcommit")
 
 
+def node_reclaimable_headroom_annotation() -> str:
+    """The node's reclaimable-headroom rollup,
+    `<idx>:<alloc>:<used>:<reclaim>:<reclaim_hbm>;...@<ts>`
+    (utilization/headroom.py), published under UtilizationLedger."""
+    return _ann("node-reclaimable-headroom")
+
+
 def node_cache_keys_annotation() -> str:
     """The node's warm compile-cache entries,
     `<endpoint>|<fp>=<entry_key>,...@<ts>` hottest first

@@ -25,6 +25,7 @@ FAULT_INJECTION = "FaultInjection"      # the failpoint registry
 CLIENT_MODE = "ClientMode"              # the registry socket's pid sets
 QUOTA_MARKET = "QuotaMarket"            # the workload class in Allocate
 HBM_OVERCOMMIT = "HBMOvercommit"        # virtual memory + the host overflow
+UTILIZATION_LEDGER = "UtilizationLedger"  # per-tenant used vs allocated
 
 _KNOWN = {
     TC_WATCHER: False,
@@ -53,6 +54,11 @@ _KNOWN = {
     # node's spill budget, and the interposer serves an allocation past
     # the card's physical memory from host memory within both
     HBM_OVERCOMMIT: False,
+    # the node folds the step rings, the configs and the watcher's feed
+    # into each tenant's used against allocated share: the exporter's
+    # vtpu_utilization_* / vtpu_reclaimable_* series and /utilization, and
+    # the device plugin's reclaimable-headroom annotation
+    UTILIZATION_LEDGER: False,
 }
 
 
