@@ -189,9 +189,25 @@ result line:
    within 15 points of 50; the host-offload demo over a 1 GiB model in
    pinned host memory, under a 512 MiB cap, finishes, agrees with the
    CPU within 3e-2, and the most the cap granted at once stays under it;
-   `vtpu_inspect` shows the lease tenant's current epoch and lease. The
-   lease tenant's `attn_block` launches are added to the kernel
-   record's. One `QUOTA_LEASE {json}` line per check;
+   `vtpu_inspect` shows the lease tenant's current epoch and lease. Then
+   the node's quota market (`market`): once those pods are gone, the
+   device plugin's market and victim-cost publisher (QuotaMarket, a pass
+   every 5 s) and the exporter (UtilizationLedger and QuotaMarket) on a
+   TLS stub API server, over a throughput pod at hard 60 % taking about
+   12 % of the card and a latency-critical pod at hard 40 % running the
+   lease tenant's step back to back: after every pass the card's
+   effective quotas sum to at most 100, every config rewrite carries the
+   ledger's epoch and deltas, the lease summary decodes to the ledger's
+   active leases; the grants raise the borrower's share (each lease
+   stage within 15 points of its effective quota, read against the lease
+   check's yardstick); the lender's returning demand revokes within two
+   passes (`lender-demand`) and the borrower's share is back at 40 within
+   15 points; the borrower's interposer adopted every rewrite; the
+   victim-cost annotation marks it a borrower while leased and not after;
+   /utilization carries the lease block and its borrowed column; both
+   pods' timelines hold `quota.grant` and `quota.revoke`. The lease
+   tenant's and the borrower's `attn_block` launches are added to the
+   kernel record's. One `QUOTA_LEASE {json}` line per check;
 14. observation (`vtpu_manager_torch/bench_observation.py`): the device
    plugin starts with `VTPU_OBS_CALIBRATE=1` and calibrates the
    interposer's after-idle discount on the idle card
@@ -710,6 +726,8 @@ def monitor(torch, shim: str) -> dict:
                               for p in bm.PODS},
             "charge_rel_err": {p: running["pods"][p]["charge_rel_err"]
                                for p in bm.PODS},
+            # the idle pod's charge over its step at duty (reported: C1)
+            "idle_charge_rel": running["idle_charge"]["charge_rel"],
             # the same charge against the step back to back, first and again
             "charge_rel_b2b": {p: [running["pods"][p]["charge_rel_b2b"],
                                    running["pods"][p]["charge_rel_again"]]
@@ -789,7 +807,13 @@ def quota_lease(torch, shim: str) -> dict:
     from vtpu_manager_torch import bench_quota_lease as bl
 
     results = run_checks("quota_lease", bl.Phase, torch, shim, bl.CHECKS)
-    lease, freeze, tools = (results[c] for c in bl.CHECKS)
+    lease, freeze, tools, market = (results[c] for c in bl.CHECKS)
+    log("QUOTA_LEASE market report " + json.dumps(
+        {"card_stages": [(s["effective"], s["share"]) for s in
+                         market["stages"]], **market["report"],
+         "surge_to_revoke_s": market["surge_to_revoke_s"],
+         "adoption_ms": market["adoption_ms"], "grants": market["grants"],
+         "ledger": market["ledger"]}))
     return {"shares": {s["effective"]: s["share"] for s in lease["stages"]},
             "wait_shares": {s["effective"]: s.get("wait_share")
                             for s in lease["stages"]},
@@ -799,7 +823,11 @@ def quota_lease(torch, shim: str) -> dict:
             "offload": {k: tools["offload"][k] for k in (
                 "interposer_peak_bytes", "cap_bytes", "model_bytes",
                 "max_abs_err")},
-            "attn_block_launches": lease["attn_block_launches"]}
+            "market_shares": [(s["effective"], s["share"])
+                              for s in market["stages"]],
+            "market_revoke_passes": market["revoke_passes"],
+            "attn_block_launches": (lease["attn_block_launches"]
+                                    + market["attn_block_launches"])}
 
 
 def observation(torch, shim: str) -> dict:

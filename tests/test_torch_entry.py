@@ -111,9 +111,6 @@ def test_entry_registers_and_answers_allocate(tmp_path):
      "--lease-namespace: the reschedule controller is not ported yet"),
     (["--fake-client", "--id-store", "ids.json"],
      "--id-store: the device-id store (a GPU needs none) is not ported yet"),
-    # the gate is known (Allocate's workload class), its market manager not
-    (["--fake-client", "--feature-gates", "QuotaMarket=true"],
-     "the quota-market manager is not ported"),
 ])
 def test_entry_refuses_what_is_not_ported(tmp_path, args, message):
     res = subprocess.run(ENTRY + private_flags(tmp_path) + ["--fake-chips",

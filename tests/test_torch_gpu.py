@@ -746,6 +746,88 @@ def test_a_throttled_tenants_rings_alone_read_its_share(card, tmp_path):
         row.used_ewma, taken, row.wait_frac)
 
 
+# --- the quota market on the card ---------------------------------------------
+
+
+@pytest.mark.gpu
+def test_one_market_pass_lends_to_a_throttled_tenant(card, tmp_path):
+    """A throughput tenant at hard 60 taking about 12 % of the card (the
+    quota step, then a sleep) and a latency-critical tenant at hard 40
+    running the lease tenant's step back to back, each under the
+    interposer with its step ring where the utilization ledger reads it.
+    After one priming fold, one pass of the port's market grants the
+    borrower a lease from the lender, and every step of the borrower that
+    begins one quantum and one re-read after the pass ran under the new
+    epoch."""
+    import time
+    from pathlib import Path
+    from types import SimpleNamespace
+
+    from vtpu_manager_torch import bench_quota as bq
+    from vtpu_manager_torch import bench_quota_lease as bl
+    from vtpu_manager_torch import build, quota
+    from vtpu_manager_torch.config import vtpu_config as vc
+    from vtpu_manager_torch.util import consts
+    from vtpu_manager_torch.utilization import UtilizationLedger
+
+    world = bq.World(str(tmp_path / "node"))
+    base = tmp_path / "mgr"
+    go, stop = str(tmp_path / "go"), str(tmp_path / "stop")
+    tenants = {}
+    for uid, cls, hard, args in (
+            ("train", vc.WORKLOAD_CLASS_THROUGHPUT, 60,
+             ["--tenant", "train", "--busy-file", str(tmp_path / "never")]),
+            ("infer", vc.WORKLOAD_CLASS_LATENCY, 40, ["--tenant", "lease"])):
+        env = world.env(str(build.build_shim()), uid, hard_core=hard,
+                        uuid="GPU-market", real_memory=0)
+        cfg = vc.read_config(env[consts.ENV_CONFIG_PATH])
+        cfg.workload_class = cls
+        entry = base / f"{uid}_main"
+        vc.write_config(str(entry / "config" / "vtpu.config"), cfg)
+        ring = entry / consts.TELEMETRY_SUBDIR / consts.STEP_RING_NAME
+        ring.parent.mkdir(parents=True)
+        env.update({consts.ENV_CONFIG_PATH: str(entry / "config" /
+                                                "vtpu.config"),
+                    consts.ENV_STEP_TELEMETRY: "true",
+                    consts.ENV_STEP_RING_PATH: str(ring)})
+        tenants[uid] = bq.Tenant(uid, [
+            "-m", "vtpu_manager_torch.bench_quota_lease", *args,
+            "--go-file", go, "--stop-file", stop], env, str(tmp_path))
+    try:
+        for t in tenants.values():
+            t.line("READY", 240)
+        market = quota.QuotaMarketManager(
+            "n1", str(base), UtilizationLedger(
+                "n1", [SimpleNamespace(index=0, uuid="GPU-market")],
+                base_dir=str(base), tc_path=str(tmp_path / "none")))
+        market.util.fold()
+        Path(go).touch()
+        time.sleep(2.0)
+        market.tick()
+        passed = time.monotonic_ns()
+        time.sleep(1.0)
+        Path(stop).touch()
+        runs = {uid: t.line("STEPS ", 240) for uid, t in tenants.items()}
+        for t in tenants.values():
+            assert t.proc.wait(timeout=60) == 0
+    finally:
+        for t in tenants.values():
+            t.stop()
+    assert market.grants_total == 1, [
+        (s.pod_uid, s.used_ewma, s.wait_frac) for s in market.util.tenants()]
+    (lease,) = market.ledger.leases()
+    assert (lease["lender"], lease["borrower"]) == ("train/main",
+                                                    "infer/main")
+    epoch = vc.read_config(str(base / "infer_main" / "config" /
+                               "vtpu.config")).quota_epoch
+    assert epoch == market.ledger.epoch() == 1
+    deadline = passed + int((bl.QUANTUM_S + bl.REREAD_SLACK_S) * 1e9)
+    after = [s for s in runs["infer"]["steps"] if s[0] > deadline]
+    assert after and all(s[5] == epoch for s in after), after[:3]
+    assert runs["infer"]["vtpu_quota_reloads_total"] == 1
+    assert runs["infer"]["vtpu_core_limit"] == 40 + lease["pct"]
+
+
 # --- HBMOvercommit's overflow tier on the card --------------------------------
 
 

@@ -18,6 +18,7 @@ judging on synthetic runs.
 from __future__ import annotations
 
 import copy
+import itertools
 import os
 import statistics
 import struct
@@ -253,7 +254,11 @@ def test_a_revoke_clamps_the_tokens(tmp_path):
     the revoke to 25 clamps it to one window at 25 % (2.5 ms), so at most
     two 2 ms steps after the adoption (the first step the new epoch ends)
     run unpaced, a launch going on any balance that is not in debt
-    (without the clamp, three to five did here)."""
+    (without the clamp, three to five did here). The leftover credit pays
+    for the run of unpaced steps right after the adoption; once a step is
+    paced the bucket was in debt, and an unpaced step after that is paid
+    by credit earned at the new rate (a host that stalls the tenant inside
+    a paced step: the refill credits the stall at 25 %)."""
     base = str(tmp_path / "mgr")
     cfg = write_tenant(base, "infer", jvc.WORKLOAD_CLASS_LATENCY, 25,
                        lease=75)
@@ -270,7 +275,8 @@ def test_a_revoke_clamps_the_tokens(tmp_path):
     steps = run["steps"]
     adopted = next(i for i, s in enumerate(steps) if s[2] == 1)
     after = steps[adopted + 1:adopted + 9]
-    fast = [s for s in after if s[1] - s[0] < 1.5 * EXEC_US * 1000]
+    fast = list(itertools.takewhile(
+        lambda s: s[1] - s[0] < 1.5 * EXEC_US * 1000, after))
     assert len(after) == 8 and len(fast) <= 2, [
         (s[1] - s[0]) / 1e6 for s in after]
     assert run["vtpu_core_limit"] == 25
@@ -322,7 +328,10 @@ def _gap(steps, after_ns) -> tuple[float, tuple]:
 def test_a_freeze_parks_launches_until_the_unfreeze(tmp_path, hard):
     """The JAX migrator's freeze parks the next launch of a metered and of
     an unmetered tenant until its unfreeze; the park is freeze wait, not
-    throttle wait."""
+    throttle wait. Each rename lies between its two stamps (`Steps.at`):
+    the freeze lasted at least from the freeze's later stamp to the
+    unfreeze's earlier one, and at most from the freeze's earlier stamp
+    to the unfreeze's later one."""
     base = str(tmp_path / "mgr")
     cfg = write_tenant(base, "t1", jvc.WORKLOAD_CLASS_NONE, hard)
     tenant = Steps(tmp_path, cfg, "t1")
@@ -330,16 +339,21 @@ def test_a_freeze_parks_launches_until_the_unfreeze(tmp_path, hard):
     tenant.at(0.6, lambda: set_tenant_freeze(base, "t1", False))
     run = tenant.finish(0.3)
     steps, (frozen, thawed) = run["steps"], tenant.marks
-    held = (thawed - frozen) / 1e9
+    frozen_from, thawed_from = tenant.began
+    low, high = (thawed_from - frozen) / 1e9, (thawed - frozen_from) / 1e9
     gap, where = _gap(steps, frozen)
     # every tenant's quota tick re-reads every quantum
     slack = (QUANTUM_MS + REREAD_SLACK_MS) / 1e3 + 4 * EXEC_US / 1e6
-    # nothing ran inside the freeze but the step in flight at its rename
-    inside = [s for s in steps if frozen + int(slack * 1e9) < s[1] < thawed]
+    # nothing ran inside the freeze but the step in flight at its rename:
+    # no step began after the freeze was adopted (one quantum and a
+    # re-read after its rename) and ended before the unfreeze's writer
+    # was called
+    adopt = frozen + int((QUANTUM_MS + REREAD_SLACK_MS) * 1e6)
+    inside = [s for s in steps if adopt < s[0] and s[1] < thawed_from]
     assert not inside, [(s[0] - frozen) / 1e9 for s in inside]
-    assert abs(gap - held) <= slack, (gap, held)
+    assert low - slack <= gap <= high + slack, (gap, low, high)
     freeze_s = run["vtpu_freeze_wait_ns_total"] / 1e9
-    assert abs(freeze_s - held) <= slack, (freeze_s, held)
+    assert low - slack <= freeze_s <= high + slack, (freeze_s, low, high)
     # the throttle wait is a quota's, not the freeze's
     assert run["vtpu_throttle_wait_ns_total"] / 1e9 < 0.5 * sum(
         (s[1] - s[0]) for s in steps) / 1e9 + 0.05
@@ -406,10 +420,15 @@ def test_a_freeze_fails_open_after_its_limit(tmp_path):
 # --- the reloader's latency, through the interposer's own code --------------
 
 
-def test_the_probe_adopts_within_one_quantum_and_a_reread(tmp_path):
+def test_the_probe_adopts_within_one_quantum_and_a_reread(tmp_path,
+                                                         monkeypatch):
     """Rename-to-adoption through the interposer's QuotaReloader at its
     2 ms quantum: the p99 of 20 rewrites within one quantum and the
-    reference's re-read slack (scripts/bench_quotamarket.py:444)."""
+    reference's re-read slack (scripts/bench_quotamarket.py:444). Each
+    latency runs from a stamp taken just before the writer's rename, not
+    before the writer: the writer's fsync of its temporary file, which
+    can take tens of ms on a loaded host, comes before the rename and is
+    no part of the adoption."""
     cfg = str(tmp_path / "vtpu.config")
     c = vc.VtpuConfig(pod_uid="probe", quota_epoch=1, devices=[
         vc.DeviceConfig(uuid=UUID, total_memory=1 << 30,
@@ -420,6 +439,13 @@ def test_the_probe_adopts_within_one_quantum_and_a_reread(tmp_path):
     proc = subprocess.Popen([str(build.build_quota_probe()), cfg,
                              str(rounds)], stdout=subprocess.PIPE, text=True)
     lat_ms, seen = [], []
+    renamed: list[int] = []
+    rename = os.rename
+
+    def stamped_rename(src, dst):
+        renamed.append(time.time_ns())
+        rename(src, dst)
+    monkeypatch.setattr(os, "rename", stamped_rename)
     try:
         assert proc.stdout.readline().split() == ["READY", "1"]
         for _ in range(rounds):
@@ -427,11 +453,10 @@ def test_the_probe_adopts_within_one_quantum_and_a_reread(tmp_path):
             c.quota_epoch += 1
             c.devices[0].lease_core = 20 if c.devices[0].lease_core == 0 \
                 else 0
-            t0 = time.time_ns()
             vc.write_config(cfg, c)
             line = proc.stdout.readline().split()
             assert line and line[0] == "ADOPT", line
-            lat_ms.append((int(line[2]) - t0) / 1e6)
+            lat_ms.append((int(line[2]) - renamed[-1]) / 1e6)
             seen.append((int(line[1]), int(line[3]), int(line[4])))
         assert proc.wait(timeout=10) == 0
     finally:
@@ -441,6 +466,7 @@ def test_the_probe_adopts_within_one_quantum_and_a_reread(tmp_path):
     assert seen == [(2 + i, 20 if i % 2 == 0 else 0,
                      60 if i % 2 == 0 else 40) for i in range(rounds)]
     lat_ms.sort()
+    assert lat_ms[0] >= 0, lat_ms      # no adoption before its rename
     p99 = lat_ms[max(0, int(0.99 * rounds) - 1)]
     assert p99 <= QUANTUM_MS + REREAD_SLACK_MS, lat_ms
 

@@ -352,6 +352,83 @@ def test_a_void_window_beside_an_idle_context_of_unknown_use_keeps_windows(
         assert out[50]["share"] > out[25]["share"], (i, out)
 
 
+def run_sliced_tenant(tmp_path, shim: str, fake: str) -> dict:
+    """C1's input: a 90 % tenant of two 2 ms kernels a step (the harness's
+    `--steps`, 100 steps, a stream synchronisation each, its step ring
+    armed) beside a 50 % ledger co-tenant of 12 ms kernels that keeps the
+    card busy throughout, FAKE_TIMESLICE_US=2000, the node watcher on the
+    fake's busy counter. The tenant's parsed counters, with `charge_rel`,
+    its charge over its kernels' time less one."""
+    world = bench_quota.World(str(tmp_path / "node"))
+    state = tmp_path / "card.state"
+    state.write_bytes(b"\0" * 16)
+    ring = tmp_path / "ring"
+
+    def env_for(uid, exec_us, quota, **extra):
+        env = world.env(shim, uid, hard_core=quota)
+        env.update({"SHIM_PATH": env["LD_PRELOAD"],
+                    "VTPU_REAL_CUDA_LIBRARY_PATH": fake,
+                    "FAKE_SHARED_STATE": str(state),
+                    "FAKE_EXEC_US": str(exec_us),
+                    "FAKE_TIMESLICE_US": str(SLICE_US), **extra})
+        return env
+    watcher = TcWatcherDaemon([0], BusySampler(str(state), fake),
+                              tc_path=world.tc_path,
+                              vmem_path=world.vmem_path, interval_ms=20)
+    watcher.start()
+    busy = None
+    try:
+        busy = subprocess.Popen(
+            [str(build.build_shim_test()), "--throttle-only"],
+            env=env_for("uid-busy", EXEC_US, 50, SHIM_TEST_ITERS="150"),
+            stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+        time.sleep(0.3)
+        res = subprocess.run(
+            [str(build.build_shim_test()), "--steps"],
+            env=env_for("uid-idle", C1_EXEC_US, 90, SHIM_TEST_ITERS="100",
+                        SHIM_TEST_KERNELS=str(C1_KERNELS),
+                        SHIM_TEST_SYNC="stream",
+                        VTPU_STEP_TELEMETRY="true",
+                        VTPU_STEP_RING_PATH=str(ring)),
+            capture_output=True, text=True, timeout=120, check=False)
+        assert res.returncode == 0, res.stderr[-2000:]
+        ran_beside = busy.poll() is None
+    finally:
+        if busy is not None:
+            busy.kill()
+            busy.wait()
+        watcher.stop()
+    o = bench_quota.parse_harness(res.stdout)
+    o["beside"] = ran_beside
+    own_ns = o["vtpu_launches_total"] * C1_EXEC_US * 1000
+    o["charge_rel"] = o["vtpu_charged_ns_total"] / own_ns - 1.0
+    return o
+
+
+C1_EXEC_US, C1_KERNELS = 2000, 2
+C1_RUNS = 10
+
+
+def test_a_time_sliced_tenant_beside_long_kernels_is_charged_its_own_time(
+        tmp_path):
+    """C1's pin (ROADMAP Queue 3). An unthrottled metered tenant's 2 ms
+    kernels wait behind a ledger co-tenant's 12 ms kernels in 2 ms slices;
+    in each of C1_RUNS runs its charge lies within 5 % of its kernels'
+    time. The parent's interposer charged it 0.56-0.88 of that time in
+    about one run in ten."""
+    shim, fake = str(build.build_shim()), str(build.build_fake_driver())
+    runs = [run_sliced_tenant(tmp_path / f"run{i}", shim, fake)
+            for i in range(C1_RUNS)]
+    keys = ("charge_rel", "beside", "vtpu_launches_total",
+            "vtpu_charged_ns_total", "vtpu_windows_total",
+            "vtpu_sampled_launches_total", "vtpu_probes_total",
+            "vtpu_obs_overhead_ns", "vtpu_clocked_total",
+            "vtpu_gap_bypass_total")
+    table = [{k: o.get(k) for k in keys} for o in runs]
+    assert all(o["beside"] for o in runs), table
+    assert all(abs(o["charge_rel"]) <= CHARGE_REL for o in runs), table
+
+
 def test_the_fake_reports_the_layout_it_uses():
     """The watcher's stand-in reads the shared card through the layout the
     fake reports, which must describe a file of the card's size."""

@@ -753,8 +753,20 @@ def test_a_throttled_tenants_ring_reads_its_share(tmp_path, quota):
     (row,) = led.utilization_stats_for_pod(str(tmp_path / "mgr"), "uid-u")
     assert abs(taken - quota) <= 8.0, taken
     assert abs(row["used_core_pct"] - taken) <= 8.0, (row, taken)
-    assert [row] == jled.utilization_stats_for_pod(str(tmp_path / "mgr"),
-                                                   "uid-u")
+    # the JAX fold reads the same row but for the wait fraction: the
+    # records carry the bucket's wait apart (stepring.FLAG_BUCKET_WAIT),
+    # which the port's row gives and the JAX one, reading the time off
+    # the card, does not
+    (theirs,) = jled.utilization_stats_for_pod(str(tmp_path / "mgr"),
+                                               "uid-u")
+    dur = sum(r.duration_ns for r in records)
+    assert any(r.flags & stepring.FLAG_BUCKET_WAIT for r in records)
+    assert row["throttle_wait_frac"] == round(
+        sum(r.bucket_wait_ns for r in records) / dur, 4)
+    assert theirs["throttle_wait_frac"] == round(
+        sum(r.throttle_wait_ns for r in records) / dur, 4)
+    assert {**row, "throttle_wait_frac": None} == {
+        **theirs, "throttle_wait_frac": None}
 
 
 def test_a_time_sliced_tenants_ring_reads_its_charged_card_time(tmp_path):

@@ -74,9 +74,10 @@ PODS = {"pod-a": (50, 16, True, 0), "pod-b": (25, 8, True, 1),
 
 
 def committed_pod(name: str, chip, cores: int, memory: int,
-                  node: str = NODE) -> dict:
+                  node: str = NODE, annotations: dict | None = None) -> dict:
     """A pod as the JAX scheduler leaves it on `node`: bound, with its
-    pre-allocation and the predicate-node annotation."""
+    pre-allocation and the predicate-node annotation (and `annotations`,
+    the webhook's, beside them)."""
     from vtpu_manager_torch.device.claims import DeviceClaim, PodDeviceClaims
     claims = PodDeviceClaims()
     claims.add("main", DeviceClaim(chip.uuid, chip.index, cores, memory))
@@ -86,7 +87,7 @@ def committed_pod(name: str, chip, cores: int, memory: int,
             consts.pre_allocated_annotation(): claims.encode(),
             consts.predicate_node_annotation(): node,
             consts.compute_policy_annotation():
-                consts.COMPUTE_POLICY_FIXED}},
+                consts.COMPUTE_POLICY_FIXED, **(annotations or {})}},
         "spec": {"nodeName": node, "containers": [{"name": "main"}]},
         "status": {"phase": "Pending"}}
 
@@ -183,7 +184,7 @@ class Node:
     table seeds."""
 
     def __init__(self, root: str, shim: str, name: str = NODE, client=None,
-                 obs_calibrate: str = "0"):
+                 obs_calibrate: str = "0", split: int = SPLIT):
         from vtpu_manager_torch.client.fake import FakeKubeClient
         from vtpu_manager_torch.config.node_config import NodeConfig
         from vtpu_manager_torch.config.vmem import VmemLedger
@@ -210,7 +211,7 @@ class Node:
         self.client = client or FakeKubeClient()
         self.client.add_node({"metadata": {"name": name, "annotations": {}}})
         self.manager = DeviceManager(
-            name, self.client, node_config=NodeConfig(device_split_count=SPLIT),
+            name, self.client, node_config=NodeConfig(device_split_count=split),
             backends=[NvmlBackend()])
         self.manager.init_devices()
         t0 = time.perf_counter()
@@ -231,13 +232,22 @@ class Node:
                 obs_calibrate_mod.decode_table(table))
         self.daemon.start()
 
-    def plugin(self, step_telemetry: bool):
+    def plugin(self, step_telemetry: bool, gates: str = ""):
+        """The vtpu-number plugin, its Allocate armed by `gates` as
+        `cmd/device_plugin.main` arms it (`configure_vnum`), with the step
+        ring as `step_telemetry` says."""
+        from vtpu_manager_torch.cmd.device_plugin import configure_vnum
         from vtpu_manager_torch.deviceplugin.vnum import VnumPlugin
+        from vtpu_manager_torch.util.featuregates import FeatureGates
         p = VnumPlugin(self.manager, self.client, self.name,
                        node_config=self.manager.node_config,
                        base_dir=self.base_dir, shim_host_dir=self.driver_dir,
                        lock_dir=self.lock_dir, vmem_dir=self.vmem_dir,
                        watcher_dir=self.watcher_dir)
+        if gates:
+            fg = FeatureGates()
+            fg.parse(gates)
+            configure_vnum(p, fg)
         p.step_telemetry_enabled = step_telemetry
         return p
 

@@ -207,11 +207,11 @@ def write_checkpoint(path: str, entries: list[tuple[str, str, list[str]]]
 class Exporter:
     """The port's exporter of `node` as a subprocess on 127.0.0.1 and a
     free port, its token file and log named by `tag`; `gates` is its
-    --feature-gates."""
+    --feature-gates, and `env_extra` joins its environment."""
 
     def __init__(self, root: Path, node: ba.Node, checkpoint: str,
                  node_config: str, gates: str = "", tag: str = "monitor",
-                 extra: tuple = ()):
+                 extra: tuple = (), env_extra: dict | None = None):
         self.token_file = root / f"{tag}-token"
         self.token_file.write_text(TOKEN + "\n")
         self.log_path = root / f"{tag}.log"
@@ -219,6 +219,7 @@ class Exporter:
         env = {k: v for k, v in os.environ.items()
                if not k.startswith("VTPU_") and k != consts.ENV_LD_PRELOAD}
         env["VTPU_MAP_STARTUP_GRACE_S"] = "0"
+        env.update(env_extra or {})
         env["PYTHONPATH"] = os.pathsep.join(
             p for p in (str(REPO), os.environ.get("PYTHONPATH")) if p)
         self.env = env
@@ -602,6 +603,14 @@ class Phase:
             "mapping_source": value(samples, "vtpu_node_pod_mapping_source"),
             "feed_errors": errors, "paused_records": self.paused_counts,
             "window_s": window_s}
+        # the idle pod's charge per step over its step at its duty alone
+        # (ROADMAP Queue 3, C1): reported, not judged
+        idle = paused[IDLE_POD]
+        idle_ms = idle["charged_ns"] / 1e6 / max(idle["run_steps"], 1)
+        rec["idle_charge"] = {
+            "charged_ms_per_step": idle_ms,
+            "duty_step_ms": self.duty_s[IDLE_POD] * 1e3,
+            "charge_rel": idle_ms / (self.duty_s[IDLE_POD] * 1e3) - 1.0}
         rec["ok"] = bool(
             unauthorized == 401
             and rec["memory_total"] == chip.memory

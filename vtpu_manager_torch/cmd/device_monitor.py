@@ -5,6 +5,7 @@ Prometheus metrics.
         [--port 9394] [--metrics-token-file <file>] [--fake-chips 1]
         [--feature-gates CommTelemetry=true,HBMOvercommit=true]
         [--feature-gates UtilizationLedger=true [--fake-client]]
+        [--feature-gates UtilizationLedger=true,QuotaMarket=true]
 
 The port of the JAX package's `cmd/device_monitor.py`, served over the
 standard library (`http.server.ThreadingHTTPServer`; the card machine has
@@ -21,9 +22,10 @@ no aiohttp, grpc or protobuf):
   `cmd/device_monitor.py:249-275, 389-412, 610`), behind the same token as
   `/metrics`; `?node=` and `?pod=` cut it (`filter_document`), and a
   rollup that fails answers 503 with the error, never an empty document.
-  The cluster comes from the in-cluster API client, or from an in-memory
-  one with `--fake-client`; without either the document is this node's
-  cut. With the gate off there is no route (404);
+  The cluster comes from the in-cluster API client (the pod's service
+  account, or the token and CA under `--service-account-dir`, a flag of
+  the port's own as the device plugin's), or from an in-memory one with
+  `--fake-client`; without either the document is this node's cut. With the gate off there is no route (404);
 - `/debug/stacks` with `--debug-endpoints`: every thread's stack
   (`util/debug.format_stacks`), behind the same token as `/metrics`;
 - `/cache/entry?key=<64 hex>` with ClusterCompileCache: the raw entry
@@ -41,7 +43,11 @@ CommTelemetry renders the tenants' `vtpu_tenant_comm_*` families from
 the step rings' comm block (JAX `metrics/collector.py:78, 111-115`).
 HBMOvercommit renders the node's spill series (`vtpu_node_spill_*`, JAX
 `metrics/collector.py:580-620`) from the rings' spill block and the host
-pool beside the ledger (`<dir of --vmem-path>/spill`).
+pool beside the ledger (`<dir of --vmem-path>/spill`). QuotaMarket folds
+the node's lease ledger (`<base-dir>/quota_leases.json`) and the nodes'
+lease-summary annotations into `/utilization` (the `quota` block, each
+tenant's lent and borrowed columns, JAX `cmd/device_monitor.py:113,
+255-257`); the market itself runs in the device plugin.
 
 FaultInjection arms the failpoint registry from `VTPU_FAILPOINTS` (seed
 `VTPU_FAILPOINTS_SEED`), as the JAX monitor does; a malformed spec exits
@@ -84,7 +90,6 @@ NOT_PORTED_GATES = {
     "SLOAttribution": "SLO attribution and /slo",
     "SLOAutopilot": "the SLO autopilot and /autopilot",
     "FragObservatory": "the fragmentation observatory and /fragmentation",
-    "QuotaMarket": "the quota market",
     "HealthPlane": "the health plane",
 }
 
@@ -124,6 +129,11 @@ def parse_args(argv: list[str] | None) -> argparse.Namespace:
     ap.add_argument("--fake-client", action="store_true",
                     help="back the /utilization fan-in with an in-memory "
                     "API client (tests and demos)")
+    ap.add_argument("--service-account-dir", default=None,
+                    help="the /utilization fan-in's API token and CA (the "
+                    "API server is KUBERNETES_SERVICE_HOST:"
+                    "KUBERNETES_SERVICE_PORT; default: the pod's service "
+                    "account)")
     ap.add_argument("--debug-endpoints", action="store_true")
     ap.add_argument("-v", "--verbose", action="count", default=0)
     args = ap.parse_args(argv)
@@ -283,8 +293,10 @@ def fan_client(args):
     if args.fake_client:
         from vtpu_manager_torch.client.fake import FakeKubeClient
         return FakeKubeClient(upsert_on_patch=True)
-    from vtpu_manager_torch.client.kube import in_cluster_client
-    client = in_cluster_client()
+    from vtpu_manager_torch.client.kube import (SERVICE_ACCOUNT_DIR,
+                                                in_cluster_client)
+    client = in_cluster_client(args.service_account_dir or
+                               SERVICE_ACCOUNT_DIR)
     if client is None:
         log.warning("no in-cluster client; /utilization serves the "
                     "node-local cut only")
@@ -365,6 +377,9 @@ def main(argv: list[str] | None = None) -> int:
             overcommit=gates.enabled(fg.HBM_OVERCOMMIT),
             cluster_cache=gates.enabled(fg.CLUSTER_COMPILE_CACHE),
             comm=gates.enabled(fg.COMM_TELEMETRY),
+            # the node's lease ledger beside the configs, with the gate
+            quota_dir=(args.base_dir if gates.enabled(fg.QUOTA_MARKET)
+                       else None),
             vmem_path=args.vmem_path, spill_dir=spill_dir)
     server = ThreadingHTTPServer(
         (args.host, args.port),

@@ -12,6 +12,7 @@
         [--feature-gates FaultInjection=true] [--metrics-port 9395]
         [--feature-gates HBMOvercommit=true --spill-budget-gib 16]
         [--feature-gates UtilizationLedger=true]
+        [--feature-gates QuotaMarket=true]
 
 The port of the JAX package's `cmd/device_plugin.py:108-290`, the parts
 ported so far: discovery (NVML, or `--fake-chips N` synthetic H100s), the
@@ -50,7 +51,14 @@ node's overcommit annotation every 15 s) and the utilization ledger
 its own and patches the node's reclaimable-headroom annotation,
 `utilization/ledger.HeadroomPublisher`, JAX `cmd/device_plugin.py:532-547`;
 the overcommit policy folds another, so no two consumers share a fold's
-cursors). `--metrics-port` serves this process's
+cursors) and the quota market (QuotaMarket: Allocate stamps each tenant's
+workload class, and this agent runs `quota/market.QuotaMarketManager`
+over a utilization ledger of its own, a pass every 5 s, rewriting the
+parties' configs and publishing the node's lease summary; JAX
+`cmd/device_plugin.py:607-625`). Under QuotaMarket or HBMOvercommit this
+agent also publishes the victim-cost rollup every 15 s
+(`quota/victimcost.VictimCostPublisher`, JAX `cmd/device_plugin.py:
+627-646`). `--metrics-port` serves this process's
 resilience counters (retries, breakers, failpoint fires) on `/metrics`
 and answers 404 on any other path; 0, the default, serves nothing.
 
@@ -207,6 +215,28 @@ def comm_telemetry_on(gates) -> bool:
     return on
 
 
+def configure_vnum(vnum, gates) -> None:
+    """What the gates arm in the vtpu-number plugin's Allocate (JAX
+    `cmd/device_plugin.py:232-261`): honoured preferred ids, the workload
+    class stamped under QuotaMarket, the step ring, the comm block, the
+    compile cache and its cluster tier. ClusterCompileCache without
+    CompileCache is a configuration error, said loudly, and stays off."""
+    from vtpu_manager_torch.util import featuregates as fg
+    vnum.preferred_allocation_available = gates.enabled(fg.HONOR_PREALLOC_IDS)
+    vnum.quota_market_enabled = gates.enabled(fg.QUOTA_MARKET)
+    vnum.step_telemetry_enabled = gates.enabled(fg.STEP_TELEMETRY)
+    vnum.comm_telemetry_enabled = comm_telemetry_on(gates)
+    vnum.compile_cache_enabled = gates.enabled(fg.COMPILE_CACHE)
+    # the cluster tier lands its fetches in the node store
+    cluster_cache_on = gates.enabled(fg.CLUSTER_COMPILE_CACHE)
+    if cluster_cache_on and not vnum.compile_cache_enabled:
+        logging.getLogger("vtpu-device-plugin").warning(
+            "ClusterCompileCache=true requires CompileCache=true; the "
+            "cluster tier stays disarmed")
+        cluster_cache_on = False
+    vnum.cluster_cache_enabled = cluster_cache_on
+
+
 def start_overcommit(vnum, client, node_name: str, chips: list,
                      base_dir: str, tc_path: str, budget_gib: float,
                      interval_s: float = 15.0):
@@ -250,6 +280,44 @@ def start_headroom(client, node_name: str, chips: list, base_dir: str,
     publisher.start()
     logging.getLogger("vtpu-device-plugin").info(
         "utilization headroom publisher running")
+    return publisher
+
+
+def start_market(client, node_name: str, chips: list, base_dir: str,
+                 tc_path: str):
+    """QuotaMarket's node half (JAX `cmd/device_plugin.py:607-625`): this
+    agent, the writer of the tenants' configs, lends a card's measured
+    idle compute between them in bounded, TTL'd leases, over a
+    utilization ledger of its own (its own cursors). The restart rule
+    (`recover`) runs before the first pass. Returns the started market;
+    the caller stops it."""
+    from vtpu_manager_torch.quota import QuotaMarketManager
+    from vtpu_manager_torch.utilization import UtilizationLedger
+    market = QuotaMarketManager(
+        node_name, base_dir,
+        UtilizationLedger(node_name, chips, base_dir=base_dir,
+                          tc_path=tc_path),
+        client=client)
+    market.start()
+    logging.getLogger("vtpu-device-plugin").info(
+        "quota market manager running (ledger %s)", market.ledger.path)
+    return market
+
+
+def start_victim_costs(client, node_name: str, base_dir: str,
+                       vmem_path: str, leases: bool, spill: bool):
+    """The victim-cost rollup (JAX `cmd/device_plugin.py:627-646`), under
+    QuotaMarket (`leases`: who holds a borrow lease) or HBMOvercommit
+    (`spill`: how much of each tenant is in the host pool). Returns the
+    started publisher; the caller stops it."""
+    from vtpu_manager_torch.quota.victimcost import VictimCostPublisher
+    publisher = VictimCostPublisher(client, node_name, base_dir,
+                                    vmem_path=vmem_path,
+                                    include_leases=leases,
+                                    include_spill=spill)
+    publisher.start()
+    logging.getLogger("vtpu-device-plugin").info(
+        "victim-cost publisher running (leases=%s spill=%s)", leases, spill)
     return publisher
 
 
@@ -335,13 +403,6 @@ def main(argv: list[str] | None = None) -> int:
     except ValueError as e:
         log.error("bad --feature-gates: %s", e)
         return 2
-    if gates.enabled(fg.QUOTA_MARKET):
-        # Allocate's workload class is ported (VnumPlugin.
-        # quota_market_enabled); the market manager the gate starts
-        # (JAX cmd/device_plugin.py:614-624) is a plane, not ported
-        log.error("QuotaMarket=true: the quota-market manager is not "
-                  "ported; the interposer adopts what a market writes")
-        return 2
     if gates.enabled(fg.TRACING):
         from vtpu_manager_torch import trace
         trace.configure("plugin", spool_dir=args.trace_spool_dir,
@@ -413,18 +474,8 @@ def main(argv: list[str] | None = None) -> int:
                       lock_dir=args.lock_dir,
                       vmem_dir=os.path.dirname(args.vmem_path),
                       watcher_dir=args.watcher_dir)
-    vnum.preferred_allocation_available = gates.enabled(fg.HONOR_PREALLOC_IDS)
-    vnum.step_telemetry_enabled = gates.enabled(fg.STEP_TELEMETRY)
-    vnum.comm_telemetry_enabled = comm_telemetry_on(gates)
-    vnum.compile_cache_enabled = gates.enabled(fg.COMPILE_CACHE)
-    # the cluster tier lands its fetches in the node store: without it the
-    # gate is a configuration error, said loudly, and stays off
-    cluster_cache_on = gates.enabled(fg.CLUSTER_COMPILE_CACHE)
-    if cluster_cache_on and not vnum.compile_cache_enabled:
-        log.warning("ClusterCompileCache=true requires CompileCache=true; "
-                    "the cluster tier stays disarmed")
-        cluster_cache_on = False
-    vnum.cluster_cache_enabled = cluster_cache_on
+    configure_vnum(vnum, gates)
+    cluster_cache_on = vnum.cluster_cache_enabled
     plugins = [vnum]
     if gates.enabled(fg.CORE_PLUGIN):
         plugins.append(VcorePlugin(manager))
@@ -504,6 +555,20 @@ def main(argv: list[str] | None = None) -> int:
                          os.path.basename(consts.TC_UTIL_CONFIG)),
             args.spill_budget_gib)
 
+    market = None
+    if gates.enabled(fg.QUOTA_MARKET):
+        from vtpu_manager_torch.util import consts
+        market = start_market(
+            client, args.node_name, chips, args.base_dir,
+            os.path.join(args.watcher_dir,
+                         os.path.basename(consts.TC_UTIL_CONFIG)))
+    victim_costs = None
+    if gates.enabled(fg.QUOTA_MARKET) or gates.enabled(fg.HBM_OVERCOMMIT):
+        victim_costs = start_victim_costs(
+            client, args.node_name, args.base_dir, args.vmem_path,
+            leases=gates.enabled(fg.QUOTA_MARKET),
+            spill=gates.enabled(fg.HBM_OVERCOMMIT))
+
     registry = None
     if gates.enabled(fg.CLIENT_MODE):
         # tenants' device clients register their pids here (SO_PEERCRED
@@ -546,6 +611,10 @@ def main(argv: list[str] | None = None) -> int:
         headroom.stop()
     if overcommit is not None:
         overcommit.stop()
+    if victim_costs is not None:
+        victim_costs.stop()
+    if market is not None:
+        market.stop()
     if advertiser is not None:
         advertiser.stop()
     for server in servers:

@@ -188,9 +188,11 @@
 // do: a launch waits while the tenant's earlier kernels still run, and a
 // kernel waits behind co-tenants' time slices inside the step, so duration
 // less the bucket's wait read a throttled tenant as nearly idle and a
-// time-sliced one as busier than the card time it took. An unmetered step
-// keeps the bucket's wait (none). vtpu_step_wait_ns_total sums the waits
-// the records took.
+// time-sliced one as busier than the card time it took. Such a record
+// carries the bucket's wait apart (kStepFlagBucketWait, bucket_wait_us):
+// what says whether the bucket binds, which the quota market asks of a
+// borrower. An unmetered step keeps the bucket's wait (none).
+// vtpu_step_wait_ns_total sums the waits the records took.
 // One writer per ring: a Python writer arms after the interposer's on many
 // tenants (bench_steps launches before it calls step_telemetry()), so
 // runtime/client.py first calls vtpu_step_ring_release(), which closes this
@@ -297,6 +299,7 @@ struct DeviceBucket {
   std::atomic<uint64_t> active_since_ns{0};
   std::atomic<bool> blind{false};
   std::atomic<bool> shared{false};  // a co-tenant on the card, last tick
+  std::atomic<bool> ticked{false};  // a tick has judged `shared`
   std::atomic<bool> outside{false};  // a busy one outside the ledger
   std::atomic<bool> unseen{false};   // one outside it of unknown use
   // until when another context's slices are in the tenant's spans
@@ -839,6 +842,7 @@ void WatcherTick(uint64_t now, int64_t window_ns) {
     cs->external |= external;
     cs->others |= others;
     b.shared.store(others, std::memory_order_relaxed);
+    b.ticked.store(true, std::memory_order_relaxed);
     b.outside.store(outside, std::memory_order_relaxed);
     b.unseen.store(unseen, std::memory_order_relaxed);
     if (++cs->ticks >= kHorizonTicks) JudgeHorizon(slot);
@@ -1205,8 +1209,11 @@ void DrainLocked() {
     int64_t dur = (int64_t)(ms * 1e6);
     if (!s.key) {
       // beside a co-tenant, a span longer than an idle card's launch
-      // latency waited for the co-tenant's slice
-      if (ok && !(s.shared && dur > kIdleHostNs)) AdoptProbe(s.slot, dur);
+      // latency waited for the co-tenant's slice; the tick may have seen
+      // the co-tenant only after the probe was launched (C1)
+      bool beside =
+          s.shared || g_bucket[s.slot].shared.load(std::memory_order_relaxed);
+      if (ok && !(beside && dur > kIdleHostNs)) AdoptProbe(s.slot, dur);
     } else {
       FnCost& c = g_costs[s.key];
       c.inflight = false;
@@ -1299,7 +1306,13 @@ void ProbeLocked(int slot, CUstream stream, PFN_cuEventRecord record) {
   }
   Sample s;
   s.slot = slot;
-  s.shared = g_bucket[slot].shared.load(std::memory_order_relaxed);
+  // before the first tick nobody has looked for a co-tenant: a probe
+  // then is taken as one beside a co-tenant, whose long span is not
+  // adopted (C1: such a span, a co-tenant's slice, halved every isolated
+  // sample until the next probe, the windowed ones that seed the cost
+  // beside a co-tenant among them)
+  s.shared = g_bucket[slot].shared.load(std::memory_order_relaxed) ||
+             !g_bucket[slot].ticked.load(std::memory_order_relaxed);
   s.start = TakeEvent();
   s.end = TakeEvent();
   bool ok = s.start && s.end && record(s.start, stream) == CUDA_SUCCESS &&
@@ -1521,7 +1534,12 @@ void CloseStepLocked(uint64_t end_ns) {
   uint64_t on_card = charged > g_step_charged_ns
                          ? (uint64_t)(charged - g_step_charged_ns) : 0;
   g_step_charged_ns = charged;
-  if (on_card > 0) wait_delta = dur > on_card ? dur - on_card : 0;
+  // the bucket's own wait goes apart when the wait is the time off the card
+  int64_t bucket_wait = -1;
+  if (on_card > 0) {
+    bucket_wait = (int64_t)wait_delta;
+    wait_delta = dur > on_card ? dur - on_card : 0;
+  }
   g_step_wait_total_ns.fetch_add(wait_delta, std::memory_order_relaxed);
   int64_t peak = PeakBytes(g_step_slot);
   // the comm block: what was moved since the last record (zeros unarmed)
@@ -1531,7 +1549,8 @@ void CloseStepLocked(uint64_t end_ns) {
   g_ring->Record(g_step_start_ns, dur, wait_delta,
                  peak > 0 ? (uint64_t)peak : 0, g_step_compiled,
                  comm.time_ns, comm.bytes, comm.collectives,
-                 spill.spilled_bytes, spill.spill_events, spill.time_ns);
+                 spill.spilled_bytes, spill.spill_events, spill.time_ns,
+                 bucket_wait);
   g_step_records.fetch_add(1, std::memory_order_relaxed);
   g_step_start_ns = 0;
   g_step_compiled = false;

@@ -66,7 +66,9 @@
 //                    SHIM_TEST_NEW_AT also launches a kernel never seen
 //                    before, and step i holds (i % 3 + 1) x
 //                    SHIM_TEST_STEP_ALLOC bytes; the steps end early once
-//                    SHIM_TEST_STOP_FILE exists. Prints STEP i start_ns
+//                    SHIM_TEST_STOP_FILE exists; SHIM_TEST_IDLE_US of
+//                    sleep follows each step (outside it) until
+//                    SHIM_TEST_BUSY_FILE exists. Prints STEP i start_ns
 //                    end_ns epoch per step (CLOCK_MONOTONIC; the
 //                    interposer's quota_epoch after the step), then
 //                    STEPS records=<the interposer's> and COUNTERS
@@ -931,6 +933,8 @@ int Steps() {
   std::string sync_kind = env_str("SHIM_TEST_SYNC", "stream");
   std::string route = env_str("SHIM_TEST_ROUTE", "proc");
   std::string stop_file = env_str("SHIM_TEST_STOP_FILE", "");
+  int idle_us = env_int("SHIM_TEST_IDLE_US", 0);
+  std::string busy_file = env_str("SHIM_TEST_BUSY_FILE", "");
   bool ptsz = sync_kind == "stream_ptsz";
   const char* name = sync_kind == "ctx"     ? "cuCtxSynchronize"
                      : sync_kind == "event" ? "cuEventSynchronize"
@@ -1022,6 +1026,9 @@ int Steps() {
     uint64_t t1 = (uint64_t)ts.tv_sec * 1000000000ull + ts.tv_nsec;
     printf("STEP %d %llu %llu %lld\n", i, (unsigned long long)t0,
            (unsigned long long)t1, epoch ? (long long)epoch() : -1ll);
+    if (idle_us > 0 &&
+        (busy_file.empty() || access(busy_file.c_str(), F_OK) != 0))
+      usleep(idle_us);
   }
   printf("STEPS records=%lld\n", (long long)Counter("vtpu_step_records_total"));
   PrintCounters();

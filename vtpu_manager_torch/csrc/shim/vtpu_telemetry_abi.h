@@ -32,6 +32,11 @@ constexpr uint32_t kStepRingVersion = 4;
 constexpr int kStepRingCapacity = 256;
 constexpr int kStepTraceIdLen = 48;
 constexpr uint32_t kStepFlagCompile = 0x1;  // the step loaded new code
+// The port's bit, in the JAX layout's reserved flags: the record's
+// throttle_wait_ns is the step's time off the card, and bucket_wait_us
+// (the JAX layout's pad after flags) holds its bucket's own wait. A reader
+// that does not know the bit reads the layout as before.
+constexpr uint32_t kStepFlagBucketWait = 0x4;
 
 struct StepRingHeader {
   uint32_t magic;
@@ -56,7 +61,7 @@ struct StepRecord {
   uint64_t throttle_wait_ns;
   uint64_t hbm_highwater_bytes;
   uint32_t flags;
-  int32_t pad_;
+  uint32_t bucket_wait_us;  // with kStepFlagBucketWait, else 0
   // the spill block (v2) and the spill-fill time (v4): the overflow
   // tier's (the interposer serves no fill: fill_events stays 0); the comm
   // block (v3): CommTelemetry's, else zeros
@@ -137,7 +142,8 @@ class StepRingWriter {
               bool compiled, uint64_t comm_time_ns = 0,
               uint64_t bytes_transferred = 0, uint32_t collectives = 0,
               uint64_t spilled_bytes = 0, uint32_t spill_events = 0,
-              uint64_t spill_fill_time_ns = 0) {
+              uint64_t spill_fill_time_ns = 0,
+              int64_t bucket_wait_ns = -1) {
     if (!mm_) return;
     uint64_t index = writes_;
     StepRecord* rec = reinterpret_cast<StepRecord*>(
@@ -153,6 +159,12 @@ class StepRingWriter {
     rec->throttle_wait_ns = throttle_wait_ns;
     rec->hbm_highwater_bytes = hbm_highwater_bytes;
     rec->flags = compiled ? kStepFlagCompile : 0;
+    if (bucket_wait_ns >= 0) {
+      // carried apart: throttle_wait_ns is then the step's time off the card
+      rec->flags |= kStepFlagBucketWait;
+      uint64_t us = (uint64_t)bucket_wait_ns / 1000;
+      rec->bucket_wait_us = us > UINT32_MAX ? UINT32_MAX : (uint32_t)us;
+    }
     rec->comm_time_ns = comm_time_ns;
     rec->bytes_transferred = bytes_transferred;
     rec->collective_count = collectives;

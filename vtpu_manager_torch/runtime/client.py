@@ -221,7 +221,8 @@ class _ShimWaitStepRing:
     (`csrc/shim/enforce_rate.cc CloseStepLocked`): a launch waits in the
     bucket while the step's earlier kernels still run, and a kernel waits
     behind co-tenants' time slices, so the bucket's wait read against the
-    duration says nothing of the card time the step took. A caller's
+    duration says nothing of the card time the step took; that record
+    carries the bucket's wait apart (`bucket_wait_ns`). A caller's
     explicit throttle_wait_ns is kept. With CommTelemetry's
     counters (`comm_fns`), each record also gets the copies and
     collectives the interposer measured since the previous one, and with
@@ -268,6 +269,7 @@ class _ShimWaitStepRing:
             charged = int(self._charged_fn())
             on_card = max(0, charged - self._last_charged_ns)
             self._last_charged_ns = charged
+        bucket_wait_ns = None
         if throttle_wait_ns is None:
             total = int(self._wait_total_fn())
             # a reloaded interposer starts again at 0: a negative delta
@@ -275,6 +277,7 @@ class _ShimWaitStepRing:
             throttle_wait_ns = max(0, total - self._last_wait_ns)
             self._last_wait_ns = total
             if on_card:
+                bucket_wait_ns = throttle_wait_ns
                 throttle_wait_ns = max(0, duration_ns - on_card)
         comm_ns, comm_bytes, collectives = self._comm_deltas()
         spill_fill_ns = 0
@@ -287,7 +290,8 @@ class _ShimWaitStepRing:
                          compiled=compiled, start_mono_ns=start_mono_ns,
                          comm_time_ns=comm_ns, bytes_transferred=comm_bytes,
                          collective_count=collectives,
-                         spill_fill_time_ns=spill_fill_ns)
+                         spill_fill_time_ns=spill_fill_ns,
+                         bucket_wait_ns=bucket_wait_ns)
 
     def close(self) -> None:
         self.ring.close()

@@ -28,6 +28,7 @@ import os
 import struct
 import time
 from dataclasses import dataclass
+from typing import ClassVar
 
 from vtpu_manager_torch.config.tc_watcher import byte_range_write_lock
 
@@ -50,13 +51,14 @@ assert HEADER_SIZE == 80
 
 # record: seq u64 (per-record seqlock), index u64, start_mono_ns u64,
 # duration_ns u64, throttle_wait_ns u64, hbm_highwater_bytes u64,
-# flags u32, pad u32, spilled_bytes u64, spill_events u32,
+# flags u32, pad u32 (the port's bucket_wait_us under FLAG_BUCKET_WAIT),
+# spilled_bytes u64, spill_events u32,
 # fill_events u32 (v2 spill block, vtovc), comm_time_ns u64,
 # bytes_transferred u64, collective_count u32, pad2 u32 (v3 comm
 # block, vtcomm; zeros when CommTelemetry is off),
 # spill_fill_time_ns u64 (v4, vtslo; zeros when the spill tier never
 # measured a demotion/promotion span)
-_RECORD_FMT = "<QQQQQQIiQIIQQIIQ"
+_RECORD_FMT = "<QQQQQQIIQIIQQIIQ"
 RECORD_SIZE = struct.calcsize(_RECORD_FMT)
 assert RECORD_SIZE == 104
 
@@ -71,6 +73,11 @@ FLAG_COMPILE = 0x1           # step paid a compile / first-execute
 # streaks of it as dead-chip evidence (one errored step is a retry;
 # a streak is a chip that stopped executing).
 FLAG_EXEC_ERROR = 0x2
+# The port's bit (csrc/shim/vtpu_telemetry_abi.h kStepFlagBucketWait): the
+# record's throttle_wait_ns is the step's time off the card, and the pad
+# after the flags holds the bucket's own wait in us (`bucket_wait_us`). A
+# reader that does not know the bit reads the JAX layout as before.
+FLAG_BUCKET_WAIT = 0x4
 
 _WRITES_OFFSET = 24          # header offset of the u64 writes counter
 _TRACE_ID_OFFSET = 32
@@ -105,6 +112,17 @@ class StepRecord:
     bytes_transferred: int = 0   # bytes observed moving since last record
     collective_count: int = 0    # multi-chip dispatches since last record
     spill_fill_time_ns: int = 0  # measured host-tier spill+fill span time
+    # the port's, with FLAG_BUCKET_WAIT: set on the instance by the reader,
+    # outside the fields, so a record compares and unpacks as the JAX one
+    bucket_wait_us: ClassVar[int] = 0
+
+    @property
+    def bucket_wait_ns(self) -> int:
+        """The step's wait in the bucket: carried apart when the record's
+        throttle wait is its time off the card, else that wait."""
+        if self.flags & FLAG_BUCKET_WAIT:
+            return self.bucket_wait_us * 1000
+        return self.throttle_wait_ns
 
     @property
     def compiled(self) -> bool:
@@ -177,7 +195,8 @@ class StepRingWriter:
                comm_time_ns: int = 0, bytes_transferred: int = 0,
                collective_count: int = 0,
                spill_fill_time_ns: int = 0,
-               exec_error: bool = False) -> None:
+               exec_error: bool = False,
+               bucket_wait_ns: int | None = None) -> None:
         """Publish one step record (the hot path). Seqlock bracket per
         the shared-mmap protocol: odd seq first, payload, even seq last
         — ``seq | 1`` so a crashed writer's odd leftover can't invert
@@ -191,9 +210,14 @@ class StepRingWriter:
         self._w[seq_word] = wseq                         # odd: writing
         flags = (FLAG_COMPILE if compiled else 0) | \
             (FLAG_EXEC_ERROR if exec_error else 0)
+        bucket_us = 0
+        if bucket_wait_ns is not None:
+            # throttle_wait_ns is then the step's time off the card
+            flags |= FLAG_BUCKET_WAIT
+            bucket_us = min(bucket_wait_ns // 1000, 0xFFFFFFFF)
         payload = _RECORD.pack(wseq, index,
                                start_mono_ns, duration_ns, throttle_wait_ns,
-                               hbm_highwater_bytes, flags, 0,
+                               hbm_highwater_bytes, flags, bucket_us,
                                spilled_bytes, spill_events, fill_events,
                                comm_time_ns, bytes_transferred,
                                collective_count, 0, spill_fill_time_ns)
@@ -293,7 +317,7 @@ class StepRingReader:
                 time.sleep(0.0002)
                 continue
             (_, rec_index, start_ns, dur_ns, wait_ns, hbm, flags,
-             _pad, spilled, spills, fills, comm_ns, comm_bytes,
+             bucket_us, spilled, spills, fills, comm_ns, comm_bytes,
              collectives, _pad2, spill_fill_ns) = _RECORD.unpack_from(
                  self._mm, off)
             seq2 = self._w[off // 8]
@@ -301,9 +325,12 @@ class StepRingReader:
                 continue
             if rec_index != index:
                 return None     # lapped: slot already holds a newer step
-            return StepRecord(rec_index, start_ns, dur_ns, wait_ns, hbm,
-                              flags, spilled, spills, fills, comm_ns,
-                              comm_bytes, collectives, spill_fill_ns)
+            rec = StepRecord(rec_index, start_ns, dur_ns, wait_ns, hbm,
+                             flags, spilled, spills, fills, comm_ns,
+                             comm_bytes, collectives, spill_fill_ns)
+            if bucket_us:
+                rec.bucket_wait_us = bucket_us
+            return rec
         return None
 
     def poll(self, cursor: int) -> tuple[list[StepRecord], int, int]:

@@ -169,6 +169,23 @@ def node_reclaimable_headroom_annotation() -> str:
     return _ann("node-reclaimable-headroom")
 
 
+def node_quota_lease_annotation() -> str:
+    """The node's quota-lease summary, `<chip>:<lent>:<count>;...@<ts>`
+    (quota/market.py `encode_annotation`), published by the node's market
+    under QuotaMarket for the /utilization fan-in and vtpu-smi's lent and
+    borrowed columns."""
+    return _ann("node-quota-leases")
+
+
+def node_victim_cost_annotation() -> str:
+    """The node's preemption victim-cost rollup,
+    `<uid12>:<lease_flag>:<spill_frac>;...@<ts>` (quota/victimcost.py),
+    published under QuotaMarket or HBMOvercommit: per tenant, whether it
+    holds an active borrow lease and what share of its working set is in
+    host memory, each making it cheaper to evict."""
+    return _ann("node-victim-costs")
+
+
 def node_cache_keys_annotation() -> str:
     """The node's warm compile-cache entries,
     `<endpoint>|<fp>=<entry_key>,...@<ts>` hottest first

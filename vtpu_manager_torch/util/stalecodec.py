@@ -1,8 +1,10 @@
 """The `...@ts` staleness stamp of the node annotations the port publishes.
 
 The port of the part of the JAX package's `util/stalecodec.py` that the
-pressure annotation (`telemetry/pressure.py`) and the warm-keys annotation
-(`clustercache/advertise.py`) use: the stamp is appended
+pressure annotation (`telemetry/pressure.py`), the warm-keys annotation
+(`clustercache/advertise.py`), the quota-lease summary (`quota/market.py`)
+and the victim-cost rollup (`quota/victimcost.py`) use: the stamp is
+appended
 as `@{ts:.3f}`, split off the last `@` (a missing, non-float or non-finite
 stamp is no signal), and a stamp is fresh when `-skew <= now - ts <=
 max_age`. The scheduler decodes what the port writes with the JAX copy of

@@ -13,7 +13,11 @@ tenant's measured share of the card, keyed by owner token,
 written by the interposer or the tenant's Python writer). `used_core_pct`
 takes the feed's share where the feed has the tenant, else the ring's busy
 fraction, (duration - throttle wait) / the fold's window, as an EWMA with
-an EWMA variance beside it. A chip's reclaimable headroom is
+an EWMA variance beside it. A metered step's record holds its time off
+the card as its throttle wait and its bucket's wait apart
+(`stepring.FLAG_BUCKET_WAIT`); `throttle_wait_frac`, which the quota
+market reads as throttle-bound, is the bucket's wait over the steps'
+time, as the reference's records give it. A chip's reclaimable headroom is
 
     sum over fresh tenants of
         max(0, allocated - (used_ewma + K * sigma)) * confidence
@@ -408,7 +412,10 @@ class UtilizationLedger:
         busy_frac = 0.0
         if window_s > 0:
             busy_frac = max(0.0, dur_sum - wait_sum) / window_s
-        wait_frac = wait_sum / dur_sum if dur_sum else 0.0
+        # throttle-bound is the bucket's wait alone, never the time a
+        # metered step spends behind co-tenants' slices
+        bucket_sum = sum(r.bucket_wait_ns for r in records) / 1e9
+        wait_frac = bucket_sum / dur_sum if dur_sum else 0.0
 
         for dev in devices:
             state = self._states.get((pod_uid, container, dev.host_index))
@@ -741,6 +748,7 @@ def utilization_stats_for_pod(base_dir: str, *keys: str) -> list[dict]:
             pass
         dur_sum = sum(r.duration_ns for r in records) / 1e9
         wait_sum = sum(r.throttle_wait_ns for r in records) / 1e9
+        bucket_sum = sum(r.bucket_wait_ns for r in records) / 1e9
         span_s = 0.0
         if records:
             first = min(r.start_mono_ns for r in records)
@@ -758,6 +766,6 @@ def utilization_stats_for_pod(base_dir: str, *keys: str) -> list[dict]:
             "hbm_highwater_bytes": max(
                 (r.hbm_highwater_bytes for r in records), default=0),
             "throttle_wait_frac": round(
-                wait_sum / dur_sum, 4) if dur_sum else 0.0,
+                bucket_sum / dur_sum, 4) if dur_sum else 0.0,
         })
     return out

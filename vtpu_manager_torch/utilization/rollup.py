@@ -1,11 +1,11 @@
 """The cluster rollup: the node ledgers joined into the /utilization view.
 
 The port of the JAX package's `utilization/rollup.py` with the folds whose
-gates the port has: HBMOvercommit's ratios and spill state, the cluster
-compile cache's warm keys, CommTelemetry's rows. The quota-lease, SLO,
-autopilot, health and fragmentation folds wait for their planes; with
-their gates off the JAX rollup writes none of their keys, so the document
-is the one the JAX rollup writes.
+gates the port has: QuotaMarket's leases, HBMOvercommit's ratios and spill
+state, the cluster compile cache's warm keys, CommTelemetry's rows. The
+SLO, autopilot, health and fragmentation folds wait for their planes;
+with their gates off the JAX rollup writes none of their keys, so the
+document is the one the JAX rollup writes.
 
 The exporter serves it as `/utilization` under the UtilizationLedger gate.
 The cluster comes from the annotations the node agents already publish
@@ -53,6 +53,7 @@ class ClusterRollup:
     def __init__(self, ledger: UtilizationLedger, client=None,
                  cache_root: str | None = None,
                  fold_budget_s: float | None = None,
+                 quota_dir: str | None = None,
                  overcommit: bool = False,
                  cluster_cache: bool = False,
                  comm: bool = False,
@@ -61,6 +62,9 @@ class ClusterRollup:
         self.ledger = ledger
         self.client = client
         self.cache_root = cache_root
+        # QuotaMarket: the directory of the node's lease ledger; None
+        # (the gate off): the document carries no lease fields
+        self.quota_dir = quota_dir
         # each False: the document carries none of the gate's fields
         self.overcommit = overcommit
         self.cluster_cache = cluster_cache
@@ -138,6 +142,11 @@ class ClusterRollup:
                             and local_spilled is not None else None)
                     chips.append(row)
             row_extra = {}
+            if self.quota_dir:
+                # the raw lease summary rides to the lease fold, which
+                # pops it
+                row_extra["_quota_lease_raw"] = anns.get(
+                    consts.node_quota_lease_annotation())
             if self.overcommit:
                 row_extra["overcommit_ratios"] = \
                     dict(overcommit.ratios) if overcommit else None
@@ -231,6 +240,88 @@ class ClusterRollup:
                     })
         return rows, errors
 
+    def _fold_quota_leases(self, tenant_rows: list[dict],
+                           node_rows: list[dict],
+                           now: float) -> dict | None:
+        """The node's lease ledger folded into the tenant rows (the lent
+        and borrowed columns) and the nodes' lease summaries into the node
+        rows; the ledger file is the local truth, as the live columns
+        are."""
+        if not self.quota_dir:
+            return None
+        from vtpu_manager_torch.quota import (QuotaLeaseLedger,
+                                              parse_lease_summary)
+        from vtpu_manager_torch.quota.market import borrowed_used_verdict
+        # the remote nodes first: the raw annotation is popped whatever
+        # the local read below does
+        for nrow in node_rows:
+            summary = parse_lease_summary(
+                nrow.pop("_quota_lease_raw", None), now=now)
+            if summary is not None:
+                nrow["quota_lent_core_pct"] = sum(
+                    c["lent_core_pct"] for c in summary.values())
+                nrow["quota_leases"] = sum(
+                    c["leases"] for c in summary.values())
+        # one ledger generation for the document (a torn file loads as
+        # empty): the columns, the active list and the epoch agree
+        view = QuotaLeaseLedger(self.quota_dir).snapshot(now)
+        leases, active = view.leases, view.active
+        by_tenant_chip: dict[tuple[str, str, int], int] = {}
+        for (tenant, chip), pct in view.deltas.items():
+            uid, _, label = tenant.partition("/")
+            # summed per base container: a multi-request DRA claim's
+            # partitions share the row's key
+            key = (uid, label.split("/", 1)[0], chip)
+            by_tenant_chip[key] = by_tenant_chip.get(key, 0) + pct
+        by_row = {}
+        for row in tenant_rows:
+            key = (row.get("pod_uid", ""),
+                   str(row.get("container", "")).split("/", 1)[0],
+                   row.get("chip_index"))
+            by_row[key] = row
+            delta = by_tenant_chip.get(key)
+            if delta is None:
+                continue
+            if delta > 0:
+                row["borrowed_core_pct"] = delta
+            elif delta < 0:
+                row["lent_core_pct"] = -delta
+        # per active lease, did the borrower use what it borrowed: its
+        # used % (the ledger's, as its row carries it) through the
+        # market's own formula, so a recorded document replays it
+        borrowed_used = []
+        for lease in active:
+            uid, _, label = str(lease.get("borrower", "")).partition("/")
+            row = by_row.get((uid, label.split("/", 1)[0],
+                              lease.get("chip")))
+            pct = int(lease.get("pct", 0))
+            used = row.get("used_core_pct") if row else None
+            base = row.get("allocated_core_pct") if row else None
+            used_of_borrowed = borrowed_used_verdict(used, base, pct)
+            if used_of_borrowed is not None:
+                used_of_borrowed = round(used_of_borrowed, 2)
+            borrowed_used.append({
+                "id": lease.get("id"),
+                "chip": lease.get("chip"),
+                "borrower": lease.get("borrower"),
+                "pct": pct,
+                "used_of_borrowed_pct": used_of_borrowed,
+                "utilization": round(used_of_borrowed / pct, 3)
+                    if used_of_borrowed is not None and pct else None,
+                "live": used is not None,
+            })
+        return {
+            "leases_active": len(active),
+            "lent_core_pct_total": sum(int(l.get("pct", 0))
+                                       for l in active),
+            "epoch": int(view.epoch),
+            "leases": [{k: l.get(k) for k in
+                        ("id", "chip", "lender", "borrower", "pct",
+                         "granted_at", "ttl_s", "state")}
+                       for l in leases[-64:]],
+            "borrowed_used": borrowed_used,
+        }
+
     def _local_spilled_by_chip(self) -> "dict[int, int] | None":
         """Host-pool bytes per chip off the node's memory ledger, one scan
         (None when it cannot be read: the column shows '-')."""
@@ -321,6 +412,7 @@ class ClusterRollup:
                 if c is not None and row.get("live"):
                     row["comm_duty_frac"] = c["comm_duty_frac"]
                     row["comm_intensity"] = c["comm_intensity"]
+        quota = self._fold_quota_leases(tenant_rows, node_rows, now)
         live_nodes = [r for r in node_rows
                       if r["reclaim_core_pct"] is not None]
         doc = {
@@ -338,6 +430,8 @@ class ClusterRollup:
             },
             "errors": fold_errors + node_errors + pod_errors,
         }
+        if quota is not None:
+            doc["quota"] = quota
         if self.overcommit:
             # the fleet's view: each class's ratio spread over the
             # publishing nodes and the fleet's spill headline
